@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (treelearn_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # full width, the bench plot (~968k points)
+
+Phases (any failure exits nonzero; nothing is swallowed):
+
+1. card:     name and power limit as nvidia-smi reports them;
+2. build:    the four CUDA kernels from treelearn_tpu_torch/csrc (one nvcc per
+             source, all started together), build seconds and each kernel's
+             ptxas registers / shared memory;
+3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
+             at full model width (channels 32, 7 levels, bf16) with seed-0
+             random weights on ``make_synthetic_forest(n_trees=48, extent=60,
+             points_per_tree=16000, ground_points=200000, seed=0)``; launch
+             counts are zeroed just before and read just after, and every
+             kernel of the path must have launched; the wrappers' inputs are
+             recorded (first call of each shape) for phase 4;
+4. kernels:  each kernel against its plain PyTorch version on the inputs the
+             main path gave it in phase 3 (rulebook exact; subm conv in float32
+             with rtol 1e-4 and in bf16 within 2e-2 of the output's max
+             magnitude; verticality counts exact, moments within 1e-4 of each
+             column's scale, |dvert| <= 1e-3 after the float16 rounding but
+             on a 1e-3 share of ill-conditioned neighborhoods; found bits
+             exact), timed with CUDA events;
+5. check:    the port's pipeline on a small plot, on the card and with the
+             plain versions on the CPU, must give the same partition
+             (ARI >= 0.999) and tree count.
+
+The line before the card line's JSON trailer is ``{"kernels": [...]}``; the
+last line is the device record.  Exits nonzero without CUDA, and when run
+outside the repository (the port's package is not importable then).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import os.path as osp
+import subprocess
+import sys
+import tempfile
+import time
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+REPO = osp.dirname(osp.abspath(__file__))
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps=10, warmup=2):
+    """Mean milliseconds per call of ``fn`` on the current stream."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved, flops=0.0, dtype="float32"):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pipeline_config(forest_path, fp16=True, channels=32, num_blocks=7):
+    from treelearn_tpu_torch.config import ConfigDict, get_config
+
+    config = get_config(osp.join(REPO, "configs", "pipeline", "pipeline.yaml"))
+    config.forest_path = forest_path
+    config.pretrain = None
+    config.fp16 = fp16
+    config.model.channels = channels
+    config.model.num_blocks = num_blocks
+    config.grouping.use_hdbscan = False
+    config.save_cfg = ConfigDict.from_dict({
+        "save_formats": ["las"], "save_treewise": True,
+        "save_pointwise": False, "return_type": "original",
+        "results_dir": "results"})
+    return config
+
+
+def write_plot(root, seed, **kw):
+    import numpy as np
+
+    from treelearn_tpu_torch.data.synthetic import make_synthetic_forest
+
+    data, _ = make_synthetic_forest(seed=seed, **kw)
+    d = osp.join(root, "plot", "forest")
+    os.makedirs(d, exist_ok=True)
+    path = osp.join(d, "smoke.npz")
+    np.savez(path, points=data[:, :3].astype(np.float32), labels=data[:, 3])
+    return path, data
+
+
+class Recorder:
+    """Keeps the first input of each kernel shape and counts calls per
+    shape during the main path."""
+
+    def __init__(self):
+        self.inputs = {}
+        self.calls = {}
+
+    def __call__(self, name, args):
+        if name == "subm_conv":
+            key = (name, tuple(args["feats"].shape), tuple(args["weight"].shape),
+                   str(args["feats"].dtype))
+        elif name == "rulebook":
+            key = (name, int(args["grid"].keys.shape[0]))
+        else:
+            key = (name,)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if key not in self.inputs:
+            self.inputs[key] = {k: (v.clone() if hasattr(v, "clone") else v)
+                                for k, v in args.items()}
+
+
+def check_rulebook(rec, lib_rows):
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.hashing import encode_keys
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.sparse import build_subm_rulebook, kernel_offsets
+
+    keys = sorted(k for k in rec.inputs if k[0] == "rulebook")
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    err = 0
+    for key in keys:
+        grid = rec.inputs[key]["grid"]
+        calls = rec.calls[key]
+        got = subm_rulebook(grid)
+        want = build_subm_rulebook(grid, 3)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        err = max(err, mism)
+        if mism:
+            raise AssertionError(f"rulebook V={key[1]}: {mism} entries differ")
+        offs = kernel_offsets(3, grid.keys.device)
+        probes = torch.stack([
+            encode_keys(torch.cat([grid.coords[:, :1],
+                                   grid.coords[:, 1:] + offs[k]], 1),
+                        grid.spatial_shape) for k in range(27)])
+        ms = cuda_ms(lambda: subm_rulebook(grid))
+        plain = cuda_ms(lambda: build_subm_rulebook(grid, 3), reps=3)
+        library = cuda_ms(lambda: torch.searchsorted(grid.keys, probes))
+        v = key[1]
+        b, _ = bound(4 * v + 27 * 4 * v)
+        log(f"  rulebook V={v}: exact, kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"searchsorted {library:.4f} ms, bound {b:.4f} ms (bytes), "
+            f"{calls} call(s) on the main path")
+        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
+                          ("library_ms", library)):
+            total[name] += val * calls
+    lib_rows.append(dict(
+        name="rulebook", route="cuda",
+        source="treelearn_tpu_torch/csrc/rulebook.cu",
+        replaces="treelearn_tpu/ops/pallas_rd.py:145",
+        launches=_cuda.LAUNCHES["rulebook"], max_abs_err=float(err),
+        bound_by="bytes", **total))
+
+
+def check_subm_conv(rec, lib_rows, launches):
+    import torch
+
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv
+
+    keys = sorted((k for k in rec.inputs if k[0] == "subm_conv"),
+                  key=lambda k: (k[1][0], k[2]))
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    worst_abs, by_ops = 0.0, 0
+    for key in keys:
+        a = rec.inputs[key]
+        feats, weight, rule = a["feats"], a["weight"], a["rule"]
+        calls = rec.calls[key]
+        cin, cout = weight.shape[1], weight.shape[2]
+        # float32: same algorithm, float32 products and sums
+        f32 = subm_conv(feats.float(), weight.float(), rule)
+        r32 = plain_conv(feats.float(), weight.float(), rule)
+        torch.cuda.synchronize()
+        if not torch.allclose(f32, r32, rtol=1e-4, atol=1e-4 * float(
+                r32.abs().max().clamp(min=1e-6))):
+            raise AssertionError(f"subm_conv f32 {cin}->{cout}: max err "
+                                 f"{float((f32 - r32).abs().max())}")
+        # working type: bf16 inputs and output, float32 sums in both; the
+        # outputs differ by summation order before the final bf16 rounding
+        got = subm_conv(feats, weight, rule).float()
+        want = plain_conv(feats, weight, rule).float()
+        scale = float(want.abs().max().clamp(min=1e-6))
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / scale
+        if rel > 2e-2:
+            raise AssertionError(f"subm_conv {feats.dtype} {cin}->{cout}: "
+                                 f"max err {rel} of max |out|")
+        worst_abs = max(worst_abs, abs_err)
+        ms = cuda_ms(lambda: subm_conv(feats, weight, rule))
+        plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
+        nnz = int((rule >= 0).sum())
+        s = feats.element_size()
+        flops = 2.0 * nnz * cin * cout
+        bytes_moved = (feats.numel() * s + weight.numel() * s + rule.numel() * 4
+                       + rule.shape[1] * cout * s)
+        dtype = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
+        b, by = bound(bytes_moved, flops, dtype)
+        by_ops += by == "operations"
+        log(f"  subm_conv {dtype} V={feats.shape[0]} {cin}->{cout}: "
+            f"err {rel:.2e} of max|out|, kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+            f"bound {b:.4f} ms ({by}), {calls} call(s)")
+        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            total[name] += val * calls
+    lib_rows.append(dict(
+        name="subm_conv", route="cuda",
+        source="treelearn_tpu_torch/csrc/subm_conv.cu",
+        replaces="treelearn_tpu/ops/pallas_conv.py:355",
+        launches=launches, max_abs_err=worst_abs,
+        bound_by="operations" if by_ops * 2 >= len(keys) else "bytes",
+        library_ms=None, **total))
+
+
+def check_vert(rec, lib_rows):
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.vert import moments, moments_plain, vert_from_moments
+
+    p = rec.inputs[("vert",)]["problem"]
+    m = moments(p)
+    mp = moments_plain(p)
+    torch.cuda.synchronize()
+    v, c = vert_from_moments(m)
+    vp, cp = vert_from_moments(mp)
+    if not torch.equal(m[:, 0], mp[:, 0]):
+        raise AssertionError("verticality neighbor counts differ: "
+                             f"{int((m[:, 0] != mp[:, 0]).sum())} queries")
+    # the moments are float32 sums in another order: hold them to 1e-4 of
+    # each column's scale; the verticality derived from them must agree
+    # within 1e-3 except on a 1e-3 share of ill-conditioned neighborhoods
+    scale = mp.abs().amax(0).clamp(min=1e-12)
+    mom_err = float(((m - mp).abs() / scale).max())
+    if mom_err > 1e-4:
+        raise AssertionError(f"verticality moments differ by {mom_err}")
+    ok = cp >= 3
+    dv = (v[ok] - vp[ok]).abs()
+    err = float(dv.max()) if bool(ok.any()) else 0.0
+    far = int((dv > 1e-3).sum())
+    if far > max(1, int(1e-3 * int(ok.sum()))):
+        raise AssertionError(f"verticality: {far} queries differ by > 1e-3")
+    ms = cuda_ms(lambda: moments(p))
+    plain = cuda_ms(lambda: moments_plain(p), reps=2, warmup=1)
+    nq, nr = p.queries.shape[0], p.refs.shape[0]
+    pairs = float(m[:, 0].sum())
+    b, by = bound(12 * nr + 12 * nq + 8 * nq + 40 * nq
+                  + 4 * p.cell_start.numel(), 30.0 * pairs)
+    log(f"  vert Q={nq} R={nr}: counts exact, moments within {mom_err:.1e} of "
+        f"scale, max |dvert| {err:.2e} ({far} > 1e-3), kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
+        f"{pairs:.0f} in-radius pairs")
+    lib_rows.append(dict(
+        name="vert", route="cuda", source="treelearn_tpu_torch/csrc/vert.cu",
+        replaces="treelearn_tpu/ops/pallas_vert.py:137",
+        launches=_cuda.LAUNCHES["vert"], max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
+
+
+def check_cc(rec, lib_rows):
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.cc import found_bits, found_bits_plain
+
+    p = rec.inputs[("cc",)]["problem"]
+    got = found_bits(p)
+    want = found_bits_plain(p)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    if mism:
+        raise AssertionError(f"cc found bits differ for {mism} points")
+    ms = cuda_ms(lambda: found_bits(p))
+    plain = cuda_ms(lambda: found_bits_plain(p), reps=2, warmup=1)
+    n, c = p.pts.shape[0], p.cell_keys.shape[0]
+    b, by = bound(8 * n + 8 * n + 4 * n + 8 * c)
+    log(f"  cc N={n} cells={c}: found bits exact, kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
+    lib_rows.append(dict(
+        name="cc", route="cuda", source="treelearn_tpu_torch/csrc/cc.cu",
+        replaces="treelearn_tpu/ops/pallas_cc.py:116",
+        launches=_cuda.LAUNCHES["cc"], max_abs_err=float(mism), ms=ms,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
+
+
+def adjusted_rand(a, b):
+    """Adjusted Rand index of two labelings (numpy only)."""
+    import numpy as np
+
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    table = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
+    np.add.at(table, (ai, bi), 1)
+    comb = lambda x: (x * (x - 1) / 2.0).sum()  # noqa: E731
+    s_ij = comb(table.astype(np.float64))
+    s_a = comb(table.sum(1).astype(np.float64))
+    s_b = comb(table.sum(0).astype(np.float64))
+    expected = s_a * s_b / comb(np.float64(len(a)))
+    top = 0.5 * (s_a + s_b)
+    return 1.0 if top == expected else (s_ij - expected) / (top - expected)
+
+
+def small_plot_check(tmp):
+    """The port's pipeline on a small plot: card vs the plain versions on
+    the CPU, float32 both, same seed weights."""
+    from treelearn_tpu_torch.io.pointcloud import load_data
+    from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        root = osp.join(tmp, f"small_{dev}")
+        path, data = write_plot(root, 3, n_trees=6, extent=20,
+                                points_per_tree=800, ground_points=4000)
+        config = pipeline_config(path, fp16=False, channels=8, num_blocks=3)
+        res = run_treelearn_pipeline(config, device=dev)
+        labels = load_data(res["output_path"])[:, 3]
+        if len(labels) != len(data):
+            raise AssertionError(f"{dev}: {len(labels)} output rows for "
+                                 f"{len(data)} input points")
+        out[dev] = (labels, res["n_trees"])
+    ari = adjusted_rand(out["cuda"][0], out["cpu"][0])
+    log(f"small plot: n_trees cuda {out['cuda'][1]} cpu {out['cpu'][1]}, "
+        f"ARI {ari:.6f}")
+    if ari < 0.999 or out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError("card and CPU pipelines disagree")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n-trees", type=int, default=48)
+    ap.add_argument("--extent", type=float, default=60.0)
+    ap.add_argument("--points-per-tree", type=int, default=16000)
+    ap.add_argument("--ground-points", type=int, default=200000)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        import treelearn_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
+        return 3
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.cluster import KNN_LOG
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.time()
+
+    # 1. card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi}")
+
+    # 2. build
+    info = _cuda.build_info()
+    log(f"build: {info['build_s']:.1f} s (cached: {info['cached']})")
+    for src, text in info["ptxas"].items():
+        for line in text.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  {src}: {line.strip()}")
+
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        # 3. main path
+        path, data = write_plot(
+            tmp, args.seed, n_trees=args.n_trees, extent=args.extent,
+            points_per_tree=args.points_per_tree,
+            ground_points=args.ground_points)
+        log(f"plot: {len(data)} points, {args.n_trees} trees, "
+            f"{args.extent} m")
+        config = pipeline_config(path)
+        from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+
+        rec = Recorder()
+        _cuda.set_recorder(rec)
+        torch.cuda.reset_peak_memory_stats()
+        del KNN_LOG[:]
+        _cuda.reset_launches()
+        t0 = time.time()
+        res = run_treelearn_pipeline(config, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_cuda.LAUNCHES)
+        _cuda.set_recorder(None)
+        log(f"pipeline: {wall:.2f} s, n_points {res['n_points']}, "
+            f"n_trees {res['n_trees']}")
+        log(f"  stage seconds {json.dumps(res['stage_seconds'])}")
+        mt = res["model_timings"]
+        log(f"  voxels per level {[int(x) for x in mt['n_vox_levels']]}, "
+            f"rule nnz per level {[int(x) for x in mt['rule_nnz']]}")
+        for route, nr, nq in KNN_LOG:
+            log(f"  knn route {route}: {nr} refs, {nq} queries")
+        log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+        log(f"  launches {json.dumps(launches)}")
+        zero = [k for k, v in launches.items() if v == 0]
+        if zero:
+            raise AssertionError(f"kernels not launched on the main path: {zero}")
+        from treelearn_tpu_torch.io.pointcloud import load_data
+
+        out = load_data(res["output_path"])
+        if out.shape != (len(data), 4) or not torch.isfinite(
+                torch.from_numpy(out)).all():
+            raise AssertionError(f"full-cloud output shape {out.shape}")
+
+        # 4. kernels against their plain versions, main-path inputs
+        rows = []
+        check_rulebook(rec, rows)
+        check_subm_conv(rec, rows, launches["subm_conv"])
+        check_vert(rec, rows)
+        check_cc(rec, rows)
+        for r in rows:
+            r["launches"] = launches[r["name"]]
+        del rec
+
+        # 5. end-to-end agreement on a small plot
+        small_plot_check(tmp)
+
+    log(f"total: {time.time() - t_all:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""Each CUDA kernel of treelearn_tpu_torch against its plain PyTorch version
+on the card.  Marked ``gpu``; each test skips (inside the test, through the
+``cuda`` fixture) where no card is present.  On the card:
+
+    python -m pytest -m gpu tests/test_torch_port_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _grid(device, seed=0, n=5000, ss=(40, 40, 30), batch=2):
+    from treelearn_tpu_torch.ops.sparse import grid_from_sorted_keys
+
+    rng = np.random.default_rng(seed)
+    space = int(np.prod(ss))
+    keys = np.unique(np.concatenate([
+        b * space + rng.choice(space, n, replace=False) for b in range(batch)]))
+    return grid_from_sorted_keys(
+        torch.from_numpy(keys.astype(np.int32)).to(device), ss)
+
+
+def test_rulebook_kernel_exact(cuda):
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.sparse import build_subm_rulebook
+
+    g = _grid(cuda)
+    before = _cuda.LAUNCHES["rulebook"]
+    got = subm_rulebook(g)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["rulebook"] == before + 1
+    assert torch.equal(got, build_subm_rulebook(g, 3))
+
+
+@pytest.mark.parametrize("dtype,cin,cout", [
+    (torch.float32, 4, 32), (torch.float32, 64, 32), (torch.float32, 96, 96),
+    (torch.bfloat16, 32, 32), (torch.bfloat16, 448, 224)])
+def test_subm_conv_kernel_matches_plain(cuda, dtype, cin, cout):
+    """f32: rtol 1e-4 (summation order); bf16: 2e-2 of the output's max
+    magnitude (summation order before the final bf16 rounding)."""
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv
+
+    g = _grid(cuda, seed=1)
+    rule = subm_rulebook(g)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    v = g.n_active
+    x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
+    w = (torch.randn(27, cin, cout, generator=gen) * 0.1).to(cuda, dtype)
+    got = subm_conv(x, w, rule).float()
+    want = plain(x, w, rule).float()
+    scale = float(want.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert float((got - want).abs().max()) <= 2e-2 * scale
+    part = subm_conv(x, w, rule, n_live=v // 2)
+    assert (part[v // 2:] == 0).all()
+
+
+def test_subm_conv_wrapper_checks(cuda):
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv
+
+    x = torch.zeros(10, 4, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        subm_conv(x, torch.zeros(27, 4, 8, device=cuda),
+                  torch.zeros(27, 10, dtype=torch.int32, device=cuda))
+
+
+def _cloud(seed=0):
+    rng = np.random.default_rng(seed)
+    ground = np.column_stack([rng.uniform(0, 20, 20000),
+                              rng.uniform(0, 20, 20000),
+                              rng.normal(0, 0.03, 20000)])
+    trunks = [np.column_stack([c[0] + rng.normal(0, 0.05, 2000),
+                               c[1] + rng.normal(0, 0.05, 2000),
+                               rng.uniform(0, 8, 2000)])
+              for c in rng.uniform(2, 18, (10, 2))]
+    return np.vstack([ground] + trunks).astype(np.float32)
+
+
+def test_vert_kernel_matches_plain(cuda):
+    from treelearn_tpu_torch.ops import vert
+
+    pts = torch.from_numpy(_cloud()).to(cuda)
+    p = vert.prepare(pts, pts[::3].contiguous(), 0.6)
+    m = vert.moments(p)
+    mp = vert.moments_plain(p)
+    assert torch.equal(m[:, 0], mp[:, 0])
+    scale = mp.abs().amax(0).clamp(min=1e-12)
+    assert float(((m - mp).abs() / scale).max()) <= 1e-4
+
+
+def test_cc_kernel_matches_plain(cuda):
+    from treelearn_tpu_torch.ops import cc
+
+    xy = torch.from_numpy(_cloud(1)[:, :2].copy()).to(cuda)
+    p = cc.prepare(xy, 0.15)
+    assert torch.equal(cc.found_bits(p), cc.found_bits_plain(p))
+    labels = cc.cc_labels(xy, 0.15)
+    assert np.array_equal(labels, cc.cc_labels(xy.cpu(), 0.15))

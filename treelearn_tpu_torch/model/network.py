@@ -1,0 +1,149 @@
+"""The TreeLearn model as an ``nn.Module`` (port of
+treelearn_tpu/model/network.py; reference tree_learn/model/tree_learn.py).
+
+Input SubMConv3d (dim_coord + dim_feat -> channels, k=3) -> UBlock over
+[channels * (i+1)] * num_blocks -> BN + ReLU -> per-point gather -> two MLPs
+(semantic 2-way, offset 3-dim).  Same forward and output keys as
+``TreeLearn.apply`` (network.py:210-385).
+
+PyTorch runs eagerly, so every level works on its exact voxel count.  The
+JAX package's static ``voxel_capacity`` / ``level_capacities`` padding, the
+banded ``level_windows``, the ``fast_conv`` program variants, and the
+``CapacityOverflow`` / ``SpansOverflow`` guards and retries exist only for
+XLA's static shapes and the TPU conv's windows; they have no counterpart
+here.  The rulebook and the submanifold convs go through the CUDA kernels of
+ops/rulebook.py and ops/subm_conv.py on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.sparse import build_downsample, grid_from_sorted_keys
+from ..ops.rulebook import subm_rulebook
+from ..ops.subm_conv import subm_conv
+from ..ops.voxelize import devoxelize, voxelize_points
+from .blocks import (MLP, BatchNorm, LevelPlan, UBlock, Weight, init_bn,
+                     init_mlp, init_subm_conv, init_ublock)
+from .checkpoint import params_from_jax_numpy
+
+LOSS_MULTIPLIER_SEMANTIC = 50  # reference tree_learn.py:9
+
+
+def build_level_plans(grid, num_levels: int):
+    """Rulebooks of every U-Net level, built once per batch: the level's
+    (27, V) subm rule (kernel 1 on the card) and the downsample rulebook to
+    the next level."""
+    plans = []
+    g = grid
+    for lvl in range(num_levels):
+        rule = subm_rulebook(g)
+        if lvl < num_levels - 1:
+            rb = build_downsample(g)
+            plans.append(LevelPlan(grid=g, rule=rule, down=rb))
+            g = rb.out_grid
+        else:
+            plans.append(LevelPlan(grid=g, rule=rule, down=None))
+    return tuple(plans)
+
+
+class TreeLearn(nn.Module):
+    def __init__(self, channels: int = 32, num_blocks: int = 7,
+                 kernel_size: int = 3, dim_coord: int = 3, dim_feat: int = 1,
+                 fixed_modules: Sequence[str] = (), use_feats: bool = False,
+                 use_coords: bool = False,
+                 spatial_shape: Optional[Sequence[int]] = None,
+                 max_num_points_per_voxel: int = 3, voxel_size: float = 0.1,
+                 block_reps: int = 2, **kwargs):
+        super().__init__()
+        if kernel_size != 3:
+            raise NotImplementedError("the rulebook kernel serves k=3 only")
+        self.channels = channels
+        self.num_blocks = num_blocks
+        self.kernel_size = kernel_size
+        self.dim_coord = dim_coord
+        self.dim_feat = dim_feat
+        self.fixed_modules = tuple(fixed_modules)
+        self.use_feats = use_feats
+        self.use_coords = use_coords
+        self.spatial_shape = (tuple(int(s) for s in spatial_shape)
+                              if spatial_shape is not None else None)
+        self.max_pts = max_num_points_per_voxel
+        self.voxel_size = voxel_size
+        self.block_reps = block_reps
+        self.block_channels = [channels * (i + 1) for i in range(num_blocks)]
+        self.in_channels = dim_coord + dim_feat
+
+        self.input_conv = nn.ModuleDict(
+            {"0": Weight(kernel_size ** 3, self.in_channels, channels)})
+        self.unet = UBlock(self.block_channels, block_reps, kernel_size)
+        self.output_layer = nn.ModuleDict({"0": BatchNorm(channels)})
+        self.semantic_linear = MLP(channels, 2)
+        self.offset_linear = MLP(channels, 3)
+
+    def init_numpy(self, seed):
+        """(params, state) numpy trees from the JAX package's initializers
+        (treelearn_tpu/model/network.py:175-206) — bit-identical for the
+        same int seed or SeedSequence."""
+        ss = (seed if isinstance(seed, np.random.SeedSequence)
+              else np.random.SeedSequence(int(seed)))
+        k0, k1, k2, k3 = ss.spawn(4)
+        params, state = {}, {}
+        params["input_conv"] = {"0": init_subm_conv(
+            k0, self.kernel_size, self.in_channels, self.channels)}
+        params["unet"], state["unet"] = init_ublock(
+            k1, self.block_channels, self.block_reps, self.kernel_size)
+        bn_p, bn_s = init_bn(self.channels)
+        params["output_layer"] = {"0": bn_p}
+        state["output_layer"] = {"0": bn_s}
+        params["semantic_linear"], state["semantic_linear"] = init_mlp(
+            k2, self.channels, 2)
+        params["offset_linear"], state["offset_linear"] = init_mlp(
+            k3, self.channels, 3)
+        return params, state
+
+    def init(self, seed):
+        """Load the seed's parameters into this module; returns self."""
+        self.load_state_dict(params_from_jax_numpy(*self.init_numpy(seed)))
+        return self
+
+    def forward(self, coords: torch.Tensor, input_feats: torch.Tensor,
+                batch_ids: torch.Tensor, valid: torch.Tensor, *,
+                batch_size: int, compute_dtype=torch.float32):
+        """coords (N, 3) f32 metric, input_feats (N, F) f32, batch_ids (N,),
+        valid (N,) bool -> dict with semantic_prediction_logits (N, 2),
+        offset_predictions (N, 3), backbone_feats (N, channels) in float32,
+        plus n_voxels, n_voxels_per_level and rule_nnz_per_level."""
+        if self.spatial_shape is not None:
+            key_space = batch_size * int(np.prod(self.spatial_shape))
+            assert key_space < 2**31, (
+                f"voxel key space {key_space} overflows int32 keys "
+                f"(batch_size {batch_size} x spatial_shape "
+                f"{self.spatial_shape})")
+        vb = voxelize_points(
+            coords, input_feats, batch_ids, valid, batch_size=batch_size,
+            voxel_size=self.voxel_size, max_pts=self.max_pts,
+            spatial_shape=self.spatial_shape, use_coords=self.use_coords,
+            use_feats=self.use_feats)
+        grid0 = grid_from_sorted_keys(vb.voxel_keys, vb.spatial_shape)
+        plans = build_level_plans(grid0, self.num_blocks)
+
+        x = vb.voxel_feats.to(compute_dtype)
+        x = subm_conv(x, self.input_conv["0"].weight, plans[0].rule)
+        x = self.unet(x, plans, 0)
+        x = torch.relu(self.output_layer["0"](x))
+        backbone_feats = devoxelize(x, vb.v2p_map)
+        sem = self.semantic_linear(backbone_feats)
+        off = self.offset_linear(backbone_feats)
+        return {
+            "semantic_prediction_logits": sem.float(),
+            "offset_predictions": off.float(),
+            "backbone_feats": backbone_feats.float(),
+            "n_voxels": vb.n_voxels,
+            "n_voxels_per_level": [p.grid.n_active for p in plans],
+            "rule_nnz_per_level": [int((p.rule >= 0).sum()) for p in plans],
+        }

@@ -1,0 +1,158 @@
+"""Sparse 3D convolution engine (port of treelearn_tpu/ops/sparse.py).
+
+* Every U-Net level's active set is a :class:`SparseGrid`: sorted int32 keys
+  of exactly ``n_active`` voxels (the JAX package pads to a static capacity;
+  eager PyTorch needs no padding).
+* Submanifold conv: a (27, V) gather rulebook, one row per kernel offset in
+  ``kernel_offsets`` order.  :func:`build_subm_rulebook` and
+  :func:`subm_conv` here are the plain PyTorch versions of the rulebook and
+  subm-conv kernels (ops/rulebook.py, ops/subm_conv.py), which the model
+  calls through their wrappers.
+* Strided conv k=2 s=2 (SparseConv3d) and its inverse share one
+  :class:`DownsampleRulebook` (spconv ``indice_key`` sharing).  The JAX
+  package runs these outside Pallas (model/blocks.py:64-72), and so does the
+  port: one wide matmul, a corner select and an ``index_add_`` / gather.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .hashing import SENTINEL, decode_keys, encode_keys, lookup, sort_unique
+
+
+class SparseGrid(NamedTuple):
+    """Active voxel set of one U-Net level."""
+
+    keys: torch.Tensor      # (V,) sorted int32
+    coords: torch.Tensor    # (V, 4) int32 (b, x, y, z)
+    spatial_shape: tuple    # (X, Y, Z) python ints
+
+    @property
+    def n_active(self) -> int:
+        return self.keys.shape[0]
+
+
+def grid_from_sorted_keys(keys: torch.Tensor, spatial_shape) -> SparseGrid:
+    spatial_shape = tuple(int(s) for s in spatial_shape)
+    return SparseGrid(keys=keys, coords=decode_keys(keys, spatial_shape),
+                      spatial_shape=spatial_shape)
+
+
+def kernel_offsets(kernel_size: int, device=None) -> torch.Tensor:
+    """(K, 3) int32 offsets, lexicographic (dx slowest, dz fastest)."""
+    r = kernel_size // 2
+    ax = torch.arange(-r, kernel_size - r, dtype=torch.int32, device=device)
+    dx, dy, dz = torch.meshgrid(ax, ax, ax, indexing="ij")
+    return torch.stack([dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)], dim=1)
+
+
+def build_subm_rulebook(grid: SparseGrid, kernel_size: int = 3) -> torch.Tensor:
+    """Plain rulebook: (K, V) int32 into V, -1 = no input voxel.
+
+    out[i] = sum_k W[k] @ feat[rule[k, i]]; neighbor probes are input-gathers
+    at out + offset (torch/spconv SubMConv3d cross-correlation).  One binary
+    search of the sorted keys per (offset, voxel).
+    """
+    offs = kernel_offsets(kernel_size, grid.keys.device)
+    coords = grid.coords
+    rows = []
+    for k in range(offs.shape[0]):
+        nbr = coords.clone()
+        nbr[:, 1:] += offs[k][None, :]
+        rows.append(lookup(grid.keys, encode_keys(nbr, grid.spatial_shape)))
+    return torch.stack(rows, dim=0)
+
+
+class DownsampleRulebook(NamedTuple):
+    """Child->parent map of a k=2 s=2 strided conv and its inverse."""
+
+    parent_idx: torch.Tensor  # (V_in,) int64 into V_out, -1 = dropped child
+    corner: torch.Tensor      # (V_in,) int64 in [0, 8)
+    out_grid: SparseGrid
+
+
+def build_downsample(grid: SparseGrid) -> DownsampleRulebook:
+    """Output set + rulebook of SparseConv3d(k=2, s=2, pad=0): output dim =
+    in // 2 per axis, and children whose parent falls outside are dropped
+    (spconv's valid-window rule)."""
+    out_shape = tuple(s // 2 for s in grid.spatial_shape)
+    child = grid.coords
+    parent_xyz = child[:, 1:] // 2
+    hi = torch.tensor(out_shape, dtype=child.dtype, device=child.device)
+    valid = torch.all(parent_xyz < hi[None, :], dim=1)
+    parent_keys = encode_keys(torch.cat([child[:, :1], parent_xyz], dim=1),
+                              out_shape)
+    parent_keys = torch.where(valid, parent_keys, SENTINEL)
+    out_keys, inverse = sort_unique(parent_keys)
+    parent_idx = torch.where(valid, inverse, -1)
+    cxyz = (child[:, 1:] - parent_xyz * 2).long()
+    corner = (cxyz[:, 0] * 2 + cxyz[:, 1]) * 2 + cxyz[:, 2]
+    corner = torch.where(parent_idx >= 0, corner, 0)
+    return DownsampleRulebook(parent_idx=parent_idx, corner=corner,
+                              out_grid=grid_from_sorted_keys(out_keys,
+                                                             out_shape))
+
+
+def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
+              n_live=None) -> torch.Tensor:
+    """Plain rulebook conv: feats (V_in, Cin), weight (K, Cin, Cout),
+    rule (K, V_out) -> (V_out, Cout) in feats' dtype.
+
+    Products of the working type are summed in float32, as the CUDA kernel
+    (ops/subm_conv.py) and the Pallas kernel it replaces do; rows at or past
+    ``n_live`` (default V_out) are zero.
+    """
+    v_out = rule.shape[1]
+    cout = weight.shape[2]
+    w = weight.to(feats.dtype).float()
+    acc = torch.zeros((v_out, cout), dtype=torch.float32, device=feats.device)
+    for k in range(rule.shape[0]):
+        idx = rule[k].long()
+        m = idx >= 0
+        if not bool(m.any()):
+            continue
+        rows = torch.nonzero(m).squeeze(1)
+        acc.index_add_(0, rows, feats[idx[rows]].float() @ w[k])
+    if n_live is not None and n_live < v_out:
+        acc[n_live:] = 0
+    return acc.to(feats.dtype)
+
+
+def _corner_select(wide: torch.Tensor, corner: torch.Tensor) -> torch.Tensor:
+    return wide[torch.arange(wide.shape[0], device=wide.device), corner]
+
+
+def down_conv(feats: torch.Tensor, weight: torch.Tensor,
+              rb: DownsampleRulebook) -> torch.Tensor:
+    """Strided conv k=2 s=2: feats (V_in, Cin), weight (8, Cin, Cout) ->
+    (V_out, Cout): one wide matmul (V_in, Cin) @ (Cin, 8*Cout), a per-row
+    corner select, and an ``index_add_`` onto the parents."""
+    cin, cout = weight.shape[1], weight.shape[2]
+    w = weight.to(feats.dtype).permute(1, 0, 2).reshape(cin, 8 * cout)
+    wide = (feats @ w).reshape(-1, 8, cout)
+    contrib = _corner_select(wide, rb.corner)
+    keep = rb.parent_idx >= 0
+    out = torch.zeros((rb.out_grid.n_active, cout), dtype=feats.dtype,
+                      device=feats.device)
+    out.index_add_(0, rb.parent_idx[keep], contrib[keep])
+    return out
+
+
+def inverse_conv(coarse_feats: torch.Tensor, weight: torch.Tensor,
+                 rb: DownsampleRulebook) -> torch.Tensor:
+    """Inverse conv k=2 (SparseInverseConv3d): coarse (V_out, Cin) -> fine
+    (V_in, Cout) through the transposed rulebook; dropped children get
+    zeros."""
+    cin, cout = weight.shape[1], weight.shape[2]
+    w = weight.to(coarse_feats.dtype).permute(1, 0, 2).reshape(cin, 8 * cout)
+    keep = rb.parent_idx >= 0
+    if coarse_feats.shape[0] == 0:
+        return coarse_feats.new_zeros((rb.parent_idx.shape[0], cout))
+    gathered = coarse_feats[rb.parent_idx.clamp(min=0)]
+    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    wide = (gathered @ w).reshape(-1, 8, cout)
+    out = _corner_select(wide, rb.corner)
+    return torch.where(keep[:, None], out, torch.zeros_like(out))
