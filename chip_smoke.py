@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero; nothing is swallowed):
 
 1. card:     name and power limit as nvidia-smi reports them;
-2. build:    the four CUDA kernels from treelearn_tpu_torch/csrc (one nvcc per
+2. build:    the six CUDA kernels from treelearn_tpu_torch/csrc (one nvcc per
              source, all started together), build seconds and each kernel's
              ptxas registers / shared memory;
 3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
@@ -16,16 +16,44 @@ Phases (any failure exits nonzero; nothing is swallowed):
              counts are zeroed just before and read just after, and every
              kernel of the path must have launched; the wrappers' inputs are
              recorded (first call of each shape) for phase 4;
-4. kernels:  each kernel against its plain PyTorch version on the inputs the
-             main path gave it in phase 3 (rulebook exact; subm conv in float32
-             with rtol 1e-4 and in bf16 within 2e-2 of the output's max
-             magnitude; verticality counts exact, moments within 1e-4 of each
-             column's scale, |dvert| <= 1e-3 after the float16 rounding but
-             on a 1e-3 share of ill-conditioned neighborhoods; found bits
-             exact), timed with CUDA events;
+3b. knn:     the serving path's banded k-NN route on the main path's own
+             ``assign_remaining`` problem (its refs, the first
+             min(2^17, 2e10 / refs) of its queries, so the route is
+             ``banded``) through the public ``knn_classify``, counts zeroed
+             just before; the vote against the exact host KD-tree vote
+             (mismatches only on float-equal distance ties, at most a 1e-4
+             share); rounds, done shares, stragglers and wall time;
+4. kernels:  each kernel against its plain PyTorch version on the inputs its
+             path gave it (rulebook exact; subm conv in float32 with rtol
+             1e-4 and in bf16 within 2e-2 of the output's max magnitude;
+             verticality counts exact, moments within 1e-4 of each column's
+             scale, |dvert| <= 1e-3 after the float16 rounding but on a 1e-3
+             share of ill-conditioned neighborhoods; found bits exact; every
+             recorded k-NN pass: winners and found counts exact), timed with
+             CUDA events;
 5. check:    the port's pipeline on a small plot, on the card and with the
              plain versions on the CPU, must give the same partition
-             (ARI >= 0.999) and tree count.
+             (ARI >= 0.999) and tree count;
+6. train:    ``train_synthetic_checkpoint`` at full width (configs/_modular/
+             model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
+             the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
+             16000 points per tree, hard_frac 0.8), 4 crops, 20 steps, counts
+             zeroed just before: the rulebook, subm conv and dW kernels must
+             launch, every loss be finite and the mean of the last 5 losses
+             below that of the first 5; step time, steps/s, peak memory;
+7. grads:    on the first training step's inputs, one per shape: the dW
+             kernel against the plain dW (float32: rtol 1e-4 of max |dW|;
+             bf16: 1e-3 of max |dW|) and the conv's dx (kernel 2 with the
+             mirrored weights) against autograd through the plain conv
+             (float32: 1e-4 of max |dx|; bf16: 2e-2), timed;
+8. step:     one float32 training step at small width (channels 8, 3
+             levels), card against CPU from the same seed weights and batch:
+             the loss within rtol 1e-5, each parameter's gradient within
+             1e-3 of its max, its update within 1e-2 of the learning rate
+             wherever |g| >= 1e-3 of that max (elsewhere AdamW's first step
+             lr * g / (|g| + 1e-8) amplifies rounding noise), the running
+             statistics within 1e-4; the Linear biases before a BatchNorm,
+             whose gradient is zero in exact arithmetic, are left out.
 
 The line before the card line's JSON trailer is ``{"kernels": [...]}``; the
 last line is the device record.  Exits nonzero without CUDA, and when run
@@ -46,6 +74,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 REPO = osp.dirname(osp.abspath(__file__))
+TRAIN_STEPS = 20
+CARD = "cuda"
+MAIN_PATH_KERNELS = ("rulebook", "subm_conv", "vert", "cc")
 
 
 def log(msg):
@@ -119,6 +150,8 @@ class Recorder:
                    str(args["feats"].dtype))
         elif name == "rulebook":
             key = (name, int(args["grid"].keys.shape[0]))
+        elif name == "knn":
+            key = (name, int(args["problem"].queries.shape[0]))
         else:
             key = (name,)
         self.calls[key] = self.calls.get(key, 0) + 1
@@ -302,6 +335,306 @@ def check_cc(rec, lib_rows):
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
 
 
+class GradRecorder(Recorder):
+    """Keeps the first input of each backward kernel shape (the first
+    training step's) and counts calls per shape over the whole run."""
+
+    def __call__(self, name, args):
+        if name not in ("subm_conv_dw", "subm_conv_dx"):
+            return
+        a, b = (args["x"], args["g"]) if name == "subm_conv_dw" else (
+            args["weight"], args["g"])
+        key = (name, int(a.shape[1]) if name == "subm_conv_dw"
+               else int(a.shape[2]), int(b.shape[1]), str(b.dtype))
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if key not in self.inputs:
+            self.inputs[key] = {k: v.clone() for k, v in args.items()}
+
+
+def knn_phase(rec):
+    """Phase 3b: the banded route on the main path's assign_remaining
+    problem through the public knn_classify; returns (launches, passes
+    recorder)."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.cluster import (KNN_LOG, kdtree_knn,
+                                                 knn_classify, vote)
+
+    prob = rec.inputs[("knn_problem",)]
+    refs, labels, k = prob["ref_pts"], prob["ref_labels"], prob["k"]
+    nr = len(refs)
+    if nr <= 1 << 17:
+        raise AssertionError(f"the main path's k-NN problem has {nr} refs, "
+                             "not more than 2^17: the banded route would "
+                             "not be taken")
+    queries = prob["query_pts"][:min(1 << 17, int(2e10 // nr))]
+    nq = len(queries)
+    knn_rec = Recorder()
+    _cuda.set_recorder(knn_rec)
+    del KNN_LOG[:]
+    _cuda.reset_launches()
+    t0 = time.time()
+    got = knn_classify(refs, labels, queries, k=k, device=CARD)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _cuda.LAUNCHES["knn"]
+    _cuda.set_recorder(None)
+    (call,) = KNN_LOG
+    log(f"knn: {nr} refs x {nq} queries (of {len(prob['query_pts'])}), "
+        f"route {call.route}, {wall:.3f} s, {launches} kernel launches, "
+        f"{call.n_brute} brute-force stragglers")
+    for i, (n, cell, done, sec) in enumerate(call.rounds):
+        log(f"  round {i}: {n} queries, cell {cell:.4f} m, done {done:.4f}, "
+            f"{sec:.3f} s")
+    if call.route != "banded" or launches == 0:
+        raise AssertionError(f"banded k-NN not taken: {call}, launches "
+                             f"{launches}")
+    want = vote(labels[kdtree_knn(refs, queries, k)])
+    bad = np.flatnonzero(got != want)
+    ties = 0
+    if len(bad):
+        from scipy.spatial import cKDTree
+
+        d, _ = cKDTree(refs).query(queries[bad], k=k + 1)
+        ties = int((d[:, k] - d[:, k - 1] <= 1e-6 * d[:, k]).sum())
+    log(f"  vs exact host KD-tree vote: {len(bad)} mismatches, {ties} on "
+        f"float-equal distance ties")
+    if ties < len(bad) or len(bad) > 1e-4 * nq:
+        raise AssertionError(f"banded k-NN vote: {len(bad)} mismatches "
+                             f"({ties} ties) in {nq} queries")
+    return launches, knn_rec
+
+
+def check_knn(knn_rec, lib_rows, launches):
+    import torch
+
+    from treelearn_tpu_torch.ops.knn import knn_pass, knn_pass_plain
+
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    by_ops = 0
+    keys = sorted(k for k in knn_rec.inputs if k[0] == "knn")
+    for key in keys:
+        p = knn_rec.inputs[key]["problem"]
+        w, f = knn_pass(p)
+        wp, fp = knn_pass_plain(p)
+        torch.cuda.synchronize()
+        mism = int((w != wp).sum() + (f != fp).sum())
+        if mism:
+            raise AssertionError(f"knn pass Q={key[1]}: {mism} winners or "
+                                 "found counts differ")
+        ms = cuda_ms(lambda: knn_pass(p))
+        plain = cuda_ms(lambda: knn_pass_plain(p), reps=2, warmup=1)
+        nq, nr = p.queries.shape[0], p.refs.shape[0]
+        cand = float((p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum())
+        b, by = bound(16 * nr + 12 * nq + 24 * nq + 8 * nq, 10.0 * cand)
+        by_ops += by == "operations"
+        log(f"  knn pass Q={nq} R={nr}: winners and found counts exact, "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+            f"({by}), {cand:.0f} candidate refs")
+        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            total[name] += val
+    lib_rows.append(dict(
+        name="knn", route="cuda", source="treelearn_tpu_torch/csrc/knn.cu",
+        replaces="treelearn_tpu/ops/pallas_knn.py:125", launches=launches,
+        max_abs_err=0.0,
+        bound_by="operations" if by_ops * 2 >= len(keys) else "bytes",
+        library_ms=None, **total))
+
+
+def train_phase(tmp):
+    """Phase 6: full-width bf16 self-training; returns (info, launches,
+    recorder)."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.config import load_yaml_file
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.train.selftrain import (
+        BENCH_RECIPE, train_synthetic_checkpoint)
+
+    model_cfg = dict(load_yaml_file(osp.join(
+        REPO, "configs", "_modular", "model.yaml"))["model"])
+    rec = GradRecorder()
+    _cuda.set_recorder(rec)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.time()
+    _, info = train_synthetic_checkpoint(
+        model_cfg, cache_dir=osp.join(tmp, "selftrain"), steps=TRAIN_STEPS,
+        lr=BENCH_RECIPE["lr"], n_crops=4,
+        crop_extent=BENCH_RECIPE["crop_extent"], ppt=BENCH_RECIPE["ppt"],
+        hard_frac=BENCH_RECIPE["hard_frac"], batch_size=1, log_every=5,
+        logger=lambda m: log("  " + m), return_info=True, device=CARD,
+        compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    _cuda.set_recorder(None)
+    losses = np.asarray(info["losses"])
+    step_s = np.asarray(info["step_seconds"])
+    log(f"train: {len(losses)} steps in {wall:.2f} s (crops included), "
+        f"median step {np.median(step_s):.4f} s, "
+        f"{1.0 / np.median(step_s):.2f} steps/s (median), peak memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    log(f"  losses {[round(float(x), 3) for x in losses]}")
+    log(f"  launches {json.dumps(launches)}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {losses}")
+    if not losses[-5:].mean() < losses[:5].mean():
+        raise AssertionError(f"loss did not fall: first 5 mean "
+                             f"{losses[:5].mean()}, last 5 mean "
+                             f"{losses[-5:].mean()}")
+    zero = [k for k in ("rulebook", "subm_conv", "subm_conv_dw")
+            if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"kernels not launched in training: {zero}")
+    return info, launches, rec
+
+
+def check_grads(rec, lib_rows, launches, n_steps):
+    """Phase 7: dW kernel and the conv's dx against their plain versions at
+    every recorded shape; times per training step."""
+    import torch
+
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv,
+                                                   subm_conv_dw)
+
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    worst = 0.0
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
+        a = rec.inputs[key]
+        x, g, rule = a["x"], a["g"], a["rule"]
+        per_step = rec.calls[key] / n_steps
+        got = subm_conv_dw(x.float(), g.float(), rule)
+        want = plain_dw(x.float(), g.float(), rule)
+        got16 = subm_conv_dw(x, g, rule)
+        want16 = plain_dw(x, g, rule)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max().clamp(min=1e-12))
+        err32 = float((got - want).abs().max()) / scale
+        scale16 = float(want16.abs().max().clamp(min=1e-12))
+        abs16 = float((got16 - want16).abs().max())
+        if err32 > 1e-4 or abs16 > 1e-3 * scale16:
+            raise AssertionError(f"subm_conv_dw {key}: f32 err {err32}, "
+                                 f"bf16 err {abs16 / scale16} of max |dW|")
+        worst = max(worst, abs16)
+        ms = cuda_ms(lambda: subm_conv_dw(x, g, rule))
+        plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
+        nnz = int((rule >= 0).sum())
+        cin, cout = x.shape[1], g.shape[1]
+        s = x.element_size()
+        b, _ = bound(x.numel() * s + g.numel() * s + rule.numel() * 4
+                     + 27 * cin * cout * 4, 2.0 * nnz * cin * cout,
+                     "bfloat16")
+        log(f"  subm_conv_dw {key[3]} V={x.shape[0]} {cin}x{cout}: f32 err "
+            f"{err32:.1e}, bf16 err {abs16 / scale16:.1e} of max |dW|, "
+            f"kernel {ms:.4f} ms ({2.0 * nnz * cin * cout / ms / 1e9:.1f} "
+            f"TFLOP/s), plain {plain:.4f} ms, bound {b:.4f} ms, "
+            f"{per_step:.1f} call(s) per step")
+        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            total[name] += val * per_step
+    lib_rows.append(dict(
+        name="subm_conv_dw", route="cuda",
+        source="treelearn_tpu_torch/csrc/subm_conv_dw.cu",
+        replaces="treelearn_tpu/ops/pallas_conv.py:438", launches=launches,
+        max_abs_err=worst, bound_by="operations", library_ms=None, **total))
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
+        a = rec.inputs[key]
+        g, w, rule = a["g"], a["weight"], a["rule"]
+        for dtype, tol in ((torch.float32, 1e-4), (g.dtype, 2e-2)):
+            gg, ww = g.to(dtype), w.to(dtype)
+            got = subm_conv(gg, mirrored(ww), rule).float()
+            x0 = torch.zeros((rule.shape[1], w.shape[1]), dtype=dtype,
+                             device=g.device, requires_grad=True)
+            (want,) = torch.autograd.grad(
+                (plain_conv(x0, ww, rule).float() * gg.float()).sum(), x0)
+            want = want.float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max()) / float(
+                want.abs().max().clamp(min=1e-12))
+            if err > tol:
+                raise AssertionError(f"dx {key} {dtype}: err {err} of max")
+        ms = cuda_ms(lambda: subm_conv(g, mirrored(w), rule))
+        log(f"  dx {key[3]} V={g.shape[0]} {key[1]}<-{key[2]}: matches "
+            f"autograd of the plain conv, kernel {ms:.4f} ms, "
+            f"{rec.calls[key] / n_steps:.1f} call(s) per step")
+
+
+def train_step_check(tmp):
+    """Phase 8: one float32 step at small width, card against CPU."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.data import TreeDataset, collate_padded
+    from treelearn_tpu_torch.data.synthetic import (make_crop_npz,
+                                                    make_synthetic_forest,
+                                                    verticality_proxy)
+    from treelearn_tpu_torch.model import TreeLearn
+    from treelearn_tpu_torch.train.loop import build_optimizer, make_train_step
+
+    d = osp.join(tmp, "step_crop")
+    os.makedirs(d)
+    data, _ = make_synthetic_forest(n_trees=4, extent=12,
+                                    points_per_tree=1500, ground_points=6000,
+                                    seed=5)
+    data[:, :2] -= data[:, :2].mean(0)
+    make_crop_npz(osp.join(d, "c.npz"), data, verticality_proxy(data))
+    batch = collate_padded([TreeDataset(d, inner_square_edge_length=10.0,
+                                        training=True)[0]])
+    cfg = dict(channels=8, num_blocks=3, spatial_shape=[256, 256, 128],
+               use_coords=True, use_feats=True)
+    lr = 1e-3
+    out = {}
+    for dev in (CARD, "cpu"):
+        model = TreeLearn(**cfg).init(0).to(dev)
+        opt, sch = build_optimizer(model.parameters(), {
+            "type": "AdamW", "lr": lr, "weight_decay": 1e-3})
+        step = make_train_step(model, opt, sch, batch_size=1,
+                               compute_dtype=torch.float32,
+                               grad_norm_clip=True, device=dev)
+        loss, _ = step(batch)
+        out[dev] = (float(loss),
+                    {k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()},
+                    {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()})
+    init = TreeLearn(**cfg).init(0).state_dict()
+    worst_g = worst_u = worst_s = 0.0
+    for k, g_cpu in out["cpu"][2].items():
+        if k.endswith("_linear.0.bias"):
+            continue      # zero in exact arithmetic: both sides hold noise
+        scale = max(float(g_cpu.abs().max()), 1e-12)
+        err_g = float((out[CARD][2][k] - g_cpu).abs().max()) / scale
+        # AdamW's first step is lr * g / (|g| + 1e-8): only where |g| is
+        # well above the rounding noise does it not amplify that noise
+        strong = g_cpu.abs() >= max(1e-3 * scale, 1e-6)
+        du = (out[CARD][1][k] - init[k]) - (out["cpu"][1][k] - init[k])
+        err_u = float(du[strong].abs().max()) if bool(strong.any()) else 0.0
+        if err_g > 1e-3 or err_u > 1e-2 * lr:
+            raise AssertionError(f"train step card vs CPU: {k}: gradient "
+                                 f"err {err_g} of max, update err {err_u}")
+        worst_g, worst_u = max(worst_g, err_g), max(worst_u, err_u)
+    for k, v in out["cpu"][1].items():
+        if k.endswith(("running_mean", "running_var")):
+            err_s = float((out[CARD][1][k] - v).abs().max())
+            if err_s > 1e-4:
+                raise AssertionError(f"train step card vs CPU: {k} differs "
+                                     f"by {err_s}")
+            worst_s = max(worst_s, err_s)
+    rel = abs(out[CARD][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    log(f"train step card vs CPU: loss {out[CARD][0]:.6f} vs "
+        f"{out['cpu'][0]:.6f} (rel {rel:.1e}); gradients within "
+        f"{worst_g:.1e} of each tensor's max; updates where |g| >= 1e-3 of "
+        f"max within {worst_u:.2e} (lr {lr}); running stats within "
+        f"{worst_s:.1e}; {int(batch['n_points'])} points")
+    if rel > 1e-5:
+        raise AssertionError("train step losses differ")
+
+
 def adjusted_rand(a, b):
     """Adjusted Rand index of two labelings (numpy only)."""
     import numpy as np
@@ -413,11 +746,12 @@ def main():
         mt = res["model_timings"]
         log(f"  voxels per level {[int(x) for x in mt['n_vox_levels']]}, "
             f"rule nnz per level {[int(x) for x in mt['rule_nnz']]}")
-        for route, nr, nq in KNN_LOG:
-            log(f"  knn route {route}: {nr} refs, {nq} queries")
+        for call in KNN_LOG:
+            log(f"  knn route {call.route}: {call.n_refs} refs, "
+                f"{call.n_queries} queries")
         log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} B")
         log(f"  launches {json.dumps(launches)}")
-        zero = [k for k, v in launches.items() if v == 0]
+        zero = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
         if zero:
             raise AssertionError(f"kernels not launched on the main path: {zero}")
         from treelearn_tpu_torch.io.pointcloud import load_data
@@ -427,6 +761,9 @@ def main():
                 torch.from_numpy(out)).all():
             raise AssertionError(f"full-cloud output shape {out.shape}")
 
+        # 3b. the banded k-NN route on the main path's own problem
+        knn_launches, knn_rec = knn_phase(rec)
+
         # 4. kernels against their plain versions, main-path inputs
         rows = []
         check_rulebook(rec, rows)
@@ -435,10 +772,20 @@ def main():
         check_cc(rec, rows)
         for r in rows:
             r["launches"] = launches[r["name"]]
-        del rec
+        check_knn(knn_rec, rows, knn_launches)
+        del rec, knn_rec
 
         # 5. end-to-end agreement on a small plot
         small_plot_check(tmp)
+
+        # 6. training at full width; 7. its backward kernels
+        info, train_launches, grad_rec = train_phase(tmp)
+        check_grads(grad_rec, rows, train_launches["subm_conv_dw"],
+                    len(info["losses"]))
+        del grad_rec
+
+        # 8. one training step, card against CPU
+        train_step_check(tmp)
 
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -113,3 +113,106 @@ def test_cc_kernel_matches_plain(cuda):
     assert torch.equal(cc.found_bits(p), cc.found_bits_plain(p))
     labels = cc.cc_labels(xy, 0.15)
     assert np.array_equal(labels, cc.cc_labels(xy.cpu(), 0.15))
+
+
+def _knn_problem(device, seed=0, nr=40000, nq=20000, cell=0.5):
+    from treelearn_tpu_torch.ops.knn import prepare_pass
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, 30, (40, 3)) * np.array([1, 1, 0.3])
+    refs = np.concatenate([c + rng.normal(0, 0.6, (nr // 40, 3))
+                           for c in centers]).astype(np.float32)
+    labels = np.repeat(np.arange(1, 41), nr // 40)
+    queries = (rng.uniform(0, 30, (nq, 3))
+               * np.array([1, 1, 0.3])).astype(np.float32)
+    return prepare_pass(torch.from_numpy(refs).to(device),
+                        torch.from_numpy(labels).to(device),
+                        torch.from_numpy(queries).to(device), cell, 5)
+
+
+def test_knn_kernel_matches_plain(cuda):
+    """Winners and found counts exact (same rounding of d2, same tie
+    order)."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.knn import knn_pass, knn_pass_plain
+
+    p = _knn_problem(cuda)
+    before = _cuda.LAUNCHES["knn"]
+    w, f = knn_pass(p)
+    wp, fp = knn_pass_plain(p)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["knn"] == before + 1
+    assert torch.equal(f, fp)
+    assert torch.equal(w, wp)
+    assert 0 < int((f == 5).sum()) < f.numel()
+
+
+def test_knn_classify_banded_route_on_card(cuda, monkeypatch):
+    """The public route on the card against the exact host KD-tree vote
+    (ties aside: 1e-3 share)."""
+    from treelearn_tpu_torch.ops import cluster as pc
+
+    monkeypatch.setenv("TL_KNN_SMALL_REFS", "1000")
+    rng = np.random.default_rng(1)
+    refs = rng.uniform(0, 20, (30000, 3)).astype(np.float32)
+    labels = rng.integers(0, 50, 30000)
+    queries = rng.uniform(0, 20, (10000, 3)).astype(np.float32)
+    del pc.KNN_LOG[:]
+    got = pc.knn_classify(refs, labels, queries, k=5, device=cuda)
+    assert pc.KNN_LOG[0].route == "banded"
+    want = pc.vote(labels[pc.kdtree_knn(refs, queries, 5)])
+    assert (got != want).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype,cin,cout", [
+    (torch.float32, 4, 32), (torch.float32, 96, 64),
+    (torch.bfloat16, 32, 32), (torch.bfloat16, 224, 224)])
+def test_subm_conv_dw_kernel_matches_plain(cuda, dtype, cin, cout):
+    """f32: rtol 1e-4 of max |dW| (summation order); bf16 inputs: 1e-3 of
+    max |dW| (float32 sums of the same bf16 products, in another order).
+    Two launches give the same bits (no atomics)."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv_dw
+
+    g_ = _grid(cuda, seed=2)
+    rule = subm_rulebook(g_)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    v = g_.n_active
+    x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
+    g = torch.randn(v, cout, generator=gen).to(cuda, dtype)
+    before = _cuda.LAUNCHES["subm_conv_dw"]
+    got = subm_conv_dw(x, g, rule)
+    again = subm_conv_dw(x, g, rule)
+    want = plain(x, g, rule)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["subm_conv_dw"] == before + 2
+    assert torch.equal(got, again)
+    scale = float(want.abs().max())
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert float((got - want).abs().max()) <= tol * scale
+
+
+def test_subm_conv_fn_grads_match_plain_autograd(cuda):
+    """SubmConvFn's dx (kernel 2, mirrored weights) and dW (kernel 3)
+    against autograd through the plain conv, float32: 1e-4 of the max."""
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.subm_conv import SubmConvFn
+
+    g_ = _grid(cuda, seed=3)
+    rule = subm_rulebook(g_)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn(g_.n_active, 16, generator=gen).to(cuda)
+    w = (torch.randn(27, 16, 24, generator=gen) * 0.1).to(cuda)
+    cot = torch.randn(g_.n_active, 24, generator=gen).to(cuda)
+    grads = []
+    for fn in (SubmConvFn.apply, plain):
+        xx = x.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        (fn(xx, ww, rule) * cot).sum().backward()
+        grads.append((xx.grad, ww.grad))
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())

@@ -4,7 +4,6 @@ state_dict keys, and the forward pass on a synthetic crop."""
 import os.path as osp
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -138,8 +137,36 @@ def test_forward_bf16_runs_and_tracks_f32():
 
 
 def test_batchnorm_refuses_training_mode():
+    """A frozen BatchNorm (``fixed_modules``) refuses training-mode batch
+    statistics: in train() it normalises with its running statistics and
+    leaves them alone, as apply_bn(frozen=True) does; an unfrozen one takes
+    the batch's."""
+    from treelearn_tpu.model.blocks import apply_bn
+    from treelearn_tpu_torch.model import TreeLearn
     from treelearn_tpu_torch.model.blocks import BatchNorm
 
+    rng = np.random.default_rng(0)
+    x = rng.normal(2.0, 3.0, (50, 4)).astype(np.float32)
+    p = {"weight": rng.normal(size=4).astype(np.float32),
+         "bias": rng.normal(size=4).astype(np.float32)}
+    s = {"running_mean": rng.normal(size=4).astype(np.float32),
+         "running_var": rng.uniform(0.5, 2, 4).astype(np.float32)}
     bn = BatchNorm(4)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(3, 4))
+    bn.load_state_dict({**{k: torch.from_numpy(v) for k, v in {**p, **s}.items()},
+                        "num_batches_tracked": torch.tensor(0)})
+    bn.frozen = True
+    bn.train()
+    got = bn(torch.from_numpy(x))
+    want, _ = apply_bn(p, s, jnp.asarray(x), jnp.ones(50, bool),
+                       training=True, frozen=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(bn.running_mean, torch.from_numpy(s["running_mean"]))
+    assert int(bn.num_batches_tracked) == 0
+    bn.frozen = False
+    assert float(bn(torch.from_numpy(x)).mean().abs()) < 5.0
+    assert int(bn.num_batches_tracked) == 1
+    model = TreeLearn(**CFG, fixed_modules=["unet"])
+    assert all(m.frozen for m in model.unet.modules()
+               if isinstance(m, BatchNorm))
+    assert not model.output_layer["0"].frozen

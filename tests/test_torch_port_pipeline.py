@@ -99,7 +99,8 @@ def test_pipeline_matches_jax(tmp_path, whole_plot, monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of treelearn_tpu_torch (and chip_smoke.py) imports
-    without pulling in jax or treelearn_tpu."""
+    without pulling in jax or treelearn_tpu, the k-NN and training modules
+    included."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -112,6 +113,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'treelearn_tpu' or m.startswith('treelearn_tpu.')]\n"
         "assert not bad, bad\n"
+        "new = ['ops.knn', 'train.losses', 'train.loop', 'train.selftrain',\n"
+        "       'eval.evaluation', 'tools.train']\n"
+        "missing = [m for m in new if 'treelearn_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('treelearn_tpu_torch')]))\n")
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)

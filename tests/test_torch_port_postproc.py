@@ -144,17 +144,26 @@ def test_knn_host_routes_match_jax(env, route, monkeypatch):
     del pc.KNN_LOG[:]
     got = pc.knn_classify(refs, labels, queries, k=5)
     np.testing.assert_array_equal(got, want)
-    assert pc.KNN_LOG == [(route, 500, 300)]
+    assert [c[:3] for c in pc.KNN_LOG] == [(route, 500, 300)]
 
 
 def test_knn_banded_route_raises(monkeypatch):
-    from treelearn_tpu_torch.ops.cluster import knn_classify
+    """The banded route is the one k-NN route that needs the device: it
+    raises without a card unless device='cpu', and on the CPU answers the
+    JAX package's vote (its host KD-tree here)."""
+    from treelearn_tpu.ops.cluster import knn_classify as jknn
+    from treelearn_tpu_torch.ops import cluster as pc
 
     monkeypatch.setenv("TL_KNN_SMALL_REFS", "100")
     monkeypatch.setenv("TL_KNN_KDTREE_MIN_PAIRS", "1e9")
     refs, labels, queries = _knn_case(1, 500, 300)
-    with pytest.raises(NotImplementedError, match="B.5"):
-        knn_classify(refs, labels, queries, k=5)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pc.knn_classify(refs, labels, queries, k=5)
+    del pc.KNN_LOG[:]
+    got = pc.knn_classify(refs, labels, queries, k=5, device="cpu")
+    assert pc.KNN_LOG[0].route == "banded"
+    np.testing.assert_array_equal(got, jknn(refs, labels, queries, k=5))
 
 
 def test_instances_match_jax(monkeypatch):

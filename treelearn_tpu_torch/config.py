@@ -123,6 +123,8 @@ def get_args(args=None) -> argparse.Namespace:
     parser.add_argument("--resume", type=str, help="path to resume from")
     parser.add_argument("--work_dir", type=str, help="working directory")
     parser.add_argument("--dist", action="store_true", help="distributed training")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (default) or cpu")
     return parser.parse_args(args)
 
 

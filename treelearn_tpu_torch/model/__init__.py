@@ -1,4 +1,4 @@
-from .network import LOSS_MULTIPLIER_SEMANTIC, TreeLearn, build_level_plans  # noqa: F401
+from .network import TreeLearn, build_level_plans  # noqa: F401
 from .checkpoint import (  # noqa: F401
     jax_numpy_from_state_dict,
     load_checkpoint,

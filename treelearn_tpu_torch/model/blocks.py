@@ -8,6 +8,12 @@ Parity targets (reference tree_learn/model/blocks.py):
   shortcut (blocks.py:42-79)
 * ``UBlock`` — recursive U-Net level (blocks.py:81-149)
 
+Every submanifold conv goes through ``SubmConvFn`` (ops/subm_conv.py), so
+the model trains with the CUDA forward, dx and dW kernels on the card.  The
+down/inverse convs stay plain PyTorch (a wide matmul, a corner select and
+``index_add_`` / a gather), which autograd differentiates, as the JAX
+package leaves them to XLA.
+
 Submodule names reproduce the reference ``state_dict`` keys
 (``unet.blocks.block0.conv_branch.2.weight``, ...).  Conv weights keep the
 JAX package's layouts: submanifold (27, Cin, Cout) in kernel-offset order,
@@ -29,7 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.sparse import DownsampleRulebook, SparseGrid, down_conv, inverse_conv
-from ..ops.subm_conv import subm_conv
+from ..ops.subm_conv import SubmConvFn
 
 BN_EPS = 1e-4       # reference tree_learn.py:34
 BN_MOMENTUM = 0.1   # reference tree_learn.py:34
@@ -168,11 +174,14 @@ class Weight(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm1d over voxel/point rows with eps 1e-4; the reference's
-    buffers, and the JAX package's dtype behavior (apply_bn,
-    blocks.py:149-176): scale and shift cast to the activation dtype, the
-    inverse std computed in float32 first.  Inference only: training-mode
-    batch statistics come with the training slice."""
+    """BatchNorm1d over voxel/point rows with eps 1e-4 and momentum 0.1; the
+    reference's buffers, and the JAX package's behavior (apply_bn,
+    blocks.py:149-176): in training mode float32 statistics over the live
+    rows only (``live``, default every row), the biased variance to
+    normalise and the unbiased one into ``running_var``; in eval mode, or
+    when ``frozen`` (``fixed_modules``), the running statistics.  Scale and
+    shift are cast to the activation dtype, the inverse std computed in
+    float32 first."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -182,14 +191,28 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.frozen = False
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm: training-mode statistics are not ported yet; "
-                "call model.eval()")
-        inv = torch.rsqrt(self.running_var + BN_EPS).to(x.dtype)
-        return ((x - self.running_mean.to(x.dtype)) * inv
+    def forward(self, x, live: Optional[torch.Tensor] = None):
+        if self.training and not self.frozen:
+            if live is None:
+                live = torch.ones(x.shape[0], dtype=torch.bool,
+                                  device=x.device)
+            xf = x.float()
+            livef = live.float()[:, None]
+            cnt = torch.clamp(livef.sum(), min=1.0)
+            mean = (xf * livef).sum(0) / cnt
+            var = (torch.square(xf - mean) * livef).sum(0) / cnt
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+                self.running_var.mul_(1 - BN_MOMENTUM).add_(
+                    BN_MOMENTUM * unbiased)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + BN_EPS).to(x.dtype)
+        return ((x - mean.to(x.dtype)) * inv
                 * self.weight.to(x.dtype) + self.bias.to(x.dtype))
 
 
@@ -210,8 +233,8 @@ class MLP(nn.ModuleDict):
         super().__init__({"0": Linear(c_in, c_in), "1": BatchNorm(c_in),
                           "3": Linear(c_in, c_out)})
 
-    def forward(self, x):
-        return self["3"](torch.relu(self["1"](self["0"](x))))
+    def forward(self, x, live: Optional[torch.Tensor] = None):
+        return self["3"](torch.relu(self["1"](self["0"](x), live)))
 
 
 class ResidualBlock(nn.Module):
@@ -229,9 +252,9 @@ class ResidualBlock(nn.Module):
     def forward(self, x, rule):
         cb = self.conv_branch
         y = torch.relu(cb["0"](x))
-        y = subm_conv(y, cb["2"].weight, rule)
+        y = SubmConvFn.apply(y, cb["2"].weight, rule)
         y = torch.relu(cb["3"](y))
-        y = subm_conv(y, cb["5"].weight, rule)
+        y = SubmConvFn.apply(y, cb["5"].weight, rule)
         if self.i_branch is not None:
             shortcut = x @ self.i_branch["0"].weight.t().to(x.dtype)
         else:

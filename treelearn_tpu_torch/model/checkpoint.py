@@ -7,10 +7,17 @@ tensor layouts (conv weights (K, Cin, Cout), 1x1 shortcuts (Cout, Cin)), so
 :func:`params_from_jax_numpy` is a flatten plus the BatchNorm
 ``num_batches_tracked`` counters, and a reference ``.pth`` loads after the
 same spconv relayout the JAX package applies.
+
+Training saves ``{net, optimizer, scheduler, epoch}`` with ``torch.save``
+(the reference's ``.pth`` layout, util/train.py:46-62, plus the LR
+scheduler) and resumes from it (:func:`save_checkpoint`,
+:func:`resume_checkpoint`, :func:`checkpoint_save`).
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
 from collections import OrderedDict
 
 import numpy as np
@@ -143,3 +150,44 @@ def load_checkpoint(path: str, model, logger=None, strict: bool = False) -> int:
         raise ValueError(f"strict load failed: skipped={skipped} missing={missing}")
     model.load_state_dict(new, strict=False)
     return epoch + 1
+
+
+def save_checkpoint(path: str, model, optimizer=None, scheduler=None,
+                    epoch: int = 0) -> None:
+    """Write ``{net, optimizer, scheduler, epoch}`` to ``path`` through a
+    temporary file, so a run killed mid-write leaves the old file whole."""
+    blob = {"net": model.state_dict(), "epoch": int(epoch)}
+    if optimizer is not None:
+        blob["optimizer"] = optimizer.state_dict()
+    if scheduler is not None:
+        blob["scheduler"] = scheduler.state_dict()
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+
+
+def resume_checkpoint(path: str, model, optimizer=None,
+                      scheduler=None) -> int:
+    """Restore what :func:`save_checkpoint` wrote into ``model`` and, where
+    given and saved, ``optimizer`` and ``scheduler``.  Returns epoch + 1."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    model.load_state_dict(blob["net"])
+    if optimizer is not None and "optimizer" in blob:
+        optimizer.load_state_dict(blob["optimizer"])
+    if scheduler is not None and "scheduler" in blob:
+        scheduler.load_state_dict(blob["scheduler"])
+    return int(blob.get("epoch", 0)) + 1
+
+
+def checkpoint_save(epoch: int, model, optimizer, scheduler, work_dir: str,
+                    save_freq: int = 1) -> str:
+    """Save ``epoch_<epoch>.pth`` and delete the previous epoch's file
+    unless that epoch is a multiple of ``save_freq`` (parity: reference
+    util/train.py:46-62)."""
+    path = osp.join(work_dir, f"epoch_{epoch}.pth")
+    save_checkpoint(path, model, optimizer, scheduler, epoch)
+    prev = osp.join(work_dir, f"epoch_{epoch - 1}.pth")
+    if osp.isfile(prev) and not (epoch - 1 != 0
+                                 and (epoch - 1) % save_freq == 0):
+        os.remove(prev)
+    return path

@@ -12,7 +12,12 @@ banded ``level_windows``, the ``fast_conv`` program variants, and the
 ``CapacityOverflow`` / ``SpansOverflow`` guards and retries exist only for
 XLA's static shapes and the TPU conv's windows; they have no counterpart
 here.  The rulebook and the submanifold convs go through the CUDA kernels of
-ops/rulebook.py and ops/subm_conv.py on the card.
+ops/rulebook.py and ops/subm_conv.py on the card, and the convs through
+``SubmConvFn``, so ``model.train()`` plus ``loss.backward()`` is the
+training forward and backward (dx and dW kernels).  In training mode the
+BatchNorms take batch statistics, except those of ``fixed_modules``, which
+keep their running ones; the point-level MLP BatchNorms see only the
+batch's ``valid`` rows, since the training loader pads its batches.
 """
 
 from __future__ import annotations
@@ -25,13 +30,11 @@ from torch import nn
 
 from ..ops.sparse import build_downsample, grid_from_sorted_keys
 from ..ops.rulebook import subm_rulebook
-from ..ops.subm_conv import subm_conv
+from ..ops.subm_conv import SubmConvFn
 from ..ops.voxelize import devoxelize, voxelize_points
 from .blocks import (MLP, BatchNorm, LevelPlan, UBlock, Weight, init_bn,
                      init_mlp, init_subm_conv, init_ublock)
 from .checkpoint import params_from_jax_numpy
-
-LOSS_MULTIPLIER_SEMANTIC = 50  # reference tree_learn.py:9
 
 
 def build_level_plans(grid, num_levels: int):
@@ -84,6 +87,10 @@ class TreeLearn(nn.Module):
         self.output_layer = nn.ModuleDict({"0": BatchNorm(channels)})
         self.semantic_linear = MLP(channels, 2)
         self.offset_linear = MLP(channels, 3)
+        for name in self.fixed_modules:
+            for m in getattr(self, name).modules():
+                if isinstance(m, BatchNorm):
+                    m.frozen = True
 
     def init_numpy(self, seed):
         """(params, state) numpy trees from the JAX package's initializers
@@ -133,12 +140,12 @@ class TreeLearn(nn.Module):
         plans = build_level_plans(grid0, self.num_blocks)
 
         x = vb.voxel_feats.to(compute_dtype)
-        x = subm_conv(x, self.input_conv["0"].weight, plans[0].rule)
+        x = SubmConvFn.apply(x, self.input_conv["0"].weight, plans[0].rule)
         x = self.unet(x, plans, 0)
         x = torch.relu(self.output_layer["0"](x))
         backbone_feats = devoxelize(x, vb.v2p_map)
-        sem = self.semantic_linear(backbone_feats)
-        off = self.offset_linear(backbone_feats)
+        sem = self.semantic_linear(backbone_feats, valid)
+        off = self.offset_linear(backbone_feats, valid)
         return {
             "semantic_prediction_logits": sem.float(),
             "offset_predictions": off.float(),

@@ -27,12 +27,14 @@ import time
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC = osp.join(_PKG, "csrc")
 BUILD_ROOT = osp.join(_PKG, "_build")
-SOURCES = ("rulebook.cu", "subm_conv.cu", "vert.cu", "cc.cu")
+SOURCES = ("rulebook.cu", "subm_conv.cu", "subm_conv_dw.cu", "vert.cu",
+           "cc.cu", "knn.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"rulebook": 0, "subm_conv": 0, "vert": 0, "cc": 0}
+LAUNCHES = {"rulebook": 0, "subm_conv": 0, "subm_conv_dw": 0, "vert": 0,
+            "cc": 0, "knn": 0}
 
 # optional observer of kernel inputs: recorder(name, args_dict)
 _RECORDER = None
@@ -50,10 +52,15 @@ _SIGNATURES = {
     # feats, weight, rule, out, v_in, v_out, n_live, cin, cout, stream
     "tl_subm_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tl_subm_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, g, rule, partial, dw, v, cin, cout, n_chunks, stream
+    "tl_subm_conv_dw_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tl_subm_conv_dw_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # refs, q, q_cell, cell_start, nq, ni, nj, r2, moments, stream
     "tl_vert_moments": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # pts, cell_ij, cell_keys, cell_start, n, n_cells, width, eps2, out, stream
     "tl_cc_found_bits": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    # refs, labels, q, ranges, nq, k, winner, n_found, stream
+    "tl_knn_vote": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 

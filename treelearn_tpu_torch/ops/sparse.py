@@ -156,3 +156,21 @@ def inverse_conv(coarse_feats: torch.Tensor, weight: torch.Tensor,
     wide = (gathered @ w).reshape(-1, 8, cout)
     out = _corner_select(wide, rb.corner)
     return torch.where(keep[:, None], out, torch.zeros_like(out))
+
+
+def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
+                 rule: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient of :func:`subm_conv`: x (V_in, Cin), g (V_out,
+    Cout) in one working type, rule (K, V_out) -> (K, Cin, Cout) float32,
+    ``dW[k] = sum_i x[rule[k, i]]^T g[i]``: per offset, the gathered rows'
+    transpose times g, products of the working type summed in float32 (the
+    counterpart of rule_conv_dw_xla, pallas_conv.py:563-575)."""
+    k_off, cin, cout = rule.shape[0], x.shape[1], g.shape[1]
+    dw = torch.zeros((k_off, cin, cout), dtype=torch.float32, device=x.device)
+    gf = g.float()
+    for k in range(k_off):
+        idx = rule[k].long()
+        rows = torch.nonzero(idx >= 0).squeeze(1)
+        if rows.numel():
+            dw[k] = x[idx[rows]].float().t() @ gf[rows]
+    return dw

@@ -89,7 +89,8 @@ def get_instances(coords: np.ndarray, offset: np.ndarray,
 def assign_remaining_points_nearest_neighbor(coords: np.ndarray,
                                              predictions: np.ndarray,
                                              remaining_label: int,
-                                             n_neighbors: int = 5) -> np.ndarray:
+                                             n_neighbors: int = 5,
+                                             device=None) -> np.ndarray:
     """5-NN assignment of unclustered tree points onto cluster labels
     (parity: util/pipeline.py:287-296)."""
     predictions = np.copy(predictions)
@@ -100,17 +101,19 @@ def assign_remaining_points_nearest_neighbor(coords: np.ndarray,
         return predictions.astype(np.int64)
     predictions[query_idx] = knn_classify(
         coords[ref_idx].astype(np.float32), predictions[ref_idx],
-        coords[query_idx].astype(np.float32), k=n_neighbors)
+        coords[query_idx].astype(np.float32), k=n_neighbors, device=device)
     return predictions.astype(np.int64)
 
 
 def propagate_preds(source_coords: np.ndarray, source_preds: np.ndarray,
-                    target_coords: np.ndarray, n_neighbors: int = 5) -> np.ndarray:
+                    target_coords: np.ndarray, n_neighbors: int = 5,
+                    device=None) -> np.ndarray:
     """k-NN majority-vote propagation between clouds (parity:
     util/pipeline.py:300-331)."""
     return knn_classify(source_coords.astype(np.float32),
                         source_preds.astype(np.int64),
-                        target_coords.astype(np.float32), k=n_neighbors)
+                        target_coords.astype(np.float32), k=n_neighbors,
+                        device=device)
 
 
 def get_cluster_means(coords: np.ndarray, labels: np.ndarray) -> np.ndarray:

@@ -268,7 +268,7 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
     if tree_mask.any():
         instance_preds[tree_mask] = assign_remaining_points_nearest_neighbor(
             (coords + offset_predictions)[tree_mask], instance_preds[tree_mask],
-            NOT_ASSIGNED_LABEL_IN_GROUPING)
+            NOT_ASSIGNED_LABEL_IN_GROUPING, device=device)
     _stage("assign_remaining")
 
     # save pointwise results
@@ -393,7 +393,8 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
                       logger):
             preds_to_return = np.asarray(preds_to_return)
             preds_to_return[not_yet_propagated] = propagate_preds(
-                coords, instance_preds, coords_to_return[not_yet_propagated], 5)
+                coords, instance_preds, coords_to_return[not_yet_propagated], 5,
+                device=device)
 
     with substage("decenter_pack_f64", logger):
         # one fused pass: de-center (f32 + f64 mean upcasts) straight into
