@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero; nothing is swallowed):
 
 1. card:     name and power limit as nvidia-smi reports them;
-2. build:    the six CUDA kernels from treelearn_tpu_torch/csrc (one nvcc per
+2. build:    the seven CUDA kernels from treelearn_tpu_torch/csrc (one nvcc per
              source, all started together), build seconds and each kernel's
              ptxas registers / shared memory;
 3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
@@ -15,7 +15,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              points_per_tree=16000, ground_points=200000, seed=0)``; launch
              counts are zeroed just before and read just after, and every
              kernel of the path must have launched; the wrappers' inputs are
-             recorded (first call of each shape) for phase 4;
+             recorded (first call of each shape) for phase 4; CUDA events
+             around each model forward give the card's milliseconds beside
+             the inference stage's host seconds;
 3b. knn:     the serving path's banded k-NN route on the main path's own
              ``assign_remaining`` problem (its refs, the first
              min(2^17, 2e10 / refs) of its queries, so the route is
@@ -24,8 +26,13 @@ Phases (any failure exits nonzero; nothing is swallowed):
              (mismatches only on float-equal distance ties, at most a 1e-4
              share); rounds, done shares, stragglers and wall time;
 4. kernels:  each kernel against its plain PyTorch version on the inputs its
-             path gave it (rulebook exact; subm conv in float32 with rtol
-             1e-4 and in bf16 within 2e-2 of the output's max magnitude;
+             path gave it (rulebook exact, timed beside the 27-probe kernel
+             it replaced; subm conv in float32 with rtol 1e-4 on the SIMT
+             route and in bf16 within 2e-2 of the output's max magnitude on
+             the route its shape takes, the tensor-core kernel also timed
+             beside the SIMT kernel at the same shape (``previous_ms``), its
+             repeat launch bit-equal, and its gather traffic printed beside
+             the compulsory bytes;
              verticality counts exact, moments within 1e-4 of each column's
              scale, |dvert| <= 1e-3 after the float16 rounding but on a 1e-3
              share of ill-conditioned neighborhoods; found bits exact; every
@@ -38,14 +45,17 @@ Phases (any failure exits nonzero; nothing is swallowed):
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
              16000 points per tree, hard_frac 0.8), 4 crops, 20 steps, counts
-             zeroed just before: the rulebook, subm conv and dW kernels must
-             launch, every loss be finite and the mean of the last 5 losses
-             below that of the first 5; step time, steps/s, peak memory;
+             zeroed just before: the rulebook, both subm conv kernels and the
+             dW kernel must launch, every loss be finite and the mean of the
+             last 5 losses below that of the first 5; step time, steps/s,
+             peak memory;
 7. grads:    on the first training step's inputs, one per shape: the dW
              kernel against the plain dW (float32: rtol 1e-4 of max |dW|;
              bf16: 1e-3 of max |dW|) and the conv's dx (kernel 2 with the
-             mirrored weights) against autograd through the plain conv
-             (float32: 1e-4 of max |dx|; bf16: 2e-2), timed;
+             mirrored weights) in float32 against autograd through the plain
+             conv (1e-4 of max |dx|) and in bf16 against the plain conv with
+             the mirrored weights (2e-2), timed beside its bound and the
+             SIMT kernel;
 8. step:     one float32 training step at small width (channels 8, 3
              levels), card against CPU from the same seed weights and batch:
              the loss within rtol 1e-5, each parameter's gradient within
@@ -76,7 +86,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 REPO = osp.dirname(osp.abspath(__file__))
 TRAIN_STEPS = 20
 CARD = "cuda"
-MAIN_PATH_KERNELS = ("rulebook", "subm_conv", "vert", "cc")
+MAIN_PATH_KERNELS = ("rulebook", "subm_conv", "subm_conv_wgmma", "vert", "cc")
+SLOWER_LIMIT = 1.1            # new conv route vs the SIMT kernel, per shape
 
 
 def log(msg):
@@ -160,16 +171,55 @@ class Recorder:
                                 for k, v in args.items()}
 
 
+class ForwardTimer:
+    """CUDA events and the host clock around every TreeLearn forward, through
+    global module hooks: measurement only, nothing in the path changes."""
+
+    def __init__(self):
+        import torch
+        from torch.nn.modules import module as nn_module
+
+        from treelearn_tpu_torch.model import TreeLearn
+
+        self.events, self.host_s, self._t0 = [], [], 0.0
+
+        def before(mod, args):
+            if isinstance(mod, TreeLearn):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                self.events.append([start, None])
+                self._t0 = time.time()
+
+        def after(mod, args, output):
+            if isinstance(mod, TreeLearn):
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self.events[-1][1] = end
+                self.host_s.append(time.time() - self._t0)
+
+        self._handles = [nn_module.register_module_forward_pre_hook(before),
+                         nn_module.register_module_forward_hook(after)]
+
+    def remove(self):
+        for h in self._handles:
+            h.remove()
+
+    def device_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
 def check_rulebook(rec, lib_rows):
     import torch
 
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.hashing import encode_keys
-    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.rulebook import (subm_rulebook,
+                                                  subm_rulebook_probes)
     from treelearn_tpu_torch.ops.sparse import build_subm_rulebook, kernel_offsets
 
     keys = sorted(k for k in rec.inputs if k[0] == "rulebook")
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                 previous_ms=0.0)
     err = 0
     for key in keys:
         grid = rec.inputs[key]["grid"]
@@ -179,7 +229,7 @@ def check_rulebook(rec, lib_rows):
         torch.cuda.synchronize()
         mism = int((got != want).sum())
         err = max(err, mism)
-        if mism:
+        if mism or not torch.equal(subm_rulebook_probes(grid), want):
             raise AssertionError(f"rulebook V={key[1]}: {mism} entries differ")
         offs = kernel_offsets(3, grid.keys.device)
         probes = torch.stack([
@@ -187,15 +237,17 @@ def check_rulebook(rec, lib_rows):
                                    grid.coords[:, 1:] + offs[k]], 1),
                         grid.spatial_shape) for k in range(27)])
         ms = cuda_ms(lambda: subm_rulebook(grid))
+        previous = cuda_ms(lambda: subm_rulebook_probes(grid))
         plain = cuda_ms(lambda: build_subm_rulebook(grid, 3), reps=3)
         library = cuda_ms(lambda: torch.searchsorted(grid.keys, probes))
         v = key[1]
         b, _ = bound(4 * v + 27 * 4 * v)
-        log(f"  rulebook V={v}: exact, kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"searchsorted {library:.4f} ms, bound {b:.4f} ms (bytes), "
-            f"{calls} call(s) on the main path")
+        log(f"  rulebook V={v}: exact, kernel {ms:.4f} ms, 27-probe kernel "
+            f"{previous:.4f} ms, plain {plain:.4f} ms, searchsorted "
+            f"{library:.4f} ms, bound {b:.4f} ms (bytes), {calls} call(s) on "
+            f"the main path")
         for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
-                          ("library_ms", library)):
+                          ("library_ms", library), ("previous_ms", previous)):
             total[name] += val * calls
     lib_rows.append(dict(
         name="rulebook", route="cuda",
@@ -205,22 +257,46 @@ def check_rulebook(rec, lib_rows):
         bound_by="bytes", **total))
 
 
-def check_subm_conv(rec, lib_rows, launches):
+def conv_bound(feats, weight, rule):
+    """(bound ms, by, flops, compulsory bytes, gathered bytes) of one conv
+    call: every input read once and the output written once, against
+    2 nnz Cin Cout operations; the gather moves nnz rows of Cin values."""
+    import torch
+
+    nnz = int((rule >= 0).sum())
+    cin, cout = weight.shape[1], weight.shape[2]
+    s = feats.element_size()
+    flops = 2.0 * nnz * cin * cout
+    bytes_moved = (feats.numel() * s + weight.numel() * s + rule.numel() * 4
+                   + rule.shape[1] * cout * s)
+    dtype = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
+    b, by = bound(bytes_moved, flops, dtype)
+    return b, by, flops, bytes_moved, nnz * cin * s
+
+
+def check_subm_conv(rec, lib_rows):
+    """The recorded conv shapes: float32 on the SIMT route, the working type
+    on the route its shape takes; one row per kernel."""
     import torch
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
-    from treelearn_tpu_torch.ops.subm_conv import subm_conv
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, pack_weight,
+                                                   subm_conv, subm_conv_simt)
 
     keys = sorted((k for k in rec.inputs if k[0] == "subm_conv"),
                   key=lambda k: (k[1][0], k[2]))
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    worst_abs, by_ops = 0.0, 0
+    csrc = "treelearn_tpu_torch/csrc/"
+    sources = {"subm_conv": csrc + "subm_conv.cu",
+               "subm_conv_wgmma": csrc + "subm_conv_wgmma.cu"}
+    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, by_ops=0,
+                      shapes=0) for n in sources}
+    totals["subm_conv_wgmma"]["previous_ms"] = 0.0
     for key in keys:
         a = rec.inputs[key]
         feats, weight, rule = a["feats"], a["weight"], a["rule"]
         calls = rec.calls[key]
         cin, cout = weight.shape[1], weight.shape[2]
-        # float32: same algorithm, float32 products and sums
+        # float32: same algorithm, float32 products and sums (SIMT route)
         f32 = subm_conv(feats.float(), weight.float(), rule)
         r32 = plain_conv(feats.float(), weight.float(), rule)
         torch.cuda.synchronize()
@@ -230,7 +306,14 @@ def check_subm_conv(rec, lib_rows, launches):
                                  f"{float((f32 - r32).abs().max())}")
         # working type: bf16 inputs and output, float32 sums in both; the
         # outputs differ by summation order before the final bf16 rounding
-        got = subm_conv(feats, weight, rule).float()
+        plan = conv_plan(cin, cout, rule.shape[1], feats.dtype)
+        name = "subm_conv_wgmma" if plan.route == "wgmma" else "subm_conv"
+        tot = totals[name]
+        first = subm_conv(feats, weight, rule)
+        if not torch.equal(first, subm_conv(feats, weight, rule)):
+            raise AssertionError(f"subm_conv {cin}->{cout}: two launches "
+                                 "differ")
+        got = first.float()
         want = plain_conv(feats, weight, rule).float()
         scale = float(want.abs().max().clamp(min=1e-6))
         abs_err = float((got - want).abs().max())
@@ -238,30 +321,48 @@ def check_subm_conv(rec, lib_rows, launches):
         if rel > 2e-2:
             raise AssertionError(f"subm_conv {feats.dtype} {cin}->{cout}: "
                                  f"max err {rel} of max |out|")
-        worst_abs = max(worst_abs, abs_err)
+        tot["err"] = max(tot["err"], abs_err)
         ms = cuda_ms(lambda: subm_conv(feats, weight, rule))
         plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
-        nnz = int((rule >= 0).sum())
-        s = feats.element_size()
-        flops = 2.0 * nnz * cin * cout
-        bytes_moved = (feats.numel() * s + weight.numel() * s + rule.numel() * 4
-                       + rule.shape[1] * cout * s)
-        dtype = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
-        b, by = bound(bytes_moved, flops, dtype)
-        by_ops += by == "operations"
-        log(f"  subm_conv {dtype} V={feats.shape[0]} {cin}->{cout}: "
-            f"err {rel:.2e} of max|out|, kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-            f"bound {b:.4f} ms ({by}), {calls} call(s)")
-        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
-            total[name] += val * calls
-    lib_rows.append(dict(
-        name="subm_conv", route="cuda",
-        source="treelearn_tpu_torch/csrc/subm_conv.cu",
-        replaces="treelearn_tpu/ops/pallas_conv.py:355",
-        launches=launches, max_abs_err=worst_abs,
-        bound_by="operations" if by_ops * 2 >= len(keys) else "bytes",
-        library_ms=None, **total))
+        b, by, flops, compulsory, gathered = conv_bound(feats, weight, rule)
+        tot["by_ops"] += by == "operations"
+        tot["shapes"] += 1
+        line = (f"  {name} {str(feats.dtype)[6:]} V={feats.shape[0]} "
+                f"{cin}->{cout} {plan.bm}x{plan.bn}: err {rel:.2e} of "
+                f"max|out|, kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                f"TFLOP/s), plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
+                f"compulsory {compulsory / 1e6:.2f} MB, gathered "
+                f"{gathered / 1e6:.2f} MB "
+                f"({gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
+                f"rate), {calls} call(s)")
+        if name == "subm_conv_wgmma":
+            for mirror in (False, True):   # the pack kernel, exactly
+                if not torch.equal(
+                        pack_weight(weight, 32, mirror).cpu(),
+                        pack_weight(weight.cpu(), 32, mirror)):
+                    raise AssertionError(f"pack_weight {cin}->{cout} "
+                                         f"mirror={mirror} differs")
+            previous = cuda_ms(lambda: subm_conv_simt(feats, weight, rule))
+            tot["previous_ms"] += previous * calls
+            line += f", SIMT kernel {previous:.4f} ms"
+            if ms > SLOWER_LIMIT * previous:
+                raise AssertionError(
+                    f"subm_conv {cin}->{cout} V={feats.shape[0]}: the wgmma "
+                    f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
+        log(line)
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            tot[col] += val * calls
+    for name, tot in totals.items():
+        if not tot["shapes"]:
+            raise AssertionError(f"no recorded conv shape took {name}")
+        by_ops, shapes = tot.pop("by_ops"), tot.pop("shapes")
+        err = tot.pop("err")
+        lib_rows.append(dict(
+            name=name, route="cuda", source=sources[name],
+            replaces="treelearn_tpu/ops/pallas_conv.py:355", launches=0,
+            max_abs_err=err,
+            bound_by="operations" if by_ops * 2 >= shapes else "bytes",
+            library_ms=None, **tot))
 
 
 def check_vert(rec, lib_rows):
@@ -342,10 +443,13 @@ class GradRecorder(Recorder):
     def __call__(self, name, args):
         if name not in ("subm_conv_dw", "subm_conv_dx"):
             return
-        a, b = (args["x"], args["g"]) if name == "subm_conv_dw" else (
-            args["weight"], args["g"])
-        key = (name, int(a.shape[1]) if name == "subm_conv_dw"
-               else int(a.shape[2]), int(b.shape[1]), str(b.dtype))
+        g = args["g"]
+        if name == "subm_conv_dw":
+            key = (name, int(args["x"].shape[1]), int(g.shape[1]),
+                   str(g.dtype))
+        else:     # the forward conv's (Cin, Cout): dx is Cin <- Cout
+            key = (name, int(args["weight"].shape[1]),
+                   int(args["weight"].shape[2]), str(g.dtype))
         self.calls[key] = self.calls.get(key, 0) + 1
         if key not in self.inputs:
             self.inputs[key] = {k: v.clone() for k, v in args.items()}
@@ -486,8 +590,8 @@ def train_phase(tmp):
         raise AssertionError(f"loss did not fall: first 5 mean "
                              f"{losses[:5].mean()}, last 5 mean "
                              f"{losses[-5:].mean()}")
-    zero = [k for k in ("rulebook", "subm_conv", "subm_conv_dw")
-            if launches[k] == 0]
+    zero = [k for k in ("rulebook", "subm_conv", "subm_conv_wgmma",
+                        "subm_conv_dw") if launches[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched in training: {zero}")
     return info, launches, rec
@@ -500,8 +604,9 @@ def check_grads(rec, lib_rows, launches, n_steps):
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv,
-                                                   subm_conv_dw)
+    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv_dw,
+                                                   subm_conv_dx,
+                                                   subm_conv_simt)
 
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     worst = 0.0
@@ -542,26 +647,44 @@ def check_grads(rec, lib_rows, launches, n_steps):
         source="treelearn_tpu_torch/csrc/subm_conv_dw.cu",
         replaces="treelearn_tpu/ops/pallas_conv.py:438", launches=launches,
         max_abs_err=worst, bound_by="operations", library_ms=None, **total))
+    dx = dict(dx_ms=0.0, dx_bound_ms=0.0, dx_previous_ms=0.0,
+              dx_launches_per_step=0.0)
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
         a = rec.inputs[key]
         g, w, rule = a["g"], a["weight"], a["rule"]
-        for dtype, tol in ((torch.float32, 1e-4), (g.dtype, 2e-2)):
-            gg, ww = g.to(dtype), w.to(dtype)
-            got = subm_conv(gg, mirrored(ww), rule).float()
-            x0 = torch.zeros((rule.shape[1], w.shape[1]), dtype=dtype,
-                             device=g.device, requires_grad=True)
-            (want,) = torch.autograd.grad(
-                (plain_conv(x0, ww, rule).float() * gg.float()).sum(), x0)
-            want = want.float()
+        per_step = rec.calls[key] / n_steps
+        # float32: dx is the conv with the mirrored weights, held to autograd
+        # through the plain conv; working type: the kernel against its plain
+        # version, that conv (float32 sums, one bf16 rounding).  Autograd in
+        # bf16 would add the 27 offsets' parts in bf16 and is no reference.
+        x0 = torch.zeros((rule.shape[1], w.shape[1]), device=g.device,
+                         requires_grad=True)
+        (want32,) = torch.autograd.grad(
+            (plain_conv(x0, w.float(), rule) * g.float()).sum(), x0)
+        want = plain_conv(g, mirrored(w), rule).float()
+        for got, ref, tol in (
+                (subm_conv_dx(g.float(), w.float(), rule), want32, 1e-4),
+                (subm_conv_dx(g, w, rule).float(), want, 2e-2)):
             torch.cuda.synchronize()
-            err = float((got - want).abs().max()) / float(
-                want.abs().max().clamp(min=1e-12))
+            err = float((got - ref).abs().max()) / float(
+                ref.abs().max().clamp(min=1e-12))
             if err > tol:
-                raise AssertionError(f"dx {key} {dtype}: err {err} of max")
-        ms = cuda_ms(lambda: subm_conv(g, mirrored(w), rule))
+                raise AssertionError(f"dx {key}: err {err} of max, limit "
+                                     f"{tol}")
+        ms = cuda_ms(lambda: subm_conv_dx(g, w, rule))
+        previous = cuda_ms(lambda: subm_conv_simt(g, w, rule, mirror=True))
+        b, by, flops, _, gathered = conv_bound(g, mirrored(w), rule)
         log(f"  dx {key[3]} V={g.shape[0]} {key[1]}<-{key[2]}: matches "
-            f"autograd of the plain conv, kernel {ms:.4f} ms, "
-            f"{rec.calls[key] / n_steps:.1f} call(s) per step")
+            f"the plain versions, kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), SIMT kernel {previous:.4f} "
+            f"ms, bound {b:.4f} ms ({by}), gathered {gathered / 1e6:.2f} MB, "
+            f"{per_step:.1f} call(s) per step")
+        for col, val in (("dx_ms", ms), ("dx_bound_ms", b),
+                         ("dx_previous_ms", previous),
+                         ("dx_launches_per_step", 1.0)):
+            dx[col] += val * per_step
+    log(f"  dx per training step: {json.dumps(dx)}")
+    next(r for r in lib_rows if r["name"] == "subm_conv_wgmma").update(dx)
 
 
 def train_step_check(tmp):
@@ -731,6 +854,7 @@ def main():
 
         rec = Recorder()
         _cuda.set_recorder(rec)
+        forwards = ForwardTimer()
         torch.cuda.reset_peak_memory_stats()
         del KNN_LOG[:]
         _cuda.reset_launches()
@@ -740,9 +864,15 @@ def main():
         wall = time.time() - t0
         launches = dict(_cuda.LAUNCHES)
         _cuda.set_recorder(None)
+        forwards.remove()
         log(f"pipeline: {wall:.2f} s, n_points {res['n_points']}, "
             f"n_trees {res['n_trees']}")
         log(f"  stage seconds {json.dumps(res['stage_seconds'])}")
+        log(f"  model forward: {len(forwards.host_s)} call(s), "
+            f"{sum(forwards.device_ms()):.1f} ms between CUDA events on the "
+            f"card's stream, {sum(forwards.host_s):.3f} s on the host, "
+            f"inside an inference stage of "
+            f"{res['stage_seconds'].get('inference', float('nan')):.3f} s")
         mt = res["model_timings"]
         log(f"  voxels per level {[int(x) for x in mt['n_vox_levels']]}, "
             f"rule nnz per level {[int(x) for x in mt['rule_nnz']]}")
@@ -767,7 +897,7 @@ def main():
         # 4. kernels against their plain versions, main-path inputs
         rows = []
         check_rulebook(rec, rows)
-        check_subm_conv(rec, rows, launches["subm_conv"])
+        check_subm_conv(rec, rows)
         check_vert(rec, rows)
         check_cc(rec, rows)
         for r in rows:

@@ -45,6 +45,41 @@ def test_rulebook_kernel_exact(cuda):
     assert torch.equal(got, build_subm_rulebook(g, 3))
 
 
+@pytest.mark.parametrize("keys,ss", [
+    ([13], (3, 3, 3)),                       # V = 1
+    ([13, 14], (3, 3, 3)),                   # V = 2, z neighbors
+    ([2, 3], (3, 3, 3)),                     # (0,0,2) and (0,1,0): no wrap
+    # two batch elements: last x row of element 0, first of element 1
+    ([18, 22, 26, 27, 31, 35], (3, 3, 3)),
+    (list(range(27)), (3, 3, 3)),            # dense block
+])
+def test_band_rulebook_kernel_small_cases(cuda, keys, ss):
+    """The band-form kernel, the 27-probe kernel it replaced and both plain
+    versions give the same rule, exactly."""
+    from treelearn_tpu_torch.ops.rulebook import (subm_rulebook,
+                                                  subm_rulebook_probes)
+    from treelearn_tpu_torch.ops.sparse import (build_subm_rulebook,
+                                                build_subm_rulebook_banded,
+                                                grid_from_sorted_keys)
+
+    g = grid_from_sorted_keys(
+        torch.tensor(keys, dtype=torch.int32, device=cuda), ss)
+    want = build_subm_rulebook(g, 3)
+    assert torch.equal(subm_rulebook(g), want)
+    assert torch.equal(subm_rulebook_probes(g), want)
+    assert torch.equal(build_subm_rulebook_banded(g), want)
+
+
+def test_band_rulebook_kernel_two_element_batch(cuda):
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.sparse import build_subm_rulebook
+
+    for seed, n, ss in ((5, 3000, (12, 10, 8)), (6, 400, (12, 10, 8)),
+                        (7, 60000, (64, 64, 48))):
+        g = _grid(cuda, seed=seed, n=min(n, int(np.prod(ss)) // 2), ss=ss)
+        assert torch.equal(subm_rulebook(g), build_subm_rulebook(g, 3))
+
+
 @pytest.mark.parametrize("dtype,cin,cout", [
     (torch.float32, 4, 32), (torch.float32, 64, 32), (torch.float32, 96, 96),
     (torch.bfloat16, 32, 32), (torch.bfloat16, 448, 224)])
@@ -70,6 +105,109 @@ def test_subm_conv_kernel_matches_plain(cuda, dtype, cin, cout):
         assert float((got - want).abs().max()) <= 2e-2 * scale
     part = subm_conv(x, w, rule, n_live=v // 2)
     assert (part[v // 2:] == 0).all()
+
+
+def _random_rule(gen, v_in, v_out, present):
+    """(27, v_out) int32 rule with a ``present`` share of random inputs; the
+    conv kernels take any rule, not only a submanifold one."""
+    rule = torch.randint(0, v_in, (27, v_out), generator=gen,
+                         dtype=torch.int32)
+    rule[torch.rand(27, v_out, generator=gen) > present] = -1
+    return rule
+
+
+@pytest.mark.parametrize("v", [1, 63, 128, 136, 1000, 8300, 70000])
+@pytest.mark.parametrize("cin,cout", [
+    (32, 32), (32, 64), (64, 32), (96, 96), (224, 224), (384, 192),
+    (192, 384)])
+def test_subm_conv_wgmma_matches_plain(cuda, cin, cout, v):
+    """The tensor-core route against the plain conv: 2e-2 of the output's
+    max magnitude (float32 sums of the same bf16 products in another order,
+    before the final bf16 rounding).  V covers a lone row, ragged tiles, the
+    small-level plan (64 x 32 blocks, 8 producer warps), whole-Cout blocks
+    (V = 8300: one wave with 8 producer warps at one split, 4 otherwise) and
+    the 128-row plan of 32-channel convs (V = 70000);
+    n_live < V zeroes the tail; two launches give the same bits."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.subm_conv import conv_plan, subm_conv
+
+    assert conv_plan(cin, cout, v).route == "wgmma"
+    gen = torch.Generator(device="cpu").manual_seed(cin * 7 + cout + v)
+    v_in = v + 5
+    x = torch.randn(v_in, cin, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(27, cin, cout, generator=gen) * 0.1).to(
+        cuda, torch.bfloat16)
+    rule = _random_rule(gen, v_in, v, 0.4).to(cuda)
+    before = dict(_cuda.LAUNCHES)
+    got = subm_conv(x, w, rule)
+    again = subm_conv(x, w, rule)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"] + 2
+    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"]
+    assert torch.equal(got, again)
+    want = plain(x, w, rule).float()
+    scale = float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= 2e-2 * scale
+    n_live = v // 2
+    part = subm_conv(x, w, rule, n_live=n_live).float()
+    assert (part[n_live:] == 0).all()
+    if n_live:
+        assert float((part[:n_live] - want[:n_live]).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("v", [136, 8300])
+def test_subm_conv_wgmma_sparse_rules(cuda, v):
+    """An all -1 rule gives zeros; a rule whose tiles lack most offsets (two
+    offsets present, and one lone entry of a third) matches the plain
+    conv."""
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv
+
+    gen = torch.Generator(device="cpu").manual_seed(v)
+    x = torch.randn(v, 64, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(27, 64, 96, generator=gen) * 0.1).to(cuda, torch.bfloat16)
+    rule = torch.full((27, v), -1, dtype=torch.int32)
+    assert (subm_conv(x, w, rule.to(cuda)) == 0).all()
+    rule[[3, 13]] = _random_rule(gen, v, v, 0.7)[[3, 13]]
+    rule[26, v - 1] = 0
+    rule = rule.to(cuda)
+    got = subm_conv(x, w, rule).float()
+    want = plain(x, w, rule).float()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("cin,cout,bn", [
+    (32, 64, 64), (64, 32, 32), (224, 224, 32), (192, 384, 192)])
+def test_pack_weight_kernel_matches_plain(cuda, cin, cout, bn):
+    """The pack kernel writes the same images as the torch pack, straight
+    and mirrored (a copy: exact)."""
+    from treelearn_tpu_torch.ops.subm_conv import mirrored, pack_weight
+
+    gen = torch.Generator(device="cpu").manual_seed(cin + cout)
+    w = torch.randn(27, cin, cout, generator=gen).to(torch.bfloat16)
+    assert torch.equal(pack_weight(w.to(cuda), bn).cpu(), pack_weight(w, bn))
+    bn_m = bn if cin % bn == 0 else 32
+    assert torch.equal(pack_weight(w.to(cuda), bn_m, mirror=True).cpu(),
+                       pack_weight(mirrored(w), bn_m))
+
+
+def test_subm_conv_simt_entry_matches_plain(cuda):
+    """The SIMT kernel at a shape the routing gives to the tensor cores (the
+    yardstick entry), same limit."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv_simt
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(500, 64, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(27, 64, 32, generator=gen) * 0.1).to(cuda, torch.bfloat16)
+    rule = _random_rule(gen, 500, 500, 0.4).to(cuda)
+    before = _cuda.LAUNCHES["subm_conv"]
+    got = subm_conv_simt(x, w, rule).float()
+    assert _cuda.LAUNCHES["subm_conv"] == before + 1
+    want = plain(x, w, rule).float()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
 
 def test_subm_conv_wrapper_checks(cuda):
@@ -216,3 +354,46 @@ def test_subm_conv_fn_grads_match_plain_autograd(cuda):
     for got, want in zip(*grads):
         assert float((got - want).abs().max()) <= 1e-4 * float(
             want.abs().max())
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 32), (192, 384)])
+def test_subm_conv_fn_bf16_grads_through_wgmma(cuda, cin, cout):
+    """bf16 SubmConvFn: forward and dx go through the tensor-core route (dx
+    with Cin and Cout swapped), dW through kernel 3.  Each against its plain
+    version in the working type on the same bf16 values: dx = the plain conv
+    of the cotangent with the mirrored weights, 2e-2 of max |dx| (one bf16
+    rounding of float32 sums in another order); dW = the plain weight
+    gradient, 1e-3 of max |dW|.  (That dx is the mirrored conv at all is
+    the float32 test above; autograd through the plain conv in bf16 adds the
+    offsets' parts in bf16 and is no reference.)"""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import SubmConvFn, mirrored
+
+    g_ = _grid(cuda, seed=4)
+    rule = subm_rulebook(g_)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(g_.n_active, cin, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(27, cin, cout, generator=gen) * 0.1).to(cuda)
+    cot = torch.randn(g_.n_active, cout, generator=gen).to(cuda,
+                                                           torch.bfloat16)
+    before = _cuda.LAUNCHES["subm_conv_wgmma"]
+    xx = x.clone().requires_grad_(True)
+    ww = w.clone().requires_grad_(True)
+    out = SubmConvFn.apply(xx, ww, rule)
+    out.backward(cot)
+    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before + 2
+    w16 = w.to(torch.bfloat16)
+    want_out = plain(x, w16, rule).float()
+    assert float((out.float() - want_out).abs().max()) <= 2e-2 * float(
+        want_out.abs().max())
+    want_dx = plain(cot, mirrored(w16), rule).float()
+    assert xx.grad.dtype == torch.bfloat16
+    assert float((xx.grad.float() - want_dx).abs().max()) <= 2e-2 * float(
+        want_dx.abs().max())
+    want_dw = plain_dw(x, cot, rule)
+    assert ww.grad.dtype == torch.float32
+    assert float((ww.grad - want_dw).abs().max()) <= 1e-3 * float(
+        want_dw.abs().max())

@@ -1,4 +1,9 @@
-// Submanifold sparse convolution as a gather-GEMM.
+// Submanifold sparse convolution as a gather-GEMM on the float32 SIMT units:
+// the float32 / odd-width route of ops/subm_conv.py (float32 features, the
+// 4 -> 32 input conv, any width that is not a multiple of 32).  bf16 convs
+// with channel counts in multiples of 32 go to csrc/subm_conv_wgmma.cu; this
+// kernel also takes them when asked, as the yardstick that one is timed
+// against.
 //
 // Replaces the Pallas kernel _subm_kernel + _gather_bands
 // (treelearn_tpu/ops/pallas_conv.py:304,181).  The TPU kernel DMAs banded
@@ -17,10 +22,11 @@
 // summed in float32 and written back in the input type, as the Pallas kernel
 // does (pallas_conv.py:317-323).
 //
-// Bound: at the main path's widths (32..224 channels, ~10 of 27 neighbors
-// present) the FLOPs exceed the bytes by well over the card's balance point
-// in float32, so the bound is the arithmetic rate; this first version uses
-// the SIMT float32 units, not the tensor cores (wgmma is later work).
+// Bound: operations, at the float32 rate of the SIMT units (the tensor
+// cores take no float32 operands without rounding them to TF32, which the
+// float32 parity checks could not bear).  On the main path it serves one
+// launch, the 4 -> 32 input conv, which moves more bytes than it multiplies:
+// there the bound is memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -27,14 +27,14 @@ import time
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC = osp.join(_PKG, "csrc")
 BUILD_ROOT = osp.join(_PKG, "_build")
-SOURCES = ("rulebook.cu", "subm_conv.cu", "subm_conv_dw.cu", "vert.cu",
-           "cc.cu", "knn.cu")
+SOURCES = ("rulebook.cu", "subm_conv.cu", "subm_conv_wgmma.cu",
+           "subm_conv_dw.cu", "vert.cu", "cc.cu", "knn.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"rulebook": 0, "subm_conv": 0, "subm_conv_dw": 0, "vert": 0,
-            "cc": 0, "knn": 0}
+LAUNCHES = {"rulebook": 0, "subm_conv": 0, "subm_conv_wgmma": 0,
+            "subm_conv_dw": 0, "vert": 0, "cc": 0, "knn": 0}
 
 # optional observer of kernel inputs: recorder(name, args_dict)
 _RECORDER = None
@@ -49,9 +49,16 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # keys, V, sx, sy, sz, rule, stream
     "tl_rulebook": [_P, _I, _I, _I, _I, _P, _P],
+    "tl_rulebook_probes": [_P, _I, _I, _I, _I, _P, _P],
     # feats, weight, rule, out, v_in, v_out, n_live, cin, cout, stream
     "tl_subm_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tl_subm_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # w, wpack, cin, cout, bn, mirror, stream
+    "tl_pack_weight": [_P, _P, _I, _I, _I, _I, _P],
+    # feats, wpack, rule, out, v_out, n_live, cin, cout, bm, bn, stages,
+    # producers, smem_bytes, stream
+    "tl_subm_conv_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # x, g, rule, partial, dw, v, cin, cout, n_chunks, stream
     "tl_subm_conv_dw_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tl_subm_conv_dw_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -66,6 +66,43 @@ def build_subm_rulebook(grid: SparseGrid, kernel_size: int = 3) -> torch.Tensor:
     return torch.stack(rows, dim=0)
 
 
+def build_subm_rulebook_banded(grid: SparseGrid) -> torch.Tensor:
+    """Plain k=3 rulebook in band form, the algorithm of csrc/rulebook.cu:
+    the same (27, V) int32 rule as :func:`build_subm_rulebook`.
+
+    z is the fastest key digit, so the three dz targets of a (dx, dy) band
+    have adjacent keys T-1, T, T+1 and sit in consecutive slots from
+    ``p = lower_bound(T-1)``: one search per band (none for the centre band,
+    whose candidates are slots i-1, i, i+1), then the keys at p, p+1, p+2
+    are matched against the three targets by key, under the x/y guards of
+    the band and the z guards of dz = -1 and dz = +1.
+    """
+    keys = grid.keys
+    v = keys.shape[0]
+    sx, sy, sz = grid.spatial_shape
+    rule = torch.full((27, v), -1, dtype=torch.int32, device=keys.device)
+    if v == 0:
+        return rule
+    keys64 = keys.long()
+    x, y, z = (grid.coords[:, a].long() for a in (1, 2, 3))
+    z_ok = (z > 0, torch.ones_like(z, dtype=torch.bool), z < sz - 1)
+    slots = torch.arange(v, device=keys.device)
+    for band in range(9):
+        dx, dy = band // 3 - 1, band % 3 - 1
+        ok = ((x + dx >= 0) & (x + dx < sx) & (y + dy >= 0) & (y + dy < sy))
+        first = keys64 + (dx * sy * sz + dy * sz - 1)
+        p = slots - 1 if band == 4 else torch.searchsorted(keys64, first)
+        for j in range(3):
+            slot = p + j
+            inside = (slot >= 0) & (slot < v)
+            d = keys64[slot.clamp(0, v - 1)] - first
+            for dz in range(3):
+                hit = ok & inside & (d == dz) & z_ok[dz]
+                rule[band * 3 + dz] = torch.where(
+                    hit, slot.to(torch.int32), rule[band * 3 + dz])
+    return rule
+
+
 class DownsampleRulebook(NamedTuple):
     """Child->parent map of a k=2 s=2 strided conv and its inverse."""
 

@@ -5,11 +5,16 @@ Replaces the Pallas kernel ``subm_conv_banded`` (``_subm_kernel`` +
 ``_gather_bands``, treelearn_tpu/ops/pallas_conv.py:355,304,181).  The TPU
 kernel reaches its neighbors through banded DMA windows of the sorted
 features and one-hot MXU selects, with a span-overflow fallback; a GPU
-gathers rows cheaply, so csrc/subm_conv.cu is a plain gather-GEMM over the
-(27, V) rule from ops/rulebook.py: a block owns 64 output voxels x 64 output
-channels, stages each offset's gathered rows and weight slice in shared
-memory and accumulates in float32 registers.  No windows, so nothing can
-overflow.
+gathers rows cheaply, so both CUDA kernels are plain gather-GEMMs over the
+(27, V) rule from ops/rulebook.py, output-stationary with float32 sums in
+registers.  No windows, so nothing can overflow.
+
+* csrc/subm_conv_wgmma.cu, the bf16 route: a block owns 64 or 128 output
+  voxels x up to 256 output channels and multiplies on the tensor cores
+  (``wgmma``), gathered rows and packed weight tiles arriving through a
+  ``cp.async`` ring (:func:`conv_plan`, :func:`pack_weight`).
+* csrc/subm_conv.cu, the float32 / odd-width route: 64 voxels x 64 channels
+  per block on the float32 SIMT units.
 
 Kernel 3 replaces ``rule_conv_dw_banded`` (``_dw_kernel``,
 pallas_conv.py:438,415): csrc/subm_conv_dw.cu sums per-chunk partial
@@ -22,12 +27,17 @@ output gradient with weights ``W.flip(0).transpose(1, 2)`` over the same
 rule (a submanifold rule is its own transpose under offset mirroring, and
 ``kernel_offsets`` is ordered so that ``flip(0)`` mirrors); dW = kernel 3.
 
-Bound on the card, both kernels: operations (2 x Cin x Cout FLOPs per rule
-entry, against Cin + Cout values moved per voxel); this first version runs
-on the float32 SIMT units.
+Bound on the card: operations by the count (2 x Cin x Cout FLOPs per rule
+entry, against Cin + Cout values moved per voxel), but at 32..224 channels
+the tensor cores finish that in microseconds, and what the bf16 route pays
+for is the gather of feature rows through L2 (levels 0-1) and the length of
+one block's K loop (the deepest levels).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,20 +47,137 @@ from .sparse import subm_conv_dw as subm_conv_dw_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
+BK = 32               # input channels per K step of the wgmma kernel
+MAX_BN = 256          # widest wgmma instruction
+SMALL_V_TILES = 32    # fewer 64-row tiles than this: 32-channel blocks
+ONE_WAVE_BLOCKS = 132  # a grid up to one block per SM: 8 producer warps
+WIDE_ROWS_V = 65536   # from here on a 32-channel conv takes 128-row blocks
 
-def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
-              n_live=None) -> torch.Tensor:
-    """feats (V_in, Cin), weight (27, Cin, Cout), rule (27, V_out) int32 ->
-    (V_out, Cout) in feats' dtype, float32 accumulation; rows at or past
-    ``n_live`` (default V_out) are zero.  CPU tensors take the plain version
-    (ops/sparse.py:subm_conv); CUDA tensors launch the kernel."""
-    if not feats.is_cuda:
-        return subm_conv_plain(feats, weight, rule, n_live)
+
+class ConvPlan(NamedTuple):
+    """What the launcher of kernel 2 uses for one shape."""
+
+    route: str        # "wgmma" or "simt"
+    bm: int           # output voxels per block
+    bn: int           # output channels per block
+    n_splits: int     # blocks along Cout (n_splits * bn == cout)
+    bk: int           # input channels per K step
+    stages: int       # ring depth
+    producers: int    # threads of a block that start the copies
+    smem_bytes: int   # dynamic shared memory per block
+
+
+def plan_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of a wgmma block: alignment slack, the ring of
+    A and B tiles, the mbarriers, the block's 27 x bm rule entries and its
+    offset lists."""
+    return 1024 + stages * (bm + bn) * BK * 2 + 128 + 27 * bm * 4 + 256
+
+
+def conv_plan(cin: int, cout: int, v: int,
+              dtype: torch.dtype = torch.bfloat16) -> ConvPlan:
+    """Static routing and tiling of kernel 2, from the shape alone.
+
+    bf16 with ``cin`` and ``cout`` multiples of 32 -> the wgmma kernel;
+    float32, the 4 -> 32 input conv and other odd widths -> the SIMT kernel.
+
+    The wgmma kernel gives a block 64 output voxels (one consumer warpgroup
+    beside the producer warpgroup) and the whole Cout, or the largest even
+    share of it that fits the widest instruction (256; 384 -> 2 x 192), so
+    each gathered row is read once or twice.  Three measured rules (H100,
+    the shapes of chip_smoke.py's paths): with fewer than ``SMALL_V_TILES``
+    row tiles most of the card would idle, so small levels split Cout into
+    32-channel blocks; a 32-channel conv over ``WIDE_ROWS_V`` voxels or
+    more, where a block's fixed costs outweigh its products, takes 128
+    voxels a block; and a grid of at most ``ONE_WAVE_BLOCKS`` blocks, whose
+    length is one block's K loop, gives each block 8 producer warps instead
+    of 4 (larger grids lose more by the lower occupancy than they gain).
+    """
+    if (dtype != torch.bfloat16 or cin == 0 or cout == 0 or cin % BK
+            or cout % 32):
+        return ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
+    n = 1
+    while cout % n or (cout // n) % 32 or cout // n > MAX_BN:
+        n += 1
+    bm, bn = 64, cout // n
+    if -(-v // 64) < SMALL_V_TILES:
+        bn = 32
+    elif bn == 32 and v >= WIDE_ROWS_V:
+        bm = 128
+    stages = 4
+    blocks = -(-v // bm) * (cout // bn)
+    producers = 256 if blocks <= ONE_WAVE_BLOCKS else 128
+    return ConvPlan("wgmma", bm, bn, cout // bn, BK, stages, producers,
+                    plan_smem_bytes(bm, bn, stages))
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(cin: int, cout: int, bn: int) -> torch.Tensor:
+    """For every 16-byte chunk of the packed image, the chunk of the
+    (27, cout, cin) transposed weight it holds (see :func:`pack_weight`)."""
+    n_splits, n_slices = cout // bn, cin // BK
+    k = torch.arange(27).view(27, 1, 1, 1, 1)
+    j = torch.arange(n_splits).view(1, n_splits, 1, 1, 1)
+    s = torch.arange(n_slices).view(1, 1, n_slices, 1, 1)
+    n = torch.arange(bn).view(1, 1, 1, bn, 1)
+    p = torch.arange(4).view(1, 1, 1, 1, 4)
+    chunk = p ^ ((n >> 1) & 3)
+    idx = ((k * cout + j * bn + n) * (cin // 8) + s * 4 + chunk)
+    return idx.reshape(-1)
+
+
+def pack_weight(weight: torch.Tensor, bn: int,
+                mirror: bool = False) -> torch.Tensor:
+    """(27, Cin, Cout) -> the shared-memory images of the wgmma kernel's B
+    tiles, (27, Cout / bn, Cin / 32, bn, 32): for offset k, column split j
+    and K slice s one tile of ``bn`` rows (output channels) x 32 input
+    channels, K-major, 64 bytes a row, in the 64-byte swizzle: the 16-byte
+    chunk c of row n lies at chunk position ``c ^ ((n >> 1) & 3)``.  The
+    conv kernel copies a tile linearly into shared memory.
+
+    With ``mirror`` the images are those of :func:`mirrored` ``(weight)``,
+    the weights of the conv's input gradient, read straight from ``weight``.
+    CPU tensors are packed with torch ops (the plain version); CUDA tensors
+    by the pack kernel of csrc/subm_conv_wgmma.cu (bf16 only)."""
+    if not weight.is_cuda:
+        w = mirrored(weight) if mirror else weight
+        k, cin, cout = w.shape
+        t = w.transpose(1, 2).contiguous().view(-1, 8)
+        return t[_pack_index(cin, cout, bn)].view(
+            k, cout // bn, cin // BK, bn, BK)
+    _cuda.require(weight, "pack_weight weight", torch.bfloat16, 3)
+    k, cin, cout = weight.shape
+    if mirror:
+        cin, cout = cout, cin
+    if k != 27 or cin % BK or cout % bn:
+        raise ValueError(f"pack_weight: weight {tuple(weight.shape)}, bn {bn}")
+    return _pack_cuda(weight, cin, cout, bn, mirror,
+                      _cuda.stream_ptr(weight))
+
+
+def _pack_cuda(weight, cin, cout, bn, mirror, stream):
+    """The pack kernel on a checked bf16 CUDA weight; (cin, cout) are the
+    conv's, i.e. swapped against ``weight``'s with ``mirror``."""
+    packed = torch.empty((27, cout // bn, cin // BK, bn, BK),
+                         dtype=weight.dtype, device=weight.device)
+    code = _cuda.library().tl_pack_weight(
+        weight.data_ptr(), packed.data_ptr(), cin, cout, bn, int(mirror),
+        stream)
+    _cuda.check(code, "tl_pack_weight")
+    return packed
+
+
+def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
+    """The CUDA routes of :func:`subm_conv`; with ``mirror`` the conv with
+    ``mirrored(weight)``."""
     _cuda.require(feats, "subm_conv feats", _DTYPES, 2)
     w = weight.to(feats.dtype).contiguous()
     _cuda.require(w, "subm_conv weight", _DTYPES, 3)
     _cuda.require(rule, "subm_conv rule", torch.int32, 2)
     k, cin, cout = w.shape
+    if mirror:
+        cin, cout = cout, cin
     if k != 27 or rule.shape[0] != 27 or cin != feats.shape[1]:
         raise ValueError(f"subm_conv: shapes feats {tuple(feats.shape)}, "
                          f"weight {tuple(w.shape)}, rule {tuple(rule.shape)}")
@@ -59,15 +186,74 @@ def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
     out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
     if v_out == 0:
         return out
-    _cuda.record("subm_conv", feats=feats, weight=w, rule=rule)
+    if not (force_simt or mirror):
+        _cuda.record("subm_conv", feats=feats, weight=w, rule=rule)
+    plan = conv_plan(cin, cout, v_out, feats.dtype)
     lib = _cuda.library()
-    fn = (lib.tl_subm_conv_f32 if feats.dtype == torch.float32
-          else lib.tl_subm_conv_bf16)
-    code = fn(feats.data_ptr(), w.data_ptr(), rule.data_ptr(), out.data_ptr(),
-              v_in, v_out, n_live, cin, cout, _cuda.stream_ptr(feats))
-    _cuda.check(code, "tl_subm_conv")
-    _cuda.LAUNCHES["subm_conv"] += 1
+    stream = _cuda.stream_ptr(feats)
+    if plan.route == "simt" or force_simt:
+        if mirror:
+            w = mirrored(w)
+        fn = (lib.tl_subm_conv_f32 if feats.dtype == torch.float32
+              else lib.tl_subm_conv_bf16)
+        code = fn(feats.data_ptr(), w.data_ptr(), rule.data_ptr(),
+                  out.data_ptr(), v_in, v_out, n_live, cin, cout, stream)
+        _cuda.check(code, "tl_subm_conv")
+        _cuda.LAUNCHES["subm_conv"] += 1
+        return out
+    wpack = _pack_cuda(w, cin, cout, plan.bn, mirror, stream)
+    code = lib.tl_subm_conv_wgmma(
+        feats.data_ptr(), wpack.data_ptr(), rule.data_ptr(), out.data_ptr(),
+        v_out, n_live, cin, cout, plan.bm, plan.bn, plan.stages,
+        plan.producers, plan.smem_bytes, stream)
+    _cuda.check(code, "tl_subm_conv_wgmma")
+    _cuda.LAUNCHES["subm_conv_wgmma"] += 1
     return out
+
+
+def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
+              n_live=None) -> torch.Tensor:
+    """feats (V_in, Cin), weight (27, Cin, Cout), rule (27, V_out) int32 ->
+    (V_out, Cout) in feats' dtype, float32 accumulation; rows at or past
+    ``n_live`` (default V_out) are zero.
+
+    Routing, by device and shape only (:func:`conv_plan`):
+
+    * CPU tensors -> the plain version (ops/sparse.py:subm_conv);
+    * CUDA, bf16, Cin and Cout multiples of 32 -> csrc/subm_conv_wgmma.cu
+      (counted as ``subm_conv_wgmma``);
+    * CUDA, float32, or any other width (the 4 -> 32 input conv) ->
+      csrc/subm_conv.cu (counted as ``subm_conv``).
+
+    A kernel that fails to build or launch raises; no route gives way to
+    another.
+    """
+    if not feats.is_cuda:
+        return subm_conv_plain(feats, weight, rule, n_live)
+    return _conv_cuda(feats, weight, rule, n_live)
+
+
+def subm_conv_dx(grad: torch.Tensor, weight: torch.Tensor,
+                 rule: torch.Tensor) -> torch.Tensor:
+    """Input gradient of :func:`subm_conv`: grad (V, Cout) and the forward
+    weight (27, Cin, Cout) -> (V, Cin), the conv of ``grad`` with
+    :func:`mirrored` ``(weight)`` over the same rule, routed as
+    :func:`subm_conv` routes a conv of that shape.  On the tensor-core route
+    the mirrored tiles are packed straight from ``weight``."""
+    if not grad.is_cuda:
+        return subm_conv_plain(grad, mirrored(weight), rule)
+    return _conv_cuda(grad, weight, rule, None, mirror=True)
+
+
+def subm_conv_simt(feats: torch.Tensor, weight: torch.Tensor,
+                   rule: torch.Tensor, n_live=None,
+                   mirror: bool = False) -> torch.Tensor:
+    """:func:`subm_conv` (with ``mirror``: :func:`subm_conv_dx`) through
+    csrc/subm_conv.cu whatever the shape: the yardstick the bf16 route is
+    timed against on the card (chip_smoke.py, the card tests).  Nothing in
+    the package calls it."""
+    return _conv_cuda(feats, weight, rule, n_live, force_simt=True,
+                      mirror=mirror)
 
 
 DW_PARTIAL_BYTES = 64 << 20   # cap on kernel 3's per-chunk partials
@@ -139,7 +325,7 @@ class SubmConvFn(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             _cuda.record("subm_conv_dx", g=grad, weight=w, rule=rule)
-            dx = subm_conv(grad, mirrored(w), rule)
+            dx = subm_conv_dx(grad, w, rule)
         if ctx.needs_input_grad[1]:
             dw = subm_conv_dw(feats, grad, rule)
         return dx, dw, None
