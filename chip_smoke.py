@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero; nothing is swallowed):
 
 1. card:     name and power limit as nvidia-smi reports them;
-2. build:    the seven CUDA kernels from treelearn_tpu_torch/csrc (one nvcc per
+2. build:    the eight CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
              source, all started together), build seconds and each kernel's
              ptxas registers / shared memory;
 3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
@@ -24,7 +24,12 @@ Phases (any failure exits nonzero; nothing is swallowed):
              ``banded``) through the public ``knn_classify``, counts zeroed
              just before; the vote against the exact host KD-tree vote
              (mismatches only on float-equal distance ties, at most a 1e-4
-             share); rounds, done shares, stragglers and wall time;
+             share); rounds, done shares, stragglers and wall time, and per
+             round the queries, cell groups, work items and candidates per
+             query (median, max).  Then, outside the counted run and with no
+             default changed, the banded route on the whole problem (pairs
+             threshold lifted for that call only) beside the host KD-tree
+             the default route takes: wall seconds of each, votes compared;
 4. kernels:  each kernel against its plain PyTorch version on the inputs its
              path gave it (rulebook exact, timed beside the 27-probe kernel
              it replaced; subm conv in float32 with rtol 1e-4 on the SIMT
@@ -36,8 +41,12 @@ Phases (any failure exits nonzero; nothing is swallowed):
              verticality counts exact, moments within 1e-4 of each column's
              scale, |dvert| <= 1e-3 after the float16 rounding but on a 1e-3
              share of ill-conditioned neighborhoods; found bits exact; every
-             recorded k-NN pass: winners and found counts exact), timed with
-             CUDA events;
+             recorded k-NN pass: winners and found counts exact, timed
+             beside the one-thread-a-query kernel it replaced
+             (``previous_ms``), no pass more than 1.1x slower and the total
+             lower), timed with CUDA events (means of 10 launches; a
+             redesigned kernel and the one it replaced in turns, the least
+             of 3 to 5 such means each);
 5. check:    the port's pipeline on a small plot, on the card and with the
              plain versions on the CPU, must give the same partition
              (ARI >= 0.999) and tree count;
@@ -45,17 +54,22 @@ Phases (any failure exits nonzero; nothing is swallowed):
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
              16000 points per tree, hard_frac 0.8), 4 crops, 20 steps, counts
-             zeroed just before: the rulebook, both subm conv kernels and the
-             dW kernel must launch, every loss be finite and the mean of the
+             zeroed just before: the rulebook, both subm conv kernels and
+             both dW kernels must launch, every loss be finite and the mean of the
              last 5 losses below that of the first 5; step time, steps/s,
              peak memory;
 7. grads:    on the first training step's inputs, one per shape: the dW
-             kernel against the plain dW (float32: rtol 1e-4 of max |dW|;
-             bf16: 1e-3 of max |dW|) and the conv's dx (kernel 2 with the
+             kernels against the plain dW (float32, SIMT route: rtol 1e-4 of
+             max |dW|; bf16 on the route its shape takes: 1e-3 of max |dW|,
+             repeat launch bit-equal), the tensor-core route timed beside
+             the SIMT kernel at the same shape (``previous_ms``; no shape
+             more than 1.1x slower, the per-step total lower) with its
+             TFLOP/s and gathered bytes; the conv's dx (kernel 2 with the
              mirrored weights) in float32 against autograd through the plain
              conv (1e-4 of max |dx|) and in bf16 against the plain conv with
-             the mirrored weights (2e-2), timed beside its bound and the
-             SIMT kernel;
+             the mirrored weights (2e-2), timed beside its bound, its plain
+             version and the SIMT kernel; the forward convs timed at the
+             training shapes;
 8. step:     one float32 training step at small width (channels 8, 3
              levels), card against CPU from the same seed weights and batch:
              the loss within rtol 1e-5, each parameter's gradient within
@@ -87,7 +101,8 @@ REPO = osp.dirname(osp.abspath(__file__))
 TRAIN_STEPS = 20
 CARD = "cuda"
 MAIN_PATH_KERNELS = ("rulebook", "subm_conv", "subm_conv_wgmma", "vert", "cc")
-SLOWER_LIMIT = 1.1            # new conv route vs the SIMT kernel, per shape
+SLOWER_LIMIT = 1.1            # a redesigned kernel vs the one it replaced,
+                              # per shape or pass
 
 
 def log(msg):
@@ -109,6 +124,19 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def race(new_fn, old_fn, rounds=3, reps=10):
+    """(new ms, old ms) of a redesigned kernel and the one it replaced: each
+    the least of ``rounds`` means over ``reps`` launches, taken in turns
+    (new, old, new, old, ...).  Kernels of a few hundredths of a millisecond
+    run as fast as the host can launch them, so one mean of ten carries the
+    host's hiccups; the least of several does not."""
+    new_ms, old_ms = [], []
+    for _ in range(rounds):
+        new_ms.append(cuda_ms(new_fn, reps))
+        old_ms.append(cuda_ms(old_fn, reps))
+    return min(new_ms), min(old_ms)
 
 
 def bound(bytes_moved, flops=0.0, dtype="float32"):
@@ -322,7 +350,11 @@ def check_subm_conv(rec, lib_rows):
             raise AssertionError(f"subm_conv {feats.dtype} {cin}->{cout}: "
                                  f"max err {rel} of max |out|")
         tot["err"] = max(tot["err"], abs_err)
-        ms = cuda_ms(lambda: subm_conv(feats, weight, rule))
+        if name == "subm_conv_wgmma":
+            ms, previous = race(lambda: subm_conv(feats, weight, rule),
+                                lambda: subm_conv_simt(feats, weight, rule))
+        else:
+            ms = cuda_ms(lambda: subm_conv(feats, weight, rule))
         plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
         b, by, flops, compulsory, gathered = conv_bound(feats, weight, rule)
         tot["by_ops"] += by == "operations"
@@ -342,7 +374,6 @@ def check_subm_conv(rec, lib_rows):
                         pack_weight(weight.cpu(), 32, mirror)):
                     raise AssertionError(f"pack_weight {cin}->{cout} "
                                          f"mirror={mirror} differs")
-            previous = cuda_ms(lambda: subm_conv_simt(feats, weight, rule))
             tot["previous_ms"] += previous * calls
             line += f", SIMT kernel {previous:.4f} ms"
             if ms > SLOWER_LIMIT * previous:
@@ -441,7 +472,14 @@ class GradRecorder(Recorder):
     training step's) and counts calls per shape over the whole run."""
 
     def __call__(self, name, args):
-        if name not in ("subm_conv_dw", "subm_conv_dx"):
+        if name not in ("subm_conv_dw", "subm_conv_dx", "subm_conv"):
+            return
+        if name == "subm_conv":
+            key = (name, int(args["weight"].shape[1]),
+                   int(args["weight"].shape[2]), str(args["feats"].dtype))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if key not in self.inputs:
+                self.inputs[key] = {k: v.clone() for k, v in args.items()}
             return
         g = args["g"]
         if name == "subm_conv_dw":
@@ -489,12 +527,20 @@ def knn_phase(rec):
     log(f"knn: {nr} refs x {nq} queries (of {len(prob['query_pts'])}), "
         f"route {call.route}, {wall:.3f} s, {launches} kernel launches, "
         f"{call.n_brute} brute-force stragglers")
-    for i, (n, cell, done, sec) in enumerate(call.rounds):
-        log(f"  round {i}: {n} queries, cell {cell:.4f} m, done {done:.4f}, "
-            f"{sec:.3f} s")
     if call.route != "banded" or launches == 0:
         raise AssertionError(f"banded k-NN not taken: {call}, launches "
                              f"{launches}")
+    passes = [knn_rec.inputs[key]["problem"] for key in knn_rec.inputs
+              if key[0] == "knn"]
+    if len(passes) != len(call.rounds):
+        raise AssertionError(f"{len(passes)} recorded passes for "
+                             f"{len(call.rounds)} rounds")
+    for i, ((n, cell, done, sec), p) in enumerate(zip(call.rounds, passes)):
+        cand = (p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum(1).float()
+        log(f"  round {i}: {n} queries, cell {cell:.4f} m, done {done:.4f}, "
+            f"{sec:.3f} s; {p.groups.shape[0] - 1} cell groups, "
+            f"{p.items.shape[0]} work items, candidates per query median "
+            f"{int(cand.median())}, max {int(cand.max())}")
     want = vote(labels[kdtree_knn(refs, queries, k)])
     bad = np.flatnonzero(got != want)
     ties = 0
@@ -508,15 +554,58 @@ def knn_phase(rec):
     if ties < len(bad) or len(bad) > 1e-4 * nq:
         raise AssertionError(f"banded k-NN vote: {len(bad)} mismatches "
                              f"({ties} ties) in {nq} queries")
+    whole_problem_routes(prob)
     return launches, knn_rec
+
+
+def whole_problem_routes(prob):
+    """The banded route on the main path's whole assign_remaining problem
+    (the pairs threshold lifted for this call only, the probe gate and all
+    else as they are) beside the host KD-tree the default route takes there.
+    Measurement only: the defaults stay, the launches are not counted."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.ops.cluster import kdtree_knn, vote
+    from treelearn_tpu_torch.ops.knn import banded_knn_classify
+
+    refs, labels, k = prob["ref_pts"], prob["ref_labels"], prob["k"]
+    queries = prob["query_pts"]
+    t0 = time.time()
+    want = vote(labels[kdtree_knn(refs, queries, k)])
+    kd_s = time.time() - t0
+    kept = os.environ.get("TL_KNN_KDTREE_MIN_PAIRS")
+    os.environ["TL_KNN_KDTREE_MIN_PAIRS"] = "1e30"
+    try:
+        info = {}
+        t0 = time.time()
+        got = banded_knn_classify(refs, labels, queries, k=k,
+                                  small_refs_kdtree=False, device=CARD,
+                                  log=info)
+        torch.cuda.synchronize()
+        banded_s = time.time() - t0
+    finally:
+        if kept is None:
+            del os.environ["TL_KNN_KDTREE_MIN_PAIRS"]
+        else:
+            os.environ["TL_KNN_KDTREE_MIN_PAIRS"] = kept
+    bad = int((np.asarray(got) != want).sum())
+    log(f"  whole problem ({len(refs)} refs x {len(queries)} queries): "
+        f"banded route {banded_s:.3f} s ({len(info['rounds'])} rounds, "
+        f"{info['n_brute']} stragglers), host KD-tree (the default route "
+        f"above 2e10 pairs) {kd_s:.3f} s, {bad} votes differ")
+    if bad > 1e-4 * len(queries):
+        raise AssertionError(f"banded route on the whole problem: {bad} "
+                             "votes differ from the KD-tree's")
 
 
 def check_knn(knn_rec, lib_rows, launches):
     import torch
 
-    from treelearn_tpu_torch.ops.knn import knn_pass, knn_pass_plain
+    from treelearn_tpu_torch.ops.knn import (knn_pass, knn_pass_plain,
+                                             knn_pass_serial)
 
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, previous_ms=0.0)
     by_ops = 0
     keys = sorted(k for k in knn_rec.inputs if k[0] == "knn")
     for key in keys:
@@ -528,17 +617,29 @@ def check_knn(knn_rec, lib_rows, launches):
         if mism:
             raise AssertionError(f"knn pass Q={key[1]}: {mism} winners or "
                                  "found counts differ")
-        ms = cuda_ms(lambda: knn_pass(p))
+        ws, fs = knn_pass_serial(p)
+        torch.cuda.synchronize()
+        off = int((w != ws).sum() + (f != fs).sum())
+        ms, previous = race(lambda: knn_pass(p), lambda: knn_pass_serial(p))
         plain = cuda_ms(lambda: knn_pass_plain(p), reps=2, warmup=1)
         nq, nr = p.queries.shape[0], p.refs.shape[0]
         cand = float((p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum())
         b, by = bound(16 * nr + 12 * nq + 24 * nq + 8 * nq, 10.0 * cand)
         by_ops += by == "operations"
         log(f"  knn pass Q={nq} R={nr}: winners and found counts exact, "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-            f"({by}), {cand:.0f} candidate refs")
-        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            f"kernel {ms:.4f} ms, one-thread-a-query kernel {previous:.4f} "
+            f"ms ({off} of its answers differ), plain {plain:.4f} ms, bound "
+            f"{b:.4f} ms ({by}), {cand:.0f} candidate refs, "
+            f"{p.items.shape[0]} blocks")
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(f"knn pass Q={nq}: {ms:.4f} ms, the kernel "
+                                 f"it replaced {previous:.4f} ms")
+        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
+                          ("previous_ms", previous)):
             total[name] += val
+    if not total["ms"] < total["previous_ms"]:
+        raise AssertionError(f"knn: {total['ms']:.4f} ms a call, the kernel "
+                             f"it replaced {total['previous_ms']:.4f} ms")
     lib_rows.append(dict(
         name="knn", route="cuda", source="treelearn_tpu_torch/csrc/knn.cu",
         replaces="treelearn_tpu/ops/pallas_knn.py:125", launches=launches,
@@ -591,32 +692,50 @@ def train_phase(tmp):
                              f"{losses[:5].mean()}, last 5 mean "
                              f"{losses[-5:].mean()}")
     zero = [k for k in ("rulebook", "subm_conv", "subm_conv_wgmma",
-                        "subm_conv_dw") if launches[k] == 0]
+                        "subm_conv_dw", "subm_conv_dw_wgmma")
+            if launches[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched in training: {zero}")
     return info, launches, rec
 
 
 def check_grads(rec, lib_rows, launches, n_steps):
-    """Phase 7: dW kernel and the conv's dx against their plain versions at
-    every recorded shape; times per training step."""
+    """Phase 7: both dW kernels and the conv's dx against their plain
+    versions at every recorded shape, the forward convs at the training
+    shapes; times per training step.  ``launches``: the training run's
+    counts."""
     import torch
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv_dw,
+    from treelearn_tpu_torch.ops.subm_conv import (dw_plan, mirrored,
+                                                   subm_conv, subm_conv_dw,
+                                                   subm_conv_dw_simt,
                                                    subm_conv_dx,
                                                    subm_conv_simt)
 
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    worst = 0.0
+    csrc = "treelearn_tpu_torch/csrc/"
+    sources = {"subm_conv_dw": csrc + "subm_conv_dw.cu",
+               "subm_conv_dw_wgmma": csrc + "subm_conv_dw_wgmma.cu"}
+    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, shapes=0)
+              for n in sources}
+    totals["subm_conv_dw_wgmma"]["previous_ms"] = 0.0
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
         a = rec.inputs[key]
         x, g, rule = a["x"], a["g"], a["rule"]
         per_step = rec.calls[key] / n_steps
+        cin, cout = x.shape[1], g.shape[1]
+        plan = dw_plan(cin, cout, x.shape[0], x.dtype)
+        name = ("subm_conv_dw_wgmma" if plan.route == "wgmma"
+                else "subm_conv_dw")
+        tot = totals[name]
+        # float32: the SIMT route at every shape; working type: the route
+        # the shape takes
         got = subm_conv_dw(x.float(), g.float(), rule)
         want = plain_dw(x.float(), g.float(), rule)
         got16 = subm_conv_dw(x, g, rule)
+        if not torch.equal(got16, subm_conv_dw(x, g, rule)):
+            raise AssertionError(f"subm_conv_dw {key}: two launches differ")
         want16 = plain_dw(x, g, rule)
         torch.cuda.synchronize()
         scale = float(want.abs().max().clamp(min=1e-12))
@@ -626,29 +745,65 @@ def check_grads(rec, lib_rows, launches, n_steps):
         if err32 > 1e-4 or abs16 > 1e-3 * scale16:
             raise AssertionError(f"subm_conv_dw {key}: f32 err {err32}, "
                                  f"bf16 err {abs16 / scale16} of max |dW|")
-        worst = max(worst, abs16)
-        ms = cuda_ms(lambda: subm_conv_dw(x, g, rule))
+        tot["err"] = max(tot["err"], abs16)
+        tot["shapes"] += 1
+        if name == "subm_conv_dw_wgmma":
+            ms, previous = race(lambda: subm_conv_dw(x, g, rule),
+                                lambda: subm_conv_dw_simt(x, g, rule),
+                                rounds=5)
+        else:
+            ms = cuda_ms(lambda: subm_conv_dw(x, g, rule))
         plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
         nnz = int((rule >= 0).sum())
-        cin, cout = x.shape[1], g.shape[1]
         s = x.element_size()
+        flops = 2.0 * nnz * cin * cout
         b, _ = bound(x.numel() * s + g.numel() * s + rule.numel() * 4
-                     + 27 * cin * cout * 4, 2.0 * nnz * cin * cout,
-                     "bfloat16")
-        log(f"  subm_conv_dw {key[3]} V={x.shape[0]} {cin}x{cout}: f32 err "
-            f"{err32:.1e}, bf16 err {abs16 / scale16:.1e} of max |dW|, "
-            f"kernel {ms:.4f} ms ({2.0 * nnz * cin * cout / ms / 1e9:.1f} "
-            f"TFLOP/s), plain {plain:.4f} ms, bound {b:.4f} ms, "
-            f"{per_step:.1f} call(s) per step")
-        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
-            total[name] += val * per_step
-    lib_rows.append(dict(
-        name="subm_conv_dw", route="cuda",
-        source="treelearn_tpu_torch/csrc/subm_conv_dw.cu",
-        replaces="treelearn_tpu/ops/pallas_conv.py:438", launches=launches,
-        max_abs_err=worst, bound_by="operations", library_ms=None, **total))
+                     + 27 * cin * cout * 4, flops, "bfloat16")
+        line = (f"  {name} {key[3][6:]} V={x.shape[0]} {cin}x{cout}: f32 "
+                f"err {err32:.1e}, bf16 err {abs16 / scale16:.1e} of max "
+                f"|dW|, kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                f"plain {plain:.4f} ms, bound {b:.4f} ms, gathered "
+                f"{nnz * cin * s / 1e6:.2f} MB, {per_step:.1f} call(s) per "
+                f"step")
+        if name == "subm_conv_dw_wgmma":
+            tot["previous_ms"] += previous * per_step
+            line += (f", {plan.n_chunks} chunk(s) of {plan.rows_per_chunk} "
+                     f"rows, SIMT kernel {previous:.4f} ms")
+            if ms > SLOWER_LIMIT * previous:
+                raise AssertionError(
+                    f"subm_conv_dw {cin}x{cout} V={x.shape[0]}: the wgmma "
+                    f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
+        log(line)
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            tot[col] += val * per_step
+    for name, tot in totals.items():
+        if not tot.pop("shapes"):
+            raise AssertionError(f"no recorded dW shape took {name}")
+        lib_rows.append(dict(
+            name=name, route="cuda", source=sources[name],
+            replaces="treelearn_tpu/ops/pallas_conv.py:438",
+            launches=launches[name], max_abs_err=tot.pop("err"),
+            bound_by="operations", library_ms=None, **tot))
+    new, old = (totals["subm_conv_dw_wgmma"][c] for c in ("ms",
+                                                          "previous_ms"))
+    log(f"  dW per training step on the tensor-core route: {new:.4f} ms, "
+        f"the SIMT kernel at the same shapes {old:.4f} ms")
+    if not new < old:
+        raise AssertionError("the wgmma dW route is not faster per step")
+    fwd = 0.0
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv"):
+        a = rec.inputs[key]
+        feats, w, rule = a["feats"], a["weight"], a["rule"]
+        per_step = rec.calls[key] / n_steps
+        ms = cuda_ms(lambda: subm_conv(feats, w, rule))
+        b, by, flops, _, _ = conv_bound(feats, w, rule)
+        log(f"  forward conv {key[3][6:]} V={feats.shape[0]} {key[1]}->"
+            f"{key[2]}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"bound {b:.4f} ms ({by}), {per_step:.1f} call(s) per step")
+        fwd += ms * per_step
+    log(f"  forward convs per training step: {fwd:.4f} ms")
     dx = dict(dx_ms=0.0, dx_bound_ms=0.0, dx_previous_ms=0.0,
-              dx_launches_per_step=0.0)
+              dx_plain_ms=0.0, dx_launches_per_step=0.0)
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
         a = rec.inputs[key]
         g, w, rule = a["g"], a["weight"], a["rule"]
@@ -671,18 +826,23 @@ def check_grads(rec, lib_rows, launches, n_steps):
             if err > tol:
                 raise AssertionError(f"dx {key}: err {err} of max, limit "
                                      f"{tol}")
-        ms = cuda_ms(lambda: subm_conv_dx(g, w, rule))
-        previous = cuda_ms(lambda: subm_conv_simt(g, w, rule, mirror=True))
-        b, by, flops, _, gathered = conv_bound(g, mirrored(w), rule)
+        ms, previous = race(
+            lambda: subm_conv_dx(g, w, rule),
+            lambda: subm_conv_simt(g, w, rule, mirror=True))
+        wm = mirrored(w)
+        plain = cuda_ms(lambda: plain_conv(g, wm, rule), reps=3)
+        b, by, flops, _, gathered = conv_bound(g, wm, rule)
         log(f"  dx {key[3]} V={g.shape[0]} {key[1]}<-{key[2]}: matches "
             f"the plain versions, kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), SIMT kernel {previous:.4f} "
-            f"ms, bound {b:.4f} ms ({by}), gathered {gathered / 1e6:.2f} MB, "
-            f"{per_step:.1f} call(s) per step")
+            f"ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), gathered "
+            f"{gathered / 1e6:.2f} MB, {per_step:.1f} call(s) per step")
         for col, val in (("dx_ms", ms), ("dx_bound_ms", b),
                          ("dx_previous_ms", previous),
+                         ("dx_plain_ms", plain),
                          ("dx_launches_per_step", 1.0)):
             dx[col] += val * per_step
+    dx["train_forward_ms"] = fwd
     log(f"  dx per training step: {json.dumps(dx)}")
     next(r for r in lib_rows if r["name"] == "subm_conv_wgmma").update(dx)
 
@@ -910,8 +1070,7 @@ def main():
 
         # 6. training at full width; 7. its backward kernels
         info, train_launches, grad_rec = train_phase(tmp)
-        check_grads(grad_rec, rows, train_launches["subm_conv_dw"],
-                    len(info["losses"]))
+        check_grads(grad_rec, rows, train_launches, len(info["losses"]))
         del grad_rec
 
         # 8. one training step, card against CPU

@@ -285,6 +285,75 @@ def test_knn_kernel_matches_plain(cuda):
     assert 0 < int((f == 5).sum()) < f.numel()
 
 
+def _knn_case(device, kind, k):
+    """clumped: 40 dense clumps, cells of up to thousands of candidates
+    (many partitions a block); coarse: the same refs under a cell so coarse
+    that few groups hold everything (the late rounds); sparse: uniform refs,
+    some queries find fewer than k; ties: coordinates on a 0.25 grid with
+    every third ref a duplicate, so equal distances abound; lone: groups of
+    one query."""
+    from treelearn_tpu_torch.ops.knn import prepare_pass
+
+    rng = np.random.default_rng(len(kind) + k)
+    if kind in ("clumped", "coarse"):
+        centers = rng.uniform(0, 30, (40, 3)) * np.array([1, 1, 0.3])
+        refs = np.concatenate([c + rng.normal(0, 0.4, (1500, 3))
+                               for c in centers])
+        queries = np.concatenate([
+            refs[rng.choice(len(refs), 6000)] + rng.normal(0, 0.3, (6000, 3)),
+            rng.uniform(0, 30, (3000, 3)) * np.array([1, 1, 0.3])])
+        cell = 0.5 if kind == "clumped" else 9.0
+    elif kind == "sparse":
+        refs = rng.uniform(0, 40, (3000, 3))
+        queries = rng.uniform(0, 40, (5000, 3))
+        cell = 1.5
+    elif kind == "ties":
+        refs = np.round(rng.uniform(0, 6, (20000, 3)) * 4) / 4
+        refs[::3] = refs[1::3][:len(refs[::3])]
+        queries = np.round(rng.uniform(0, 6, (4000, 3)) * 4) / 4
+        cell = 1.0
+    else:
+        refs = rng.uniform(0, 30, (50000, 3)) * np.array([1, 1, 0.1])
+        queries = rng.uniform(0, 30, (300, 3)) * np.array([1, 1, 0.1])
+        cell = 0.7
+    labels = rng.integers(1, 30, len(refs))
+    return prepare_pass(torch.from_numpy(refs.astype(np.float32)).to(device),
+                        torch.from_numpy(labels).to(device),
+                        torch.from_numpy(queries.astype(np.float32)).to(device),
+                        cell, k)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("kind", ["clumped", "coarse", "sparse", "ties",
+                                  "lone"])
+def test_knn_group_kernel_exact(cuda, kind, k):
+    """The cooperative kernel against the plain pass and its own plain twin,
+    exactly; against the one-thread-a-query kernel it replaced wherever
+    distances do not tie (that kernel orders by distance alone)."""
+    from treelearn_tpu_torch.ops.knn import (knn_pass, knn_pass_grouped_plain,
+                                             knn_pass_plain, knn_pass_serial)
+
+    p = _knn_case(cuda, kind, k)
+    qs = p.items[:, 2]
+    assert int(p.items[:, 1].sum()) == p.queries.shape[0]
+    if kind == "coarse":
+        assert int(qs.min()) < 256      # candidates are split among warps
+    w, f = knn_pass(p)
+    wp, fp = knn_pass_plain(p)
+    torch.cuda.synchronize()
+    assert torch.equal(f, fp)
+    assert torch.equal(w, wp)
+    if kind == "sparse":
+        assert int((f < k).sum()) > 0
+    ws, fs = knn_pass_serial(p)
+    assert torch.equal(fs, f)
+    if kind != "ties":
+        assert torch.equal(ws, w)
+    if kind in ("sparse", "ties"):
+        wt, ft = knn_pass_grouped_plain(p)
+        assert torch.equal(ft, f) and torch.equal(wt, w)
+
+
 def test_knn_classify_banded_route_on_card(cuda, monkeypatch):
     """The public route on the card against the exact host KD-tree vote
     (ties aside: 1e-3 share)."""
@@ -308,11 +377,12 @@ def test_knn_classify_banded_route_on_card(cuda, monkeypatch):
 def test_subm_conv_dw_kernel_matches_plain(cuda, dtype, cin, cout):
     """f32: rtol 1e-4 of max |dW| (summation order); bf16 inputs: 1e-3 of
     max |dW| (float32 sums of the same bf16 products, in another order).
-    Two launches give the same bits (no atomics)."""
+    Two launches give the same bits (no atomics).  float32 takes the SIMT
+    kernel, bf16 at these widths the tensor-core one."""
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.rulebook import subm_rulebook
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
-    from treelearn_tpu_torch.ops.subm_conv import subm_conv_dw
+    from treelearn_tpu_torch.ops.subm_conv import dw_plan, subm_conv_dw
 
     g_ = _grid(cuda, seed=2)
     rule = subm_rulebook(g_)
@@ -320,16 +390,84 @@ def test_subm_conv_dw_kernel_matches_plain(cuda, dtype, cin, cout):
     v = g_.n_active
     x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
     g = torch.randn(v, cout, generator=gen).to(cuda, dtype)
-    before = _cuda.LAUNCHES["subm_conv_dw"]
+    name = ("subm_conv_dw_wgmma" if dw_plan(cin, cout, v, dtype).route
+            == "wgmma" else "subm_conv_dw")
+    assert (name == "subm_conv_dw") == (dtype == torch.float32)
+    before = _cuda.LAUNCHES[name]
     got = subm_conv_dw(x, g, rule)
     again = subm_conv_dw(x, g, rule)
     want = plain(x, g, rule)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["subm_conv_dw"] == before + 2
+    assert _cuda.LAUNCHES[name] == before + 2
     assert torch.equal(got, again)
     scale = float(want.abs().max())
     tol = 1e-4 if dtype == torch.float32 else 1e-3
     assert float((got - want).abs().max()) <= tol * scale
+
+
+DW_VS = [1, 15, 16, 17, 63, 1000, 58000]
+
+
+@pytest.mark.parametrize("v", DW_VS)
+@pytest.mark.parametrize("cin,cout", [
+    (32, 32), (32, 64), (64, 32), (224, 224), (448, 224), (192, 384)])
+def test_subm_conv_dw_wgmma_matches_plain(cuda, cin, cout, v):
+    """The tensor-core dW against the plain dW: 1e-3 of max |dW| (float32
+    sums of the same bf16 products in another order).  32 -> 64 / 64 -> 32
+    guard the transposed operands, 192 -> 384 the Cout split, 32 -> 32 and
+    224 -> 224 the slab pairs that straddle two offsets; V covers a lone
+    row, ragged K steps and slots, and several chunks.  Two launches give
+    the same bits; the SIMT kernel agrees within the same limit."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
+    from treelearn_tpu_torch.ops.subm_conv import (dw_plan, subm_conv_dw,
+                                                   subm_conv_dw_simt)
+
+    assert dw_plan(cin, cout, v).route == "wgmma"
+    gen = torch.Generator(device="cpu").manual_seed(cin * 7 + cout + v)
+    v_in = v + 5
+    x = torch.randn(v_in, cin, generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn(v, cout, generator=gen).to(cuda, torch.bfloat16)
+    rule = _random_rule(gen, v_in, v, 0.4).to(cuda)
+    x = x[:v].contiguous()
+    rule = torch.where(rule >= v, -1, rule)
+    before = dict(_cuda.LAUNCHES)
+    got = subm_conv_dw(x, g, rule)
+    again = subm_conv_dw(x, g, rule)
+    torch.cuda.synchronize()
+    assert (_cuda.LAUNCHES["subm_conv_dw_wgmma"]
+            == before["subm_conv_dw_wgmma"] + 2)
+    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"]
+    assert torch.equal(got, again)
+    want = plain(x, g, rule)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-3 * scale
+    simt = subm_conv_dw_simt(x, g, rule)
+    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"] + 1
+    assert float((simt - want).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("v", [136, 8300])
+def test_subm_conv_dw_wgmma_sparse_rules(cuda, v):
+    """An all -1 rule gives zeros; a rule most of whose K steps are empty
+    (two offsets present on a stretch of rows, one lone entry of a third)
+    matches the plain dW, the absent offsets' slices exactly zero."""
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv_dw
+
+    gen = torch.Generator(device="cpu").manual_seed(v)
+    x = torch.randn(v, 64, generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn(v, 96, generator=gen).to(cuda, torch.bfloat16)
+    rule = torch.full((27, v), -1, dtype=torch.int32)
+    assert (subm_conv_dw(x, g, rule.to(cuda)) == 0).all()
+    lo, hi = v // 3, v // 3 + 40
+    rule[[3, 13], lo:hi] = _random_rule(gen, v, v, 0.7)[[3, 13], lo:hi]
+    rule[26, v - 1] = 0
+    rule = rule.to(cuda)
+    got = subm_conv_dw(x, g, rule)
+    want = plain(x, g, rule)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert (got[[0, 1, 2, 4, 12, 14, 25]] == 0).all()
 
 
 def test_subm_conv_fn_grads_match_plain_autograd(cuda):
@@ -359,7 +497,8 @@ def test_subm_conv_fn_grads_match_plain_autograd(cuda):
 @pytest.mark.parametrize("cin,cout", [(32, 64), (64, 32), (192, 384)])
 def test_subm_conv_fn_bf16_grads_through_wgmma(cuda, cin, cout):
     """bf16 SubmConvFn: forward and dx go through the tensor-core route (dx
-    with Cin and Cout swapped), dW through kernel 3.  Each against its plain
+    with Cin and Cout swapped), dW through kernel 3's tensor-core route.
+    Each against its plain
     version in the working type on the same bf16 values: dx = the plain conv
     of the cotangent with the mirrored weights, 2e-2 of max |dx| (one bf16
     rounding of float32 sums in another order); dW = the plain weight
@@ -379,12 +518,14 @@ def test_subm_conv_fn_bf16_grads_through_wgmma(cuda, cin, cout):
     w = (torch.randn(27, cin, cout, generator=gen) * 0.1).to(cuda)
     cot = torch.randn(g_.n_active, cout, generator=gen).to(cuda,
                                                            torch.bfloat16)
-    before = _cuda.LAUNCHES["subm_conv_wgmma"]
+    before = dict(_cuda.LAUNCHES)
     xx = x.clone().requires_grad_(True)
     ww = w.clone().requires_grad_(True)
     out = SubmConvFn.apply(xx, ww, rule)
     out.backward(cot)
-    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before + 2
+    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"] + 2
+    assert (_cuda.LAUNCHES["subm_conv_dw_wgmma"]
+            == before["subm_conv_dw_wgmma"] + 1)
     w16 = w.to(torch.bfloat16)
     want_out = plain(x, w16, rule).float()
     assert float((out.float() - want_out).abs().max()) <= 2e-2 * float(

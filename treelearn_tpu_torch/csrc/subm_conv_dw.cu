@@ -1,4 +1,7 @@
-// Weight gradient of the submanifold sparse convolution.
+// Weight gradient of the submanifold sparse convolution on the float32
+// units: the route of float32 inputs and of widths that are no multiples of
+// 32 (the 4 -> 32 input conv), and the yardstick csrc/subm_conv_dw_wgmma.cu
+// (bf16, widths in multiples of 32) is timed against.
 //
 // Replaces the Pallas kernel _dw_kernel / rule_conv_dw_banded
 // (treelearn_tpu/ops/pallas_conv.py:415,438).  The TPU grid runs its tiles
@@ -13,7 +16,7 @@
 //           into shared memory and every thread sums a 4 x 4 block of
 //           outer products in float32 registers; the block writes its
 //           64 x 64 tile to partial[chunk, k];
-//   pass 2: dW[k, c, n] = sum over chunks, in chunk order.
+//   pass 2: dW[k, c, n] = sum over chunks, in chunk order (dw_reduce.cuh).
 //
 //   dW[k] = sum_i x[rule[k, i]]^T g[i]      (rule -1: no input)
 //
@@ -24,13 +27,18 @@
 // x and g are float32 or bfloat16 (the working type); products are formed
 // and summed in float32, as the Pallas kernel's preferred_element_type does.
 //
-// Bound: operations (2 Cin Cout per rule entry against Cin + Cout values
-// moved per row); this first version runs on the float32 SIMT units, not
-// the tensor cores.
+// Bound on the card: operations (2 Cin Cout per rule entry against Cin +
+// Cout values moved per row).  The products run on the float32 SIMT units
+// (bf16 inputs are widened in shared memory), a block owns one (offset,
+// 64 x 64 channel tile, row chunk) and so reads g again for each of the 27
+// offsets and x again for each Cout tile, and no copy is in flight during
+// the products: about 9 TFLOP/s on bf16 inputs.  The tensor-core route
+// exists for that reason; what stays here is small (Cin = 4) or float32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include "dw_reduce.cuh"
 
 namespace {
 
@@ -126,16 +134,6 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-__global__ void dw_reduce_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ dw, int n_chunks,
-                                 int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += partial[(int64_t)c * n + i];
-  dw[i] = s;
-}
-
 template <typename T>
 int launch(const void* x, const void* g, const void* rule, void* partial,
            void* dw, int v, int cin, int cout, int n_chunks, void* stream) {
@@ -149,11 +147,7 @@ int launch(const void* x, const void* g, const void* rule, void* partial,
       cin, cout, rows_per_chunk, tiles_n);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const int64_t n = (int64_t)27 * cin * cout;
-  const int threads = 256;
-  dw_reduce_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
-      (const float*)partial, (float*)dw, n_chunks, n);
-  return (int)cudaGetLastError();
+  return launch_dw_reduce(partial, dw, n_chunks, (int64_t)27 * cin * cout, s);
 }
 
 }  // namespace

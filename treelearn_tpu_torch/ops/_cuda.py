@@ -28,13 +28,15 @@ _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC = osp.join(_PKG, "csrc")
 BUILD_ROOT = osp.join(_PKG, "_build")
 SOURCES = ("rulebook.cu", "subm_conv.cu", "subm_conv_wgmma.cu",
-           "subm_conv_dw.cu", "vert.cu", "cc.cu", "knn.cu")
+           "subm_conv_dw.cu", "subm_conv_dw_wgmma.cu", "vert.cu", "cc.cu",
+           "knn.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rulebook": 0, "subm_conv": 0, "subm_conv_wgmma": 0,
-            "subm_conv_dw": 0, "vert": 0, "cc": 0, "knn": 0}
+            "subm_conv_dw": 0, "subm_conv_dw_wgmma": 0, "vert": 0, "cc": 0,
+            "knn": 0}
 
 # optional observer of kernel inputs: recorder(name, args_dict)
 _RECORDER = None
@@ -66,8 +68,14 @@ _SIGNATURES = {
     "tl_vert_moments": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # pts, cell_ij, cell_keys, cell_start, n, n_cells, width, eps2, out, stream
     "tl_cc_found_bits": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    # refs, labels, q, ranges, nq, k, winner, n_found, stream
+    # x, g, rule, partial, dw, v, cin, cout, bn, producers, stages, n_chunks,
+    # rows_per_chunk, smem_bytes, stream
+    "tl_subm_conv_dw_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
+    # refs4, q, ranges, items, n_items, k, winner, n_found, stream
     "tl_knn_vote": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # refs, labels, q, ranges, nq, k, winner, n_found, stream
+    "tl_knn_vote_serial": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 

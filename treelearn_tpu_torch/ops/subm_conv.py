@@ -17,9 +17,16 @@ registers.  No windows, so nothing can overflow.
   per block on the float32 SIMT units.
 
 Kernel 3 replaces ``rule_conv_dw_banded`` (``_dw_kernel``,
-pallas_conv.py:438,415): csrc/subm_conv_dw.cu sums per-chunk partial
-weight gradients and adds the chunks in a second pass, so dW is
-deterministic (see the source for why not atomics).
+pallas_conv.py:438,415): both routes sum per-chunk partial weight gradients
+and add the chunks in order in a second pass, so dW is deterministic (see
+the sources for why not atomics).
+
+* csrc/subm_conv_dw_wgmma.cu, the bf16 route: ``dW[k] = X_k^T G`` on the
+  tensor cores with the voxel rows as the reduction dimension, both
+  operands MN-major straight from row-major rows in shared memory
+  (:func:`dw_plan`).
+* csrc/subm_conv_dw.cu, the float32 / odd-width route: 64 x 64 channel
+  tiles on the float32 SIMT units.
 
 :class:`SubmConvFn` is the counterpart of ``rule_conv_ad``
 (pallas_conv.py:588-649): forward kernel 2; backward dx = kernel 2 on the
@@ -31,7 +38,11 @@ Bound on the card: operations by the count (2 x Cin x Cout FLOPs per rule
 entry, against Cin + Cout values moved per voxel), but at 32..224 channels
 the tensor cores finish that in microseconds, and what the bf16 route pays
 for is the gather of feature rows through L2 (levels 0-1) and the length of
-one block's K loop (the deepest levels).
+one block's K loop (the deepest levels).  The weight gradient is bound the
+same way: its products take microseconds on the tensor cores, a launch pays
+for the 16-byte copies of the gathered rows and of g (once per offset and
+input slice) and, below a few thousand rows, for the launch and the Python
+wrapper around it.
 """
 
 from __future__ import annotations
@@ -257,25 +268,99 @@ def subm_conv_simt(feats: torch.Tensor, weight: torch.Tensor,
 
 
 DW_PARTIAL_BYTES = 64 << 20   # cap on kernel 3's per-chunk partials
-DW_TARGET_BLOCKS = 2048       # blocks in flight kernel 3 aims for
+DW_TARGET_BLOCKS = 2048       # blocks in flight the SIMT dW kernel aims for
+DW_WGMMA_BLOCKS = 528         # the same for the tensor-core route: 4 an SM
+DW_WGMMA_MIN_ROWS = 256       # fewer rows than this are not worth a chunk
+DW_WGMMA_STAGES = 4           # ring depth
+DW_WGMMA_PRODUCERS = 128      # producer threads; a ring slot holds a quarter
+                              # as many rows
+
+
+class DwPlan(NamedTuple):
+    """What the launcher of kernel 3 uses for one shape."""
+
+    route: str           # "wgmma" or "simt"
+    bn: int              # output channels per block
+    n_splits: int        # blocks along Cout (n_splits * bn >= cout)
+    producers: int       # wgmma: producer threads, 4 per row of a ring slot
+    stages: int          # wgmma: ring depth
+    n_chunks: int        # row chunks, one partial each
+    rows_per_chunk: int  # n_chunks * rows_per_chunk >= v
+    smem_bytes: int      # wgmma: dynamic shared memory per block
+
+
+def dw_smem_bytes(bn: int, producers: int, stages: int) -> int:
+    """Dynamic shared memory of a wgmma dW block: alignment slack, the ring
+    of (2 + bn / 32) slabs of producers / 4 rows x 64 bytes, the mbarriers
+    and the producer warps' flags."""
+    return 1024 + stages * (2 + bn // 32) * (producers // 4) * 64 + 128 + 256
 
 
 def dw_chunks(v: int, cin: int, cout: int) -> int:
-    """Row chunks of kernel 3: enough blocks to fill the card, at least 256
-    rows a chunk, partials under ``DW_PARTIAL_BYTES``."""
+    """Row chunks of the SIMT dW kernel: enough blocks to fill the card, at
+    least 256 rows a chunk, partials under ``DW_PARTIAL_BYTES``."""
     tiles = -(-cin // 64) * -(-cout // 64)
     want = -(-DW_TARGET_BLOCKS // (27 * tiles))
     by_mem = max(1, DW_PARTIAL_BYTES // (27 * cin * cout * 4))
     return max(1, min(want, -(-v // 256), by_mem))
 
 
-def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
-                 rule: torch.Tensor) -> torch.Tensor:
-    """x (V, Cin), g (V, Cout) in one working type, rule (27, V) int32 ->
-    (27, Cin, Cout) float32 weight gradient.  CPU tensors take the plain
-    version (ops/sparse.py:subm_conv_dw); CUDA tensors launch kernel 3."""
-    if not x.is_cuda:
-        return subm_conv_dw_plain(x, g, rule)
+def _dw_plan_simt(cin: int, cout: int, v: int) -> DwPlan:
+    n = dw_chunks(v, cin, cout)
+    return DwPlan("simt", 64, -(-cout // 64), 0, 1, n, -(-max(v, 1) // n), 0)
+
+
+def dw_plan_wgmma(cin: int, cout: int, v: int,
+                  producers: int = DW_WGMMA_PRODUCERS,
+                  stages: int = DW_WGMMA_STAGES,
+                  target_blocks: int = DW_WGMMA_BLOCKS) -> DwPlan:
+    """The tensor-core plan of a (cin, cout, v) weight gradient under
+    explicit tunables (tools/conv_tune.py sweeps them; :func:`dw_plan` uses
+    the defaults).  A block sums two 32-channel slabs of the 27 * cin / 32
+    (offset, input slice) slabs against ``bn`` output channels over one row
+    chunk; chunks are cut so that about ``target_blocks`` blocks run, none
+    shorter than ``DW_WGMMA_MIN_ROWS`` rows and the partials under
+    ``DW_PARTIAL_BYTES``, and hold whole ring slots.
+
+    The defaults are what ``tools/conv_tune.py --only dw`` measured on the
+    H100 at the training shapes: 4 producer warps (32-row slots) beat 8 at
+    every level with more than one chunk, 4 ring slots beat 2 by 10-30 % and
+    8 bring nothing more, and four blocks an SM is within 10 % of the best
+    block target at every shape (the decoder's 2C -> C convs would take
+    twice as many, 96 -> 96 and 192 -> 96 half)."""
+    n = 1
+    while cout % n or (cout // n) % 32 or cout // n > MAX_BN:
+        n += 1
+    bn = cout // n
+    rows = producers // 4
+    while stages > 2 and dw_smem_bytes(bn, producers, stages) > SMEM_LIMIT:
+        stages -= 1
+    per_chunk = -(-(27 * (cin // 32)) // 2) * n
+    by_mem = max(1, DW_PARTIAL_BYTES // (27 * cin * cout * 4))
+    want = max(1, min(-(-target_blocks // per_chunk),
+                      v // DW_WGMMA_MIN_ROWS, by_mem))
+    rows_per_chunk = -(-(-(-max(v, 1) // want)) // rows) * rows
+    n_chunks = -(-max(v, 1) // rows_per_chunk)
+    return DwPlan("wgmma", bn, n, producers, stages, n_chunks,
+                  rows_per_chunk, dw_smem_bytes(bn, producers, stages))
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(cin: int, cout: int, v: int,
+            dtype: torch.dtype = torch.bfloat16) -> DwPlan:
+    """Static routing and tiling of kernel 3, from the shape alone.
+
+    bf16 with ``cin`` and ``cout`` multiples of 32 -> the wgmma kernel
+    (csrc/subm_conv_dw_wgmma.cu); float32, the 4 -> 32 input conv and other
+    odd widths -> the SIMT kernel (csrc/subm_conv_dw.cu)."""
+    if (dtype != torch.bfloat16 or cin == 0 or cout == 0 or cin % 32
+            or cout % 32):
+        return _dw_plan_simt(cin, cout, v)
+    return dw_plan_wgmma(cin, cout, v)
+
+
+def _dw_cuda(x, g, rule, force_simt=False):
+    """The CUDA routes of :func:`subm_conv_dw`."""
     _cuda.require(x, "subm_conv_dw x", _DTYPES, 2)
     _cuda.require(g, "subm_conv_dw g", x.dtype, 2)
     _cuda.require(rule, "subm_conv_dw rule", torch.int32, 2)
@@ -287,17 +372,74 @@ def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
     dw = torch.empty((27, cin, cout), dtype=torch.float32, device=x.device)
     if v == 0:
         return dw.zero_()
-    n_chunks = dw_chunks(v, cin, cout)
-    partial = torch.empty((n_chunks, 27, cin, cout), dtype=torch.float32,
-                          device=x.device)
-    _cuda.record("subm_conv_dw", x=x, g=g, rule=rule)
+    plan = (_dw_plan_simt(cin, cout, v) if force_simt
+            else dw_plan(cin, cout, v, x.dtype))
+    if not force_simt:
+        _cuda.record("subm_conv_dw", x=x, g=g, rule=rule)
     lib = _cuda.library()
-    fn = (lib.tl_subm_conv_dw_f32 if x.dtype == torch.float32
-          else lib.tl_subm_conv_dw_bf16)
-    code = fn(x.data_ptr(), g.data_ptr(), rule.data_ptr(), partial.data_ptr(),
-              dw.data_ptr(), v, cin, cout, n_chunks, _cuda.stream_ptr(x))
-    _cuda.check(code, "tl_subm_conv_dw")
-    _cuda.LAUNCHES["subm_conv_dw"] += 1
+    stream = _cuda.stream_ptr(x)
+    if plan.route == "simt":
+        partial = torch.empty((plan.n_chunks, 27, cin, cout),
+                              dtype=torch.float32, device=x.device)
+        fn = (lib.tl_subm_conv_dw_f32 if x.dtype == torch.float32
+              else lib.tl_subm_conv_dw_bf16)
+        code = fn(x.data_ptr(), g.data_ptr(), rule.data_ptr(),
+                  partial.data_ptr(), dw.data_ptr(), v, cin, cout,
+                  plan.n_chunks, stream)
+        _cuda.check(code, "tl_subm_conv_dw")
+        _cuda.LAUNCHES["subm_conv_dw"] += 1
+        return dw
+    # one chunk writes dW itself: no partials
+    partial = dw if plan.n_chunks == 1 else torch.empty(
+        (plan.n_chunks, 27, cin, cout), dtype=torch.float32, device=x.device)
+    code = lib.tl_subm_conv_dw_wgmma(
+        x.data_ptr(), g.data_ptr(), rule.data_ptr(), partial.data_ptr(),
+        dw.data_ptr(), v, cin, cout, plan.bn, plan.producers, plan.stages,
+        plan.n_chunks, plan.rows_per_chunk, plan.smem_bytes, stream)
+    _cuda.check(code, "tl_subm_conv_dw_wgmma")
+    _cuda.LAUNCHES["subm_conv_dw_wgmma"] += 1
+    return dw
+
+
+def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
+                 rule: torch.Tensor) -> torch.Tensor:
+    """x (V, Cin), g (V, Cout) in one working type, rule (27, V) int32 ->
+    (27, Cin, Cout) float32 weight gradient.
+
+    Routing, by device, dtype and shape only (:func:`dw_plan`):
+
+    * CPU tensors -> the plain version (ops/sparse.py:subm_conv_dw);
+    * CUDA, bf16, Cin and Cout multiples of 32 ->
+      csrc/subm_conv_dw_wgmma.cu (counted as ``subm_conv_dw_wgmma``);
+    * CUDA, float32, or any other width -> csrc/subm_conv_dw.cu (counted as
+      ``subm_conv_dw``).
+
+    A kernel that fails to build or launch raises; no route gives way to
+    another."""
+    if not x.is_cuda:
+        return subm_conv_dw_plain(x, g, rule)
+    return _dw_cuda(x, g, rule)
+
+
+def subm_conv_dw_simt(x: torch.Tensor, g: torch.Tensor,
+                      rule: torch.Tensor) -> torch.Tensor:
+    """:func:`subm_conv_dw` through csrc/subm_conv_dw.cu whatever the shape:
+    the yardstick the bf16 route is timed against on the card
+    (chip_smoke.py, the card tests).  Nothing in the package calls it."""
+    return _dw_cuda(x, g, rule, force_simt=True)
+
+
+def dw_chunked_plain(x: torch.Tensor, g: torch.Tensor, rule: torch.Tensor,
+                     plan: DwPlan) -> torch.Tensor:
+    """The two-pass sum of the dW kernels in PyTorch: the plain weight
+    gradient of each row chunk of ``plan``, the chunks added in order."""
+    dw = torch.zeros((27, x.shape[1], g.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    for c in range(plan.n_chunks):
+        lo = c * plan.rows_per_chunk
+        hi = min(x.shape[0], lo + plan.rows_per_chunk)
+        if hi > lo:
+            dw += subm_conv_dw_plain(x, g[lo:hi], rule[:, lo:hi])
     return dw
 
 
