@@ -14,7 +14,10 @@ Phases (any failure exits nonzero; nothing is swallowed):
              random weights on ``make_synthetic_forest(n_trees=48, extent=60,
              points_per_tree=16000, ground_points=200000, seed=0)``; launch
              counts are zeroed just before and read just after, and every
-             kernel of the path must have launched; the wrappers' inputs are
+             kernel of the path must have launched (the rulebook, the
+             tensor-core conv, verticality, found bits; the SIMT conv's path
+             is the float32 one of phase 5 since the bf16 input conv is
+             padded onto the tensor cores); the wrappers' inputs are
              recorded (first call of each shape) for phase 4; CUDA events
              around each model forward give the card's milliseconds beside
              the inference stage's host seconds;
@@ -37,26 +40,41 @@ Phases (any failure exits nonzero; nothing is swallowed):
              the route its shape takes, the tensor-core kernel also timed
              beside the SIMT kernel at the same shape (``previous_ms``), its
              repeat launch bit-equal, and its gather traffic printed beside
-             the compulsory bytes;
+             the compulsory bytes; the 4 -> 32 input conv in bf16 zero-padded
+             onto the tensor cores beside the SIMT kernel over the first
+             1024 .. all rows of its shape, the pad's time counted, and in
+             float32 on the SIMT kernel, which is that kernel's row;
              verticality counts exact, moments within 1e-4 of each column's
              scale, |dvert| <= 1e-3 after the float16 rounding but on a 1e-3
-             share of ill-conditioned neighborhoods; found bits exact; every
+             share of ill-conditioned neighborhoods, repeat launch bit-equal,
+             timed beside the one-thread-a-query kernel on the xy table of
+             the same points, candidates per query under both tables, the
+             whole ``verticality()`` call's wall seconds; found bits exact on
+             the plot's problem and on a trained-like grouping input
+             (``data/synthetic.py:trained_like_xy``: every tree point's xy on
+             its tree's position plus sigma 0.05 m noise, numpy seed 0, the
+             dense clumps a trained offset head makes), each timed
+             beside the one-thread-a-point kernel, with cells, points per
+             cell, neighbor-cell candidates before and after the box test
+             and the whole ``cc_labels()`` call's wall seconds: two ``cc``
+             rows, ``problem`` plot and trained-like; every
              recorded k-NN pass: winners and found counts exact, timed
              beside the one-thread-a-query kernel it replaced
              (``previous_ms``), no pass more than 1.1x slower and the total
              lower), timed with CUDA events (means of 10 launches; a
              redesigned kernel and the one it replaced in turns, the least
              of 3 to 5 such means each);
-5. check:    the port's pipeline on a small plot, on the card and with the
-             plain versions on the CPU, must give the same partition
-             (ARI >= 0.999) and tree count;
+5. check:    the port's pipeline on a small plot in float32, on the card and
+             with the plain versions on the CPU, must give the same
+             partition (ARI >= 0.999) and tree count; the card run's counts,
+             zeroed just before it, are the SIMT conv kernel's launches;
 6. train:    ``train_synthetic_checkpoint`` at full width (configs/_modular/
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
              16000 points per tree, hard_frac 0.8), 4 crops, 20 steps, counts
-             zeroed just before: the rulebook, both subm conv kernels and
-             both dW kernels must launch, every loss be finite and the mean of the
-             last 5 losses below that of the first 5; step time, steps/s,
+             zeroed just before: the rulebook and the tensor-core conv and
+             dW kernels must launch, every loss be finite and the mean of
+             the last 5 losses below that of the first 5; step time, steps/s,
              peak memory;
 7. grads:    on the first training step's inputs, one per shape: the dW
              kernels against the plain dW (float32, SIMT route: rtol 1e-4 of
@@ -64,7 +82,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              repeat launch bit-equal), the tensor-core route timed beside
              the SIMT kernel at the same shape (``previous_ms``; no shape
              more than 1.1x slower, the per-step total lower) with its
-             TFLOP/s and gathered bytes; the conv's dx (kernel 2 with the
+             TFLOP/s and gathered bytes; the input conv's dW padded beside
+             SIMT over the first 1024 .. all rows, and in float32 on the SIMT
+             kernel (that kernel's row); the conv's dx (kernel 2 with the
              mirrored weights) in float32 against autograd through the plain
              conv (1e-4 of max |dx|) and in bf16 against the plain conv with
              the mirrored weights (2e-2), timed beside its bound, its plain
@@ -77,7 +97,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              wherever |g| >= 1e-3 of that max (elsewhere AdamW's first step
              lr * g / (|g| + 1e-8) amplifies rounding noise), the running
              statistics within 1e-4; the Linear biases before a BatchNorm,
-             whose gradient is zero in exact arithmetic, are left out.
+             whose gradient is zero in exact arithmetic, are left out; the
+             card step's counts, zeroed just before it, are the SIMT dW
+             kernel's launches.
 
 The line before the card line's JSON trailer is ``{"kernels": [...]}``; the
 last line is the device record.  Exits nonzero without CUDA, and when run
@@ -100,7 +122,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 REPO = osp.dirname(osp.abspath(__file__))
 TRAIN_STEPS = 20
 CARD = "cuda"
-MAIN_PATH_KERNELS = ("rulebook", "subm_conv", "subm_conv_wgmma", "vert", "cc")
+MAIN_PATH_KERNELS = ("rulebook", "subm_conv_wgmma", "vert", "cc")
 SLOWER_LIMIT = 1.1            # a redesigned kernel vs the one it replaced,
                               # per shape or pass
 
@@ -167,12 +189,12 @@ def write_plot(root, seed, **kw):
 
     from treelearn_tpu_torch.data.synthetic import make_synthetic_forest
 
-    data, _ = make_synthetic_forest(seed=seed, **kw)
+    data, positions = make_synthetic_forest(seed=seed, **kw)
     d = osp.join(root, "plot", "forest")
     os.makedirs(d, exist_ok=True)
     path = osp.join(d, "smoke.npz")
     np.savez(path, points=data[:, :3].astype(np.float32), labels=data[:, 3])
-    return path, data
+    return path, data, positions
 
 
 class Recorder:
@@ -302,14 +324,52 @@ def conv_bound(feats, weight, rule):
     return b, by, flops, bytes_moved, nnz * cin * s
 
 
+def pad_sweep(feats, weight, rule, g=None):
+    """The 4 -> 32 input conv (with ``g`` its weight gradient) in bf16 on
+    the SIMT kernel and zero-padded onto the tensor-core route, the pad's
+    own time counted, over the first v rows of the recorded shape: what
+    ``ops/subm_conv.py:PAD_MIN_V`` rests on.  Measurement only."""
+    import torch
+    import torch.nn.functional as F
+
+    from treelearn_tpu_torch.ops.subm_conv import (subm_conv, subm_conv_dw,
+                                                   subm_conv_dw_simt,
+                                                   subm_conv_simt)
+
+    pad = 32 - feats.shape[1]
+    full = rule.shape[1]
+    what = "conv" if g is None else "dW"
+    for v in sorted({min(n, full) for n in (1024, 4096, 8192, 16384, 65536,
+                                            full)}):
+        r = rule[:, :v]
+        r = torch.where(r < v, r, -1).contiguous()
+        x = feats[:v].contiguous()
+        if g is None:
+            new, old = race(
+                lambda: subm_conv(F.pad(x, (0, pad)),
+                                  F.pad(weight, (0, 0, 0, pad)), r),
+                lambda: subm_conv_simt(x, weight, r))
+        else:
+            gv = g[:v].contiguous()
+            new, old = race(
+                lambda: subm_conv_dw(F.pad(x, (0, pad)), gv,
+                                     r)[:, :x.shape[1]].contiguous(),
+                lambda: subm_conv_dw_simt(x, gv, r))
+        log(f"    input {what} bf16 V={v}: padded onto the tensor cores "
+            f"{new:.4f} ms (pad included), SIMT {old:.4f} ms")
+
+
 def check_subm_conv(rec, lib_rows):
     """The recorded conv shapes: float32 on the SIMT route, the working type
     on the route its shape takes; one row per kernel."""
     import torch
 
+    import torch.nn.functional as F
+
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, pack_weight,
-                                                   subm_conv, subm_conv_simt)
+                                                   subm_conv, subm_conv_simt,
+                                                   tensor_core_pad)
 
     keys = sorted((k for k in rec.inputs if k[0] == "subm_conv"),
                   key=lambda k: (k[1][0], k[2]))
@@ -325,16 +385,36 @@ def check_subm_conv(rec, lib_rows):
         calls = rec.calls[key]
         cin, cout = weight.shape[1], weight.shape[2]
         # float32: same algorithm, float32 products and sums (SIMT route)
-        f32 = subm_conv(feats.float(), weight.float(), rule)
-        r32 = plain_conv(feats.float(), weight.float(), rule)
+        x32, w32 = feats.float(), weight.float()
+        f32 = subm_conv(x32, w32, rule)
+        r32 = plain_conv(x32, w32, rule)
         torch.cuda.synchronize()
         if not torch.allclose(f32, r32, rtol=1e-4, atol=1e-4 * float(
                 r32.abs().max().clamp(min=1e-6))):
             raise AssertionError(f"subm_conv f32 {cin}->{cout}: max err "
                                  f"{float((f32 - r32).abs().max())}")
+        if cin < 32:
+            # the SIMT kernel's row: the input conv in float32, the type that
+            # stays on it at this shape (bf16 is padded onto the tensor cores)
+            tot = totals["subm_conv"]
+            ms32 = cuda_ms(lambda: subm_conv(x32, w32, rule))
+            plain32 = cuda_ms(lambda: plain_conv(x32, w32, rule), reps=3)
+            b32, by32, _, _, _ = conv_bound(x32, w32, rule)
+            tot["err"] = max(tot["err"], float((f32 - r32).abs().max()))
+            tot["by_ops"] += by32 == "operations"
+            tot["shapes"] += 1
+            log(f"  subm_conv float32 V={feats.shape[0]} {cin}->{cout}: "
+                f"rtol 1e-4, kernel {ms32:.4f} ms, plain {plain32:.4f} ms, "
+                f"bound {b32:.4f} ms ({by32}), {calls} call(s) at this shape")
+            for col, val in (("ms", ms32), ("plain_ms", plain32),
+                             ("bound_ms", b32)):
+                tot[col] += val * calls
+            pad_sweep(feats, weight, rule)
+        del x32, w32, f32, r32
         # working type: bf16 inputs and output, float32 sums in both; the
         # outputs differ by summation order before the final bf16 rounding
-        plan = conv_plan(cin, cout, rule.shape[1], feats.dtype)
+        pad = tensor_core_pad(cin, cout, rule.shape[1], feats.dtype)
+        plan = conv_plan(cin + pad, cout, rule.shape[1], feats.dtype)
         name = "subm_conv_wgmma" if plan.route == "wgmma" else "subm_conv"
         tot = totals[name]
         first = subm_conv(feats, weight, rule)
@@ -360,7 +440,8 @@ def check_subm_conv(rec, lib_rows):
         tot["by_ops"] += by == "operations"
         tot["shapes"] += 1
         line = (f"  {name} {str(feats.dtype)[6:]} V={feats.shape[0]} "
-                f"{cin}->{cout} {plan.bm}x{plan.bn}: err {rel:.2e} of "
+                f"{cin}->{cout}{f' (+{pad} zero channels)' if pad else ''} "
+                f"{plan.bm}x{plan.bn}: err {rel:.2e} of "
                 f"max|out|, kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                 f"TFLOP/s), plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
                 f"compulsory {compulsory / 1e6:.2f} MB, gathered "
@@ -368,10 +449,11 @@ def check_subm_conv(rec, lib_rows):
                 f"({gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
                 f"rate), {calls} call(s)")
         if name == "subm_conv_wgmma":
+            w_in = F.pad(weight, (0, 0, 0, pad))
             for mirror in (False, True):   # the pack kernel, exactly
                 if not torch.equal(
-                        pack_weight(weight, 32, mirror).cpu(),
-                        pack_weight(weight.cpu(), 32, mirror)):
+                        pack_weight(w_in, 32, mirror).cpu(),
+                        pack_weight(w_in.cpu(), 32, mirror)):
                     raise AssertionError(f"pack_weight {cin}->{cout} "
                                          f"mirror={mirror} differs")
             tot["previous_ms"] += previous * calls
@@ -397,13 +479,21 @@ def check_subm_conv(rec, lib_rows):
 
 
 def check_vert(rec, lib_rows):
+    """Kernel 4 on the main path's own problem: against its plain version,
+    raced against the first kernel on the xy table of the same points."""
     import torch
 
     from treelearn_tpu_torch.ops import _cuda
-    from treelearn_tpu_torch.ops.vert import moments, moments_plain, vert_from_moments
+    from treelearn_tpu_torch.ops.vert import (moments, moments_plain,
+                                              moments_serial, prepare_xy,
+                                              vert_from_moments, verticality)
 
     p = rec.inputs[("vert",)]["problem"]
+    if p.table != "xyz":
+        raise AssertionError(f"the plot's verticality table is {p.table}")
     m = moments(p)
+    if not torch.equal(m, moments(p)):
+        raise AssertionError("verticality: two launches differ")
     mp = moments_plain(p)
     torch.cuda.synchronize()
     v, c = vert_from_moments(m)
@@ -424,47 +514,132 @@ def check_vert(rec, lib_rows):
     far = int((dv > 1e-3).sum())
     if far > max(1, int(1e-3 * int(ok.sum()))):
         raise AssertionError(f"verticality: {far} queries differ by > 1e-3")
-    ms = cuda_ms(lambda: moments(p))
+    # the first kernel, on the xy table of the same points
+    refs = p.refs4[:, :3].contiguous()
+    pxy = prepare_xy(refs, p.queries, p.radius)
+    old = torch.empty_like(m)
+    old[pxy.q_order] = moments_serial(pxy)    # p.queries' order
+    if not torch.equal(old[:, 0], m[:, 0]):
+        raise AssertionError("verticality: the first kernel's counts differ")
+    ms, previous = race(lambda: moments(p), lambda: moments_serial(pxy))
     plain = cuda_ms(lambda: moments_plain(p), reps=2, warmup=1)
-    nq, nr = p.queries.shape[0], p.refs.shape[0]
+    nq, nr = p.queries.shape[0], p.refs4.shape[0]
     pairs = float(m[:, 0].sum())
-    b, by = bound(12 * nr + 12 * nq + 8 * nq + 40 * nq
-                  + 4 * p.cell_start.numel(), 30.0 * pairs)
+    b, by = bound(16 * nr + 12 * nq + 40 * nq + 4 * p.ranges.numel()
+                  + 4 * p.items.numel(), 30.0 * pairs)
+    # candidates a query: the 9 ranges of the 3-D table, the 3 x 3 whole
+    # columns of the xy table
+    per_group = (p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum(1)
+    new_cand = torch.repeat_interleave(
+        per_group, (p.groups[1:] - p.groups[:-1]).long()).float()
+    cs = pxy.cell_start.long()
+    qi, qj = pxy.q_cell[:, 0].long(), pxy.q_cell[:, 1].long()
+    old_cand = torch.zeros(nq, device=cs.device)
+    for di in (-1, 0, 1):
+        row = torch.clamp(qi + di, 0, pxy.ni - 1) * pxy.nj
+        span = (cs[row + torch.clamp(qj + 1, max=pxy.nj - 1) + 1]
+                - cs[row + torch.clamp(qj - 1, min=0)])
+        old_cand += torch.where((qi + di >= 0) & (qi + di < pxy.ni), span, 0)
+    t0 = time.time()
+    verticality(refs, p.queries, p.radius)
+    torch.cuda.synchronize()
+    whole = time.time() - t0
     log(f"  vert Q={nq} R={nr}: counts exact, moments within {mom_err:.1e} of "
         f"scale, max |dvert| {err:.2e} ({far} > 1e-3), kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
-        f"{pairs:.0f} in-radius pairs")
+        f"{ms:.4f} ms, one-thread-a-query kernel {previous:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({by}), {pairs:.0f} in-radius "
+        f"pairs; {p.groups.shape[0] - 1} cell groups, {p.items.shape[0]} "
+        f"work items; candidates per query 3-D table median "
+        f"{int(new_cand.median())}, max {int(new_cand.max())}, sum "
+        f"{float(new_cand.sum()):.4g}; xy table median "
+        f"{int(old_cand.median())}, max {int(old_cand.max())}, sum "
+        f"{float(old_cand.sum()):.4g}; whole verticality() call "
+        f"{whole:.4f} s")
+    if ms > SLOWER_LIMIT * previous:
+        raise AssertionError(f"vert: {ms:.4f} ms, the kernel it replaced "
+                             f"{previous:.4f} ms")
     lib_rows.append(dict(
         name="vert", route="cuda", source="treelearn_tpu_torch/csrc/vert.cu",
         replaces="treelearn_tpu/ops/pallas_vert.py:137",
         launches=_cuda.LAUNCHES["vert"], max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        previous_ms=previous, whole_call_s=whole))
 
 
-def check_cc(rec, lib_rows):
+def check_cc_problem(p, what, plain_reps):
+    """Kernel 5 on one problem: exact against the plain version, raced
+    against the first kernel; returns the row's numbers."""
     import torch
 
-    from treelearn_tpu_torch.ops import _cuda
-    from treelearn_tpu_torch.ops.cc import found_bits, found_bits_plain
+    from treelearn_tpu_torch.ops.cc import (box_rejects, found_bits,
+                                            found_bits_plain,
+                                            found_bits_serial,
+                                            neighbor_cells_banded)
 
-    p = rec.inputs[("cc",)]["problem"]
     got = found_bits(p)
     want = found_bits_plain(p)
     torch.cuda.synchronize()
     mism = int((got != want).sum())
-    if mism:
-        raise AssertionError(f"cc found bits differ for {mism} points")
-    ms = cuda_ms(lambda: found_bits(p))
-    plain = cuda_ms(lambda: found_bits_plain(p), reps=2, warmup=1)
+    if mism or not torch.equal(found_bits_serial(p), want):
+        raise AssertionError(f"cc {what}: found bits differ for {mism} points")
+    ms, previous = race(lambda: found_bits(p), lambda: found_bits_serial(p))
+    plain = cuda_ms(lambda: found_bits_plain(p), reps=plain_reps,
+                    warmup=plain_reps - 1)
     n, c = p.pts.shape[0], p.cell_keys.shape[0]
-    b, by = bound(8 * n + 8 * n + 4 * n + 8 * c)
-    log(f"  cc N={n} cells={c}: found bits exact, kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
-    lib_rows.append(dict(
-        name="cc", route="cuda", source="treelearn_tpu_torch/csrc/cc.cu",
-        replaces="treelearn_tpu/ops/pallas_cc.py:116",
-        launches=_cuda.LAUNCHES["cc"], max_abs_err=float(mism), ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
+    b, by = bound(8 * n + 4 * n + 28 * c + 12 * p.items.shape[0])
+    # what a walk can meet: the points of the existing neighbor cells (the
+    # own cell aside), before and after the box test (upper bounds: a walk
+    # stops at its first hit)
+    sizes = (p.cell_start[1:] - p.cell_start[:-1]).long()
+    nbr = neighbor_cells_banded(p.cell_keys)
+    nbr[:, 12] = -1
+    cell = torch.repeat_interleave(torch.arange(c, device=sizes.device), sizes)
+    offered = torch.where(nbr >= 0, sizes[nbr.clamp(min=0)], 0)[cell]
+    kept = torch.where(box_rejects(p, nbr), 0, offered)
+    log(f"  cc {what} N={n}: found bits exact, kernel {ms:.4f} ms, "
+        f"one-thread-a-point kernel {previous:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {b:.4f} ms ({by}); {c} cells, points per cell median "
+        f"{int(sizes.median())}, max {int(sizes.max())}; "
+        f"{p.items.shape[0]} work items; neighbor-cell candidates "
+        f"{float(offered.sum()):.4g}, after the box test "
+        f"{float(kept.sum()):.4g}")
+    if ms > SLOWER_LIMIT * previous:
+        raise AssertionError(f"cc {what}: {ms:.4f} ms, the kernel it "
+                             f"replaced {previous:.4f} ms")
+    return dict(max_abs_err=float(mism), ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None, previous_ms=previous)
+
+
+def check_cc(rec, lib_rows, trained_xy, eps):
+    """Kernel 5 on the main path's own problem and on the trained-like
+    grouping input (``eps``: the configuration's tau_group); the whole
+    cc_labels call on each."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.cc import cc_labels, prepare
+
+    row = dict(name="cc", route="cuda",
+               source="treelearn_tpu_torch/csrc/cc.cu",
+               replaces="treelearn_tpu/ops/pallas_cc.py:116",
+               launches=_cuda.LAUNCHES["cc"])
+    for what, p, reps in (
+            ("plot", rec.inputs[("cc",)]["problem"], 2),
+            ("trained-like", None, 1)):
+        if p is None:
+            xy = torch.from_numpy(trained_xy).to(CARD)
+            p = prepare(xy, eps)
+        else:
+            xy = torch.empty_like(p.pts)
+            xy[p.order] = p.pts
+        nums = check_cc_problem(p, what, reps)
+        t0 = time.time()
+        labels = cc_labels(xy, eps)
+        whole = time.time() - t0
+        log(f"    whole cc_labels() call {whole:.4f} s, "
+            f"{len(np.unique(labels))} components")
+        lib_rows.append(dict(row, problem=what, whole_call_s=whole, **nums))
 
 
 class GradRecorder(Recorder):
@@ -691,8 +866,7 @@ def train_phase(tmp):
         raise AssertionError(f"loss did not fall: first 5 mean "
                              f"{losses[:5].mean()}, last 5 mean "
                              f"{losses[-5:].mean()}")
-    zero = [k for k in ("rulebook", "subm_conv", "subm_conv_wgmma",
-                        "subm_conv_dw", "subm_conv_dw_wgmma")
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv_dw_wgmma")
             if launches[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched in training: {zero}")
@@ -712,7 +886,8 @@ def check_grads(rec, lib_rows, launches, n_steps):
                                                    subm_conv, subm_conv_dw,
                                                    subm_conv_dw_simt,
                                                    subm_conv_dx,
-                                                   subm_conv_simt)
+                                                   subm_conv_simt,
+                                                   tensor_core_pad)
 
     csrc = "treelearn_tpu_torch/csrc/"
     sources = {"subm_conv_dw": csrc + "subm_conv_dw.cu",
@@ -725,14 +900,35 @@ def check_grads(rec, lib_rows, launches, n_steps):
         x, g, rule = a["x"], a["g"], a["rule"]
         per_step = rec.calls[key] / n_steps
         cin, cout = x.shape[1], g.shape[1]
-        plan = dw_plan(cin, cout, x.shape[0], x.dtype)
+        pad = tensor_core_pad(cin, cout, x.shape[0], x.dtype)
+        plan = dw_plan(cin + pad, cout, x.shape[0], x.dtype)
         name = ("subm_conv_dw_wgmma" if plan.route == "wgmma"
                 else "subm_conv_dw")
-        tot = totals[name]
         # float32: the SIMT route at every shape; working type: the route
         # the shape takes
-        got = subm_conv_dw(x.float(), g.float(), rule)
-        want = plain_dw(x.float(), g.float(), rule)
+        x32, g32 = x.float(), g.float()
+        got = subm_conv_dw(x32, g32, rule)
+        want = plain_dw(x32, g32, rule)
+        if cin < 32:
+            # the SIMT kernel's row: the input conv's dW in float32, the type
+            # that stays on it at this shape
+            tot = totals["subm_conv_dw"]
+            ms32 = cuda_ms(lambda: subm_conv_dw(x32, g32, rule))
+            plain32 = cuda_ms(lambda: plain_dw(x32, g32, rule), reps=3)
+            b32, _ = bound(x32.numel() * 4 + g32.numel() * 4
+                           + rule.numel() * 4 + 27 * cin * cout * 4,
+                           2.0 * int((rule >= 0).sum()) * cin * cout)
+            tot["err"] = max(tot["err"], float((got - want).abs().max()))
+            tot["shapes"] += 1
+            log(f"  subm_conv_dw float32 V={x.shape[0]} {cin}x{cout}: kernel "
+                f"{ms32:.4f} ms, plain {plain32:.4f} ms, bound {b32:.4f} ms, "
+                f"{per_step:.1f} call(s) per step at this shape")
+            for col, val in (("ms", ms32), ("plain_ms", plain32),
+                             ("bound_ms", b32)):
+                tot[col] += val * per_step
+            pad_sweep(x, None, rule, g=g)
+        del x32, g32
+        tot = totals[name]
         got16 = subm_conv_dw(x, g, rule)
         if not torch.equal(got16, subm_conv_dw(x, g, rule)):
             raise AssertionError(f"subm_conv_dw {key}: two launches differ")
@@ -759,7 +955,8 @@ def check_grads(rec, lib_rows, launches, n_steps):
         flops = 2.0 * nnz * cin * cout
         b, _ = bound(x.numel() * s + g.numel() * s + rule.numel() * 4
                      + 27 * cin * cout * 4, flops, "bfloat16")
-        line = (f"  {name} {key[3][6:]} V={x.shape[0]} {cin}x{cout}: f32 "
+        line = (f"  {name} {key[3][6:]} V={x.shape[0]} {cin}x{cout}"
+                f"{f' (+{pad} zero channels)' if pad else ''}: f32 "
                 f"err {err32:.1e}, bf16 err {abs16 / scale16:.1e} of max "
                 f"|dW|, kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
                 f"plain {plain:.4f} ms, bound {b:.4f} ms, gathered "
@@ -848,7 +1045,9 @@ def check_grads(rec, lib_rows, launches, n_steps):
 
 
 def train_step_check(tmp):
-    """Phase 8: one float32 step at small width, card against CPU."""
+    """Phase 8: one float32 step at small width, card against CPU.  Returns
+    the card step's launch counts (zeroed just before it): float32 training
+    is the path of the SIMT conv and dW kernels."""
     import numpy as np
     import torch
 
@@ -857,6 +1056,7 @@ def train_step_check(tmp):
                                                     make_synthetic_forest,
                                                     verticality_proxy)
     from treelearn_tpu_torch.model import TreeLearn
+    from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.train.loop import build_optimizer, make_train_step
 
     d = osp.join(tmp, "step_crop")
@@ -879,7 +1079,10 @@ def train_step_check(tmp):
         step = make_train_step(model, opt, sch, batch_size=1,
                                compute_dtype=torch.float32,
                                grad_norm_clip=True, device=dev)
+        _cuda.reset_launches()
         loss, _ = step(batch)
+        if dev == CARD:
+            launches = dict(_cuda.LAUNCHES)
         out[dev] = (float(loss),
                     {k: v.detach().cpu().clone()
                      for k, v in model.state_dict().items()},
@@ -914,8 +1117,15 @@ def train_step_check(tmp):
         f"{worst_g:.1e} of each tensor's max; updates where |g| >= 1e-3 of "
         f"max within {worst_u:.2e} (lr {lr}); running stats within "
         f"{worst_s:.1e}; {int(batch['n_points'])} points")
+    log(f"  launches on the card {json.dumps(launches)}")
     if rel > 1e-5:
         raise AssertionError("train step losses differ")
+    zero = [k for k in ("rulebook", "subm_conv", "subm_conv_dw")
+            if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"kernels not launched in the float32 step: "
+                             f"{zero}")
+    return launches
 
 
 def adjusted_rand(a, b):
@@ -937,17 +1147,23 @@ def adjusted_rand(a, b):
 
 def small_plot_check(tmp):
     """The port's pipeline on a small plot: card vs the plain versions on
-    the CPU, float32 both, same seed weights."""
+    the CPU, float32 both, same seed weights.  Returns the card run's launch
+    counts (zeroed just before it): the float32 path is the one that runs
+    every conv on the SIMT kernel."""
     from treelearn_tpu_torch.io.pointcloud import load_data
+    from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
 
     out = {}
     for dev in ("cuda", "cpu"):
         root = osp.join(tmp, f"small_{dev}")
-        path, data = write_plot(root, 3, n_trees=6, extent=20,
-                                points_per_tree=800, ground_points=4000)
+        path, data, _ = write_plot(root, 3, n_trees=6, extent=20,
+                                   points_per_tree=800, ground_points=4000)
         config = pipeline_config(path, fp16=False, channels=8, num_blocks=3)
+        _cuda.reset_launches()
         res = run_treelearn_pipeline(config, device=dev)
+        if dev == "cuda":
+            launches = dict(_cuda.LAUNCHES)
         labels = load_data(res["output_path"])[:, 3]
         if len(labels) != len(data):
             raise AssertionError(f"{dev}: {len(labels)} output rows for "
@@ -956,8 +1172,15 @@ def small_plot_check(tmp):
     ari = adjusted_rand(out["cuda"][0], out["cpu"][0])
     log(f"small plot: n_trees cuda {out['cuda'][1]} cpu {out['cpu'][1]}, "
         f"ARI {ari:.6f}")
+    log(f"  launches on the card {json.dumps(launches)}")
     if ari < 0.999 or out["cuda"][1] != out["cpu"][1]:
         raise AssertionError("card and CPU pipelines disagree")
+    zero = [k for k in ("rulebook", "subm_conv", "vert", "cc")
+            if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"kernels not launched on the float32 path: "
+                             f"{zero}")
+    return launches
 
 
 def main():
@@ -1003,7 +1226,7 @@ def main():
 
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
         # 3. main path
-        path, data = write_plot(
+        path, data, positions = write_plot(
             tmp, args.seed, n_trees=args.n_trees, extent=args.extent,
             points_per_tree=args.points_per_tree,
             ground_points=args.ground_points)
@@ -1059,22 +1282,32 @@ def main():
         check_rulebook(rec, rows)
         check_subm_conv(rec, rows)
         check_vert(rec, rows)
-        check_cc(rec, rows)
+        from treelearn_tpu_torch.data.synthetic import trained_like_xy
+
+        check_cc(rec, rows, trained_like_xy(data, positions),
+                 float(config.grouping.tau_group))
         for r in rows:
             r["launches"] = launches[r["name"]]
         check_knn(knn_rec, rows, knn_launches)
         del rec, knn_rec
 
-        # 5. end-to-end agreement on a small plot
-        small_plot_check(tmp)
+        # 5. end-to-end agreement on a small plot; the float32 path's counts
+        small_launches = small_plot_check(tmp)
 
         # 6. training at full width; 7. its backward kernels
         info, train_launches, grad_rec = train_phase(tmp)
         check_grads(grad_rec, rows, train_launches, len(info["losses"]))
         del grad_rec
 
-        # 8. one training step, card against CPU
-        train_step_check(tmp)
+        # 8. one training step, card against CPU; its counts
+        step_launches = train_step_check(tmp)
+        # the SIMT kernels' paths are the float32 ones since the bf16 input
+        # conv is padded onto the tensor cores
+        for r in rows:
+            if r["name"] == "subm_conv":
+                r["launches"] = small_launches["subm_conv"]
+            elif r["name"] == "subm_conv_dw":
+                r["launches"] = step_launches["subm_conv_dw"]
 
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -243,6 +243,62 @@ def test_vert_kernel_matches_plain(cuda):
     assert float(((m - mp).abs() / scale).max()) <= 1e-4
 
 
+@pytest.mark.parametrize("table", ["xyz", "xy"])
+@pytest.mark.parametrize("kind", ["random", "forest", "lattice", "single_cell",
+                                  "empty_cells", "apart", "cloud"])
+def test_vert_group_kernel_matches_plain_and_serial(cuda, kind, table):
+    """The cell-group kernel on both tables against its plain version and
+    the one-thread-a-query kernel it replaced: counts exact (the same
+    rounded distance test), moments within 1e-4 of each column's scale
+    (float32 sums in another order); two launches give the same bits."""
+    from test_torch_port_redesign3 import _vert_cloud
+
+    from treelearn_tpu_torch.ops import _cuda, vert
+
+    if kind == "cloud":
+        refs = torch.from_numpy(_cloud(2)).to(cuda)
+        queries = refs[::3].contiguous()
+    else:
+        refs, queries = (torch.from_numpy(a).to(cuda)
+                         for a in _vert_cloud(kind))
+    p = vert.prepare(refs, queries, 0.6, table=table)
+    before = _cuda.LAUNCHES["vert"]
+    m = vert.moments(p)
+    again = vert.moments(p)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["vert"] == before + 2
+    assert torch.equal(m, again)
+    mp = vert.moments_plain(p)
+    assert torch.equal(m[:, 0], mp[:, 0])
+    scale = mp.abs().amax(0).clamp(min=1e-12)
+    assert float(((m - mp).abs() / scale).max()) <= 1e-4
+    pxy = vert.prepare_xy(refs, queries, 0.6)
+    ms = vert.moments_serial(pxy)
+    assert _cuda.LAUNCHES["vert"] == before + 2
+    got = torch.empty_like(m)
+    got[p.q_order] = m
+    old = torch.empty_like(ms)
+    old[pxy.q_order] = ms
+    assert torch.equal(got[:, 0], old[:, 0])
+    assert float(((got - old).abs() / scale).max()) <= 1e-4
+
+
+def test_vert_group_kernel_lone_queries_split_their_candidates(cuda):
+    """A few hundred queries over a dense cloud: groups of one or two
+    queries, whose candidates the warp's other lanes share 32 or 16 ways;
+    same gates."""
+    from treelearn_tpu_torch.ops import vert
+
+    pts = torch.from_numpy(_cloud(3)).to(cuda)
+    p = vert.prepare(pts, pts[::150].contiguous(), 0.6)
+    assert int(p.items[:, 2].min()) == 1 and int(p.items[:, 2].max()) <= 8
+    m = vert.moments(p)
+    mp = vert.moments_plain(p)
+    assert torch.equal(m[:, 0], mp[:, 0])
+    scale = mp.abs().amax(0).clamp(min=1e-12)
+    assert float(((m - mp).abs() / scale).max()) <= 1e-4
+
+
 def test_cc_kernel_matches_plain(cuda):
     from treelearn_tpu_torch.ops import cc
 
@@ -251,6 +307,78 @@ def test_cc_kernel_matches_plain(cuda):
     assert torch.equal(cc.found_bits(p), cc.found_bits_plain(p))
     labels = cc.cc_labels(xy, 0.15)
     assert np.array_equal(labels, cc.cc_labels(xy.cpu(), 0.15))
+
+
+@pytest.mark.parametrize("kind", ["random", "clumped", "edge", "one_cell",
+                                  "single", "ring", "dense"])
+def test_cc_cell_kernel_matches_plain_and_serial(cuda, kind):
+    """The cell-group kernel against the plain found bits (25 searches, full
+    walks), its own route in PyTorch (band lookup, box prune) and the
+    one-thread-a-point kernel it replaced: exact.  ring: partners on the eps
+    circle; dense: clumps of thousands of points a cell, sigma 0.05 m."""
+    from test_torch_port_redesign3 import _cc_points
+
+    from treelearn_tpu_torch.ops import _cuda, cc
+
+    rng = np.random.default_rng(11)
+    if kind == "ring":
+        base = rng.uniform(0, 3, (3000, 2))
+        theta = rng.uniform(0, 2 * np.pi, len(base))
+        xy = np.vstack([base, base + 0.15 * np.column_stack(
+            [np.cos(theta), np.sin(theta)])]).astype(np.float32)
+    elif kind == "dense":
+        xy = np.vstack([c + rng.normal(0, 0.05, (8000, 2))
+                        for c in rng.uniform(0, 30, (8, 2))]
+                       ).astype(np.float32)
+    else:
+        xy = _cc_points(kind)
+    p = cc.prepare(torch.from_numpy(xy).to(cuda), 0.15)
+    before = _cuda.LAUNCHES["cc"]
+    got = cc.found_bits(p)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["cc"] == before + 1
+    want = cc.found_bits_plain(p)
+    assert torch.equal(got, want)
+    assert torch.equal(cc.found_bits_plain(p, banded=True), want)
+    assert torch.equal(cc.found_bits_serial(p), want)
+    assert _cuda.LAUNCHES["cc"] == before + 1
+    assert torch.equal(cc.neighbor_cells_banded(p.cell_keys),
+                       cc.neighbor_cells_probes(p.cell_keys))
+
+
+@pytest.mark.parametrize("v", [100, 9000, 70000])
+def test_input_conv_padded_route_matches_plain(cuda, v):
+    """The bf16 4 -> 32 input conv and its weight gradient: over
+    ``PAD_MIN_V`` voxels zero-padded onto the tensor-core routes, below it
+    on the SIMT kernels; either way within the bf16 gates of the unpadded
+    plain versions (2e-2 of max |out|, 1e-3 of max |dW|)."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import (PAD_MIN_V, subm_conv,
+                                                   subm_conv_dw)
+
+    gen = torch.Generator(device="cpu").manual_seed(v)
+    x = torch.randn(v, 4, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(27, 4, 32, generator=gen) * 0.1).to(cuda, torch.bfloat16)
+    g = torch.randn(v, 32, generator=gen).to(cuda, torch.bfloat16)
+    rule = _random_rule(gen, v, v, 0.4).to(cuda)
+    before = dict(_cuda.LAUNCHES)
+    out = subm_conv(x, w, rule)
+    dw = subm_conv_dw(x, g, rule)
+    torch.cuda.synchronize()
+    padded = v >= PAD_MIN_V
+    for name in ("subm_conv", "subm_conv_dw"):
+        assert _cuda.LAUNCHES[name] == before[name] + (not padded)
+        assert (_cuda.LAUNCHES[name + "_wgmma"]
+                == before[name + "_wgmma"] + padded)
+    want = plain(x, w, rule).float()
+    assert out.shape == (v, 32) and dw.shape == (27, 4, 32)
+    assert float((out.float() - want).abs().max()) <= 2e-2 * float(
+        want.abs().max())
+    want_dw = plain_dw(x, g, rule)
+    assert float((dw - want_dw).abs().max()) <= 1e-3 * float(
+        want_dw.abs().max())
 
 
 def _knn_problem(device, seed=0, nr=40000, nq=20000, cell=0.5):

@@ -1,5 +1,5 @@
 """treelearn_tpu_torch post-model stages vs the JAX package (CPU):
-verticality (kernel 3's plain version), eps-graph components (kernel 4's
+verticality (kernel 4's plain version), eps-graph components (kernel 5's
 plain version) and the k-NN routes.  The Pallas kernels run in interpret
 mode, as tests/test_pallas_vert.py and tests/test_pallas_cc.py run them."""
 

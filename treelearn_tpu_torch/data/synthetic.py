@@ -81,6 +81,18 @@ def make_synthetic_forest(
     return data.astype(np.float64), positions
 
 
+def trained_like_xy(data: np.ndarray, positions: np.ndarray,
+                    sigma: float = 0.05, seed: int = 0) -> np.ndarray:
+    """(n_tree_points, 2) float32: the grouping input a trained offset head
+    would give on a forest of :func:`make_synthetic_forest` — every tree
+    point's xy on its tree's position plus Gaussian noise — dense clumps
+    ``sigma`` wide, far apart."""
+    tree = data[:, 3] > 0
+    rng = np.random.default_rng(seed)
+    xy = positions[data[tree, 3].astype(np.int64) - 1]
+    return (xy + rng.normal(0, sigma, xy.shape)).astype(np.float32)
+
+
 def make_synthetic_forest_hard(
     n_trees: int = 48,
     extent: float = 60.0,

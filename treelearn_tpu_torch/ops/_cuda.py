@@ -64,10 +64,15 @@ _SIGNATURES = {
     # x, g, rule, partial, dw, v, cin, cout, n_chunks, stream
     "tl_subm_conv_dw_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tl_subm_conv_dw_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # refs4, q, ranges, items, n_items, r2, moments, stream
+    "tl_vert_moments": [_P, _P, _P, _P, _I, _F, _P, _P],
     # refs, q, q_cell, cell_start, nq, ni, nj, r2, moments, stream
-    "tl_vert_moments": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "tl_vert_moments_serial": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    # pts, cell_keys, cell_start, cell_box, items, n_items, n_cells, width,
+    # eps2, out, stream
+    "tl_cc_found_bits": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # pts, cell_ij, cell_keys, cell_start, n, n_cells, width, eps2, out, stream
-    "tl_cc_found_bits": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "tl_cc_found_bits_serial": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # x, g, rule, partial, dw, v, cin, cout, bn, producers, stages, n_chunks,
     # rows_per_chunk, smem_bytes, stream
     "tl_subm_conv_dw_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -15,6 +15,9 @@ registers.  No windows, so nothing can overflow.
   ``cp.async`` ring (:func:`conv_plan`, :func:`pack_weight`).
 * csrc/subm_conv.cu, the float32 / odd-width route: 64 voxels x 64 channels
   per block on the float32 SIMT units.
+* A bf16 conv with fewer than 32 input channels (the 4 -> 32 input conv)
+  is zero-padded to 32 and takes the bf16 route, as is its weight gradient,
+  wherever that is faster with the pad counted (:func:`tensor_core_pad`).
 
 Kernel 3 replaces ``rule_conv_dw_banded`` (``_dw_kernel``,
 pallas_conv.py:438,415): both routes sum per-chunk partial weight gradients
@@ -51,6 +54,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
 from .sparse import subm_conv as subm_conv_plain
@@ -64,6 +68,7 @@ MAX_BN = 256          # widest wgmma instruction
 SMALL_V_TILES = 32    # fewer 64-row tiles than this: 32-channel blocks
 ONE_WAVE_BLOCKS = 132  # a grid up to one block per SM: 8 producer warps
 WIDE_ROWS_V = 65536   # from here on a 32-channel conv takes 128-row blocks
+PAD_MIN_V = 32768     # from here on a narrow bf16 input is padded to BK
 
 
 class ConvPlan(NamedTuple):
@@ -121,6 +126,21 @@ def conv_plan(cin: int, cout: int, v: int,
     producers = 256 if blocks <= ONE_WAVE_BLOCKS else 128
     return ConvPlan("wgmma", bm, bn, cout // bn, BK, stages, producers,
                     plan_smem_bytes(bm, bn, stages))
+
+
+def tensor_core_pad(cin: int, cout: int, v: int, dtype: torch.dtype) -> int:
+    """Zero input channels to append so that a bf16 conv narrower than one K
+    step (the 4 -> 32 input conv), or its weight gradient, takes the
+    tensor-core route: ``32 - cin``, or 0 where the shape stays on the SIMT
+    kernels.  Zeros add exactly, so the result differs from the unpadded
+    conv's by the order of its float32 sums only.  Below ``PAD_MIN_V`` rows
+    both routes cost a launch and the pad is two more: measured on the H100
+    by chip_smoke.py (a clear gain from 65,536 rows up, a draw at 16,384, a
+    loss below; see PERF.md)."""
+    if (dtype != torch.bfloat16 or not 0 < cin < BK or cout == 0 or cout % 32
+            or v < PAD_MIN_V):
+        return 0
+    return BK - cin
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,6 +219,11 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
         return out
     if not (force_simt or mirror):
         _cuda.record("subm_conv", feats=feats, weight=w, rule=rule)
+        pad = tensor_core_pad(cin, cout, v_out, feats.dtype)
+        if pad:
+            feats = F.pad(feats, (0, pad))
+            w = F.pad(w, (0, 0, 0, pad))
+            cin += pad
     plan = conv_plan(cin, cout, v_out, feats.dtype)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(feats)
@@ -232,9 +257,11 @@ def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
 
     * CPU tensors -> the plain version (ops/sparse.py:subm_conv);
     * CUDA, bf16, Cin and Cout multiples of 32 -> csrc/subm_conv_wgmma.cu
-      (counted as ``subm_conv_wgmma``);
-    * CUDA, float32, or any other width (the 4 -> 32 input conv) ->
-      csrc/subm_conv.cu (counted as ``subm_conv``).
+      (counted as ``subm_conv_wgmma``); so is the 4 -> 32 input conv over
+      ``PAD_MIN_V`` voxels or more, zero-padded to 32 input channels
+      (:func:`tensor_core_pad`);
+    * CUDA, float32, or any other width -> csrc/subm_conv.cu (counted as
+      ``subm_conv``).
 
     A kernel that fails to build or launch raises; no route gives way to
     another.
@@ -369,13 +396,24 @@ def _dw_cuda(x, g, rule, force_simt=False):
     if rule.shape != (27, v) or g.shape[0] != v:
         raise ValueError(f"subm_conv_dw: shapes x {tuple(x.shape)}, "
                          f"g {tuple(g.shape)}, rule {tuple(rule.shape)}")
-    dw = torch.empty((27, cin, cout), dtype=torch.float32, device=x.device)
     if v == 0:
-        return dw.zero_()
-    plan = (_dw_plan_simt(cin, cout, v) if force_simt
-            else dw_plan(cin, cout, v, x.dtype))
+        return torch.zeros((27, cin, cout), dtype=torch.float32,
+                           device=x.device)
     if not force_simt:
         _cuda.record("subm_conv_dw", x=x, g=g, rule=rule)
+        pad = tensor_core_pad(cin, cout, v, x.dtype)
+        if pad:    # dW of the padded conv; its first cin rows are the answer
+            return _dw_launch(F.pad(x, (0, pad)), g, rule, dw_plan(
+                cin + pad, cout, v, x.dtype))[:, :cin].contiguous()
+    return _dw_launch(x, g, rule, _dw_plan_simt(cin, cout, v) if force_simt
+                      else dw_plan(cin, cout, v, x.dtype))
+
+
+def _dw_launch(x, g, rule, plan):
+    """Launch kernel 3 on checked inputs under ``plan``."""
+    v, cin = x.shape
+    cout = g.shape[1]
+    dw = torch.empty((27, cin, cout), dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(x)
     if plan.route == "simt":
@@ -410,7 +448,10 @@ def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
 
     * CPU tensors -> the plain version (ops/sparse.py:subm_conv_dw);
     * CUDA, bf16, Cin and Cout multiples of 32 ->
-      csrc/subm_conv_dw_wgmma.cu (counted as ``subm_conv_dw_wgmma``);
+      csrc/subm_conv_dw_wgmma.cu (counted as ``subm_conv_dw_wgmma``); so is
+      the 4 -> 32 input conv's over ``PAD_MIN_V`` rows or more, x zero-padded
+      to 32 channels and dW cut back to its 4 rows
+      (:func:`tensor_core_pad`);
     * CUDA, float32, or any other width -> csrc/subm_conv_dw.cu (counted as
       ``subm_conv_dw``).
 

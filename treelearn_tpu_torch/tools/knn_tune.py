@@ -48,11 +48,12 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def pipeline_problem(tmp):
-    """(refs, labels, queries, k) of the bench plot's assign_remaining."""
-    data, _ = make_synthetic_forest(n_trees=48, extent=60,
-                                    points_per_tree=16000,
-                                    ground_points=200000, seed=0)
+def run_bench_plot(tmp, keep):
+    """Run the pipeline on the bench plot with ``keep`` as the recorder of
+    the kernel wrappers' inputs; returns the plot's (data, positions)."""
+    data, positions = make_synthetic_forest(n_trees=48, extent=60,
+                                            points_per_tree=16000,
+                                            ground_points=200000, seed=0)
     d = osp.join(tmp, "plot", "forest")
     os.makedirs(d)
     path = osp.join(d, "tune.npz")
@@ -66,15 +67,21 @@ def pipeline_problem(tmp):
         "save_formats": ["las"], "save_treewise": False,
         "save_pointwise": False, "return_type": "original",
         "results_dir": "results"})
+    _cuda.set_recorder(keep)
+    run_treelearn_pipeline(config, device="cuda")
+    _cuda.set_recorder(None)
+    return data, positions
+
+
+def pipeline_problem(tmp):
+    """(refs, labels, queries, k) of the bench plot's assign_remaining."""
     seen = {}
 
     def keep(name, args):
         if name == "knn_problem":
             seen.update(args)
 
-    _cuda.set_recorder(keep)
-    run_treelearn_pipeline(config, device="cuda")
-    _cuda.set_recorder(None)
+    run_bench_plot(tmp, keep)
     return (seen["ref_pts"], seen["ref_labels"], seen["query_pts"],
             seen["k"])
 
