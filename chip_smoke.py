@@ -20,7 +20,10 @@ Phases (any failure exits nonzero; nothing is swallowed):
              padded onto the tensor cores); the wrappers' inputs are
              recorded (first call of each shape) for phase 4; CUDA events
              around each model forward give the card's milliseconds beside
-             the inference stage's host seconds;
+             the inference stage's host seconds.  This first (cold) run is
+             followed by a warm one in the same process, with no recorder:
+             wall time, stage seconds and the forward's card milliseconds
+             and host seconds are printed cold and warm side by side;
 3b. knn:     the serving path's banded k-NN route on the main path's own
              ``assign_remaining`` problem (its refs, the first
              min(2^17, 2e10 / refs) of its queries, so the route is
@@ -33,6 +36,31 @@ Phases (any failure exits nonzero; nothing is swallowed):
              default changed, the banded route on the whole problem (pairs
              threshold lifted for that call only) beside the host KD-tree
              the default route takes: wall seconds of each, votes compared;
+3c. hdbscan: the same plot, warm, in the repository's default grouping mode
+             (``use_hdbscan: true``) with the pointwise dump; counts zeroed
+             just before: the rulebook, tensor-core conv and verticality
+             kernels must launch; wall time, stage seconds, tree count, the
+             HDBSCAN candidates and the route ``hdbscan_cluster`` took (above
+             ``TL_HDBSCAN_DEVICE_MAX`` the host ``hdbscan_cluster_large``,
+             and then kernel 5 does not launch, which is printed);
+3d. ladder:  the eps-ladder on the card, device limit lifted, on (a) those
+             candidates and (b) the 220,000-point knot layout of
+             ``utils/smoke.py:knot_layout``: min_cluster_size 50, 32 levels,
+             counts zeroed just before; seconds of the core distances, the
+             ladder and condense/extract, kernel 5's launches (one per level
+             with active points), active points and representatives per
+             level; the ladder's (L, N) rows again with ``ops/cc.py``'s
+             ``found_bits`` swapped for the plain version of the kernel's
+             route, on the same card tensors: the rows must be equal.  For
+             (a) the host route's seconds and its ARI against the ladder;
+             for (b) the knots recovered;
+3e. eval:    detection F1 and the partition summary of 3c's pointwise dump,
+             and ``tools/evaluate.py`` on 3c's full-cloud output against the
+             plot's labels, on the card and on the CPU: the propagated labels
+             may differ only on float-equal k-NN distance ties (at most a
+             1e-4 share), else the summaries must be equal.  Random weights:
+             the scores are smoke values, not quality;
+3f. smoke:   ``utils/smoke.py:run_gpu_smoke``: every check must pass;
 4. kernels:  each kernel against its plain PyTorch version on the inputs its
              path gave it (rulebook exact, timed beside the 27-probe kernel
              it replaced; subm conv in float32 with rtol 1e-4 on the SIMT
@@ -74,8 +102,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              16000 points per tree, hard_frac 0.8), 4 crops, 20 steps, counts
              zeroed just before: the rulebook and the tensor-core conv and
              dW kernels must launch, every loss be finite and the mean of
-             the last 5 losses below that of the first 5; step time, steps/s,
-             peak memory;
+             the last 5 losses below that of the first 5; the first step's
+             seconds apart from the median of the others, steps/s, peak
+             memory;
 7. grads:    on the first training step's inputs, one per shape: the dW
              kernels against the plain dW (float32, SIMT route: rtol 1e-4 of
              max |dW|; bf16 on the route its shape takes: 1e-3 of max |dW|,
@@ -167,7 +196,8 @@ def bound(bytes_moved, flops=0.0, dtype="float32"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pipeline_config(forest_path, fp16=True, channels=32, num_blocks=7):
+def pipeline_config(forest_path, fp16=True, channels=32, num_blocks=7,
+                    use_hdbscan=False, save_pointwise=False):
     from treelearn_tpu_torch.config import ConfigDict, get_config
 
     config = get_config(osp.join(REPO, "configs", "pipeline", "pipeline.yaml"))
@@ -176,12 +206,36 @@ def pipeline_config(forest_path, fp16=True, channels=32, num_blocks=7):
     config.fp16 = fp16
     config.model.channels = channels
     config.model.num_blocks = num_blocks
-    config.grouping.use_hdbscan = False
+    config.grouping.use_hdbscan = use_hdbscan
     config.save_cfg = ConfigDict.from_dict({
         "save_formats": ["las"], "save_treewise": True,
-        "save_pointwise": False, "return_type": "original",
-        "results_dir": "results"})
+        "save_pointwise": save_pointwise, "save_backbone_feats": False,
+        "return_type": "original", "results_dir": "results"})
     return config
+
+
+def run_plot(path, **cfg):
+    """One run of the port's main path on the plot at ``path`` on the card,
+    counts zeroed just before and read just after; returns (result, wall
+    seconds, launches, forward timer)."""
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.cluster import KNN_LOG
+    from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+
+    config = pipeline_config(path, **cfg)
+    forwards = ForwardTimer()
+    torch.cuda.reset_peak_memory_stats()
+    del KNN_LOG[:]
+    _cuda.reset_launches()
+    t0 = time.time()
+    res = run_treelearn_pipeline(config, device=CARD)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    forwards.remove()
+    return res, wall, launches, forwards
 
 
 def write_plot(root, seed, **kw):
@@ -855,9 +909,9 @@ def train_phase(tmp):
     losses = np.asarray(info["losses"])
     step_s = np.asarray(info["step_seconds"])
     log(f"train: {len(losses)} steps in {wall:.2f} s (crops included), "
-        f"median step {np.median(step_s):.4f} s, "
-        f"{1.0 / np.median(step_s):.2f} steps/s (median), peak memory "
-        f"{torch.cuda.max_memory_allocated()} B")
+        f"first step {step_s[0]:.4f} s, median of steps 2..{len(step_s)} "
+        f"{np.median(step_s[1:]):.4f} s ({1.0 / np.median(step_s[1:]):.2f} "
+        f"steps/s), peak memory {torch.cuda.max_memory_allocated()} B")
     log(f"  losses {[round(float(x), 3) for x in losses]}")
     log(f"  launches {json.dumps(launches)}")
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
@@ -1183,6 +1237,262 @@ def small_plot_check(tmp):
     return launches
 
 
+def log_plot(what, res, wall, launches, forwards):
+    log(f"{what}: {wall:.2f} s, n_points {res['n_points']}, n_trees "
+        f"{res['n_trees']}")
+    log(f"  stage seconds {json.dumps(res['stage_seconds'])}")
+    log(f"  model forward: {len(forwards.host_s)} call(s), "
+        f"{sum(forwards.device_ms()):.1f} ms between CUDA events on the "
+        f"card's stream, {sum(forwards.host_s):.3f} s on the host, inside "
+        f"an inference stage of "
+        f"{res['stage_seconds'].get('inference', float('nan')):.3f} s")
+    log(f"  launches {json.dumps(launches)}")
+
+
+def cold_warm(cold, warm):
+    """The first run of the main path (recorder installed) and the second
+    (none), side by side."""
+    (rc, wc, _, fc), (rw, ww, _, fw) = cold, warm
+    log(f"plot cold / warm: wall {wc:.2f} / {ww:.2f} s, model forward "
+        f"{sum(fc.device_ms()):.1f} / {sum(fw.device_ms()):.1f} ms between "
+        f"CUDA events, {sum(fc.host_s):.3f} / {sum(fw.host_s):.3f} s on the "
+        f"host")
+    for stage in rc["stage_seconds"]:
+        log(f"  {stage}: {rc['stage_seconds'][stage]} / "
+            f"{rw['stage_seconds'].get(stage)} s")
+
+
+def hdbscan_plot(path):
+    """Phase 3c: the plot in the default grouping mode, warm; returns
+    (result, the HDBSCAN candidates, route).  ``hdbscan_cluster`` is
+    wrapped where ``pipeline/instances.py`` calls it, to read its route and
+    keep its input: measurement only."""
+    import numpy as np
+
+    import treelearn_tpu_torch.pipeline.instances as inst
+    from treelearn_tpu_torch.ops.cluster import KNN_LOG
+
+    calls = []
+    inner = inst.hdbscan_cluster
+
+    def traced(points_xy, *args, **kw):
+        info = {}
+        t0 = time.time()
+        out = inner(points_xy, *args, log=info, **kw)
+        calls.append((np.asarray(points_xy, np.float32)[:, :2].copy(),
+                      info["route"], time.time() - t0))
+        return out
+
+    inst.hdbscan_cluster = traced
+    try:
+        res, wall, launches, forwards = run_plot(path, use_hdbscan=True,
+                                                 save_pointwise=True)
+    finally:
+        inst.hdbscan_cluster = inner
+    log_plot("hdbscan-mode plot (warm, use_hdbscan: true)", res, wall,
+             launches, forwards)
+    (pts, route, seconds), = calls
+    log(f"  hdbscan_cluster: {len(pts)} candidates, route {route} "
+        f"({'eps-ladder on the card' if route == 'ladder' else 'host'}), "
+        f"{seconds:.3f} s; limit TL_HDBSCAN_DEVICE_MAX "
+        f"{os.environ.get('TL_HDBSCAN_DEVICE_MAX', '50000 (default)')}")
+    log(f"  kernel 5 launches in this run: {launches['cc']}"
+        + (" (expected none: the host route)" if route != "ladder" else ""))
+    for call in KNN_LOG:
+        log(f"  knn route {call.route}: {call.n_refs} refs, "
+            f"{call.n_queries} queries")
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "vert")
+            if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"kernels not launched in HDBSCAN mode: {zero}")
+    if res["n_trees"] <= 0:
+        raise AssertionError("HDBSCAN mode found no tree")
+    return res, pts, route
+
+
+def ladder_phase(what, pts, host_route=False):
+    """Phase 3d on one input: the eps-ladder on the card with the device
+    limit lifted; its rows against the plain version's.  Returns the
+    numbers kernel 5's row reports."""
+    import numpy as np
+    import torch
+
+    import treelearn_tpu_torch.ops.cc as cc
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.hdbscan import (_level_components,
+                                                 hdbscan_cluster)
+
+    kept = os.environ.get("TL_HDBSCAN_DEVICE_MAX")
+
+    def limit(value):
+        if value is None:
+            os.environ.pop("TL_HDBSCAN_DEVICE_MAX", None)
+        else:
+            os.environ["TL_HDBSCAN_DEVICE_MAX"] = value
+
+    info, problems = {}, []
+    try:
+        limit(str(1 << 30))
+        _cuda.set_recorder(lambda name, args: problems.append(
+            args["problem"]) if name == "cc" else None)
+        _cuda.reset_launches()
+        t0 = time.time()
+        labels = hdbscan_cluster(pts, min_cluster_size=50, n_levels=32,
+                                 device=CARD, log=info)
+        wall = time.time() - t0
+        launches = _cuda.LAUNCHES["cc"]
+    finally:
+        _cuda.set_recorder(None)
+        limit(kept)
+    levels_active = sum(a > 0 for a in info["active"])
+    n_clusters = len(np.unique(labels[labels >= 1]))
+    log(f"ladder {what}: {len(pts)} points, route {info['route']}, "
+        f"{wall:.3f} s, {n_clusters} clusters")
+    log(f"  core distances (host cKDTree, exact) {info['core_s']:.3f} s")
+    log(f"  ladder {info['ladder_s']:.3f} s, condense/extract "
+        f"{info['condense_s']:.3f} s")
+    log(f"  kernel 5 launches {launches} (levels with active points: "
+        f"{levels_active} of {len(info['active'])})")
+    log(f"  active points per level {info['active']}")
+    log(f"  points the pass saw per level (representatives where "
+        f"coarsened) {info['reps']}")
+    if info["route"] != "ladder" or launches == 0 \
+            or launches != levels_active or len(problems) != launches:
+        raise AssertionError(f"ladder {what}: route {info['route']}, "
+                             f"{launches} launches for {levels_active} "
+                             "levels")
+    # each level's launch again, timed and against the plain version
+    ms = plain_ms = bound_ms = 0.0
+    for p in problems:
+        t0 = time.time()
+        want = cc.found_bits_plain(p)
+        torch.cuda.synchronize()
+        plain_ms += (time.time() - t0) * 1e3
+        if not torch.equal(cc.found_bits(p), want):
+            raise AssertionError(f"ladder {what}: found bits differ at "
+                                 f"N={p.pts.shape[0]}")
+        ms += cuda_ms(lambda: cc.found_bits(p), reps=3, warmup=1)
+        n, c = p.pts.shape[0], p.cell_keys.shape[0]
+        bound_ms += bound(8 * n + 4 * n + 28 * c + 12 * p.items.shape[0])[0]
+    del problems
+    log(f"  kernel 5 over the {launches} levels: {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes), plain (unpruned walk) {plain_ms:.1f} "
+        f"ms; found bits exact at every level")
+    kernel = cc.found_bits
+    cc.found_bits = lambda p: cc.found_bits_plain(p, banded=True)
+    try:
+        t0 = time.time()
+        rows = _level_components(pts, info["core_d"], info["eps_levels"],
+                                 device=CARD)
+        plain_s = time.time() - t0
+    finally:
+        cc.found_bits = kernel
+    same = np.array_equal(rows, info["levels"])
+    log(f"  rows with the plain found bits ({plain_s:.3f} s): "
+        f"{'equal' if same else 'DIFFERENT'} ({rows.shape[0]} x "
+        f"{rows.shape[1]})")
+    if not same:
+        raise AssertionError(f"ladder {what}: kernel and plain rows differ "
+                             f"on {int((rows != info['levels']).sum())} "
+                             "entries")
+    out = dict(points=len(pts), launches=launches, seconds=wall,
+               core_s=info["core_s"], ladder_s=info["ladder_s"],
+               condense_s=info["condense_s"], ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms)
+    if host_route:
+        try:
+            limit("0")
+            t0 = time.time()
+            host = hdbscan_cluster(pts, min_cluster_size=50, device=CARD)
+            host_s = time.time() - t0
+        finally:
+            limit(kept)
+        ari = adjusted_rand(host, labels)
+        log(f"  host route (hdbscan_cluster_large) {host_s:.3f} s, "
+            f"{len(np.unique(host[host >= 1]))} clusters, ARI against the "
+            f"ladder {ari:.4f}")
+        out.update(host_s=host_s, host_ari=ari)
+    return out, labels
+
+
+def eval_phase(tmp, res, gt_path):
+    """Phase 3e: the evaluation protocol on 3c's output, card and CPU."""
+    import numpy as np
+
+    from treelearn_tpu_torch.config import get_config
+    from treelearn_tpu_torch.io.pointcloud import load_data
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.cluster import KNN_LOG
+    from treelearn_tpu_torch.tools.evaluate import evaluate
+    from treelearn_tpu_torch.train.selftrain import (
+        detection_f1_from_pointwise, segmentation_partition_summary)
+
+    pw = osp.join(res["results_dir"], "pointwise_results",
+                  "pointwise_results.npz")
+    t0 = time.time()
+    f1 = detection_f1_from_pointwise(pw)
+    part = segmentation_partition_summary(pw)
+    log(f"eval (random weights: smoke values, not quality): pointwise "
+        f"detection {json.dumps(f1)}, partitions {json.dumps(part)}, "
+        f"{time.time() - t0:.2f} s")
+    out = {}
+    for dev in (CARD, "cpu"):
+        cfg = get_config(osp.join(REPO, "configs", "evaluation",
+                                  "evaluate.yaml"))
+        cfg.paths.pred_forest_path = res["output_path"]
+        cfg.paths.gt_forest_path = gt_path
+        cfg.work_dir = osp.join(tmp, f"eval_{dev}")
+        del KNN_LOG[:]
+        _cuda.reset_launches()
+        t0 = time.time()
+        r = evaluate(cfg, device=dev)
+        secs = time.time() - t0
+        det, seg = r["detection_results"], r["segmentation_results"]
+        summary = {k: det[k] for k in ("f1_score", "completeness",
+                                       "omission_error_rate",
+                                       "commission_error_rate")}
+        summary.update(precision=seg["precision"], recall=seg["recall"],
+                       coverage=seg["iou"])
+        routes = [c.route for c in KNN_LOG]
+        log(f"  tools/evaluate on {dev}: {secs:.2f} s, k-NN route "
+            f"{routes}, kernel 6 launches {_cuda.LAUNCHES['knn']}; "
+            f"{json.dumps(summary)}")
+        out[dev] = (summary, load_data(osp.join(
+            cfg.work_dir, "pred_forest_propagated_to_gt_pointcloud.las")))
+    a, b = out[CARD][1], out["cpu"][1]
+    bad = np.flatnonzero(a[:, 3] != b[:, 3])
+    ties = 0
+    if len(bad):
+        from scipy.spatial import cKDTree
+
+        pred = load_data(res["output_path"])
+        d, _ = cKDTree(pred[:, :3]).query(a[bad, :3], k=6)
+        ties = int((d[:, 5] - d[:, 4] <= 1e-6 * d[:, 5]).sum())
+    log(f"  card vs CPU: {len(bad)} of {len(a)} propagated labels differ, "
+        f"{ties} on float-equal distance ties")
+    if ties < len(bad) or len(bad) > 1e-4 * len(a):
+        raise AssertionError(f"evaluate: {len(bad)} propagated labels "
+                             f"differ ({ties} ties)")
+    if not len(bad) and out[CARD][0] != out["cpu"][0]:
+        raise AssertionError("evaluate: card and CPU summaries differ")
+    return out[CARD][0]
+
+
+def smoke_phase():
+    """Phase 3f: run_gpu_smoke, every check true."""
+    from treelearn_tpu_torch.utils.smoke import run_gpu_smoke
+
+    t0 = time.time()
+    out = run_gpu_smoke()
+    nums = {k: v for k, v in out.items()
+            if k not in ("checks", "errors", "passed", "failed")}
+    log(f"run_gpu_smoke: {out['passed']} passed, {out['failed']} failed in "
+        f"{time.time() - t0:.2f} s; checks {json.dumps(out['checks'])}; "
+        f"{json.dumps(nums)}")
+    if out["failed"] or not all(out["checks"].values()):
+        raise AssertionError(f"run_gpu_smoke: {json.dumps(out['errors'])}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-trees", type=int, default=48)
@@ -1233,29 +1543,13 @@ def main():
         log(f"plot: {len(data)} points, {args.n_trees} trees, "
             f"{args.extent} m")
         config = pipeline_config(path)
-        from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
 
         rec = Recorder()
         _cuda.set_recorder(rec)
-        forwards = ForwardTimer()
-        torch.cuda.reset_peak_memory_stats()
-        del KNN_LOG[:]
-        _cuda.reset_launches()
-        t0 = time.time()
-        res = run_treelearn_pipeline(config, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = dict(_cuda.LAUNCHES)
+        cold = run_plot(path)
         _cuda.set_recorder(None)
-        forwards.remove()
-        log(f"pipeline: {wall:.2f} s, n_points {res['n_points']}, "
-            f"n_trees {res['n_trees']}")
-        log(f"  stage seconds {json.dumps(res['stage_seconds'])}")
-        log(f"  model forward: {len(forwards.host_s)} call(s), "
-            f"{sum(forwards.device_ms()):.1f} ms between CUDA events on the "
-            f"card's stream, {sum(forwards.host_s):.3f} s on the host, "
-            f"inside an inference stage of "
-            f"{res['stage_seconds'].get('inference', float('nan')):.3f} s")
+        res, _, launches, _ = cold
+        log_plot("pipeline (cold: first run, recorder installed)", *cold)
         mt = res["model_timings"]
         log(f"  voxels per level {[int(x) for x in mt['n_vox_levels']]}, "
             f"rule nnz per level {[int(x) for x in mt['rule_nnz']]}")
@@ -1263,7 +1557,6 @@ def main():
             log(f"  knn route {call.route}: {call.n_refs} refs, "
                 f"{call.n_queries} queries")
         log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-        log(f"  launches {json.dumps(launches)}")
         zero = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
         if zero:
             raise AssertionError(f"kernels not launched on the main path: {zero}")
@@ -1273,9 +1566,38 @@ def main():
         if out.shape != (len(data), 4) or not torch.isfinite(
                 torch.from_numpy(out)).all():
             raise AssertionError(f"full-cloud output shape {out.shape}")
+        # the same run again, warm and with no recorder
+        warm = run_plot(path)
+        log_plot("pipeline (warm: second run, no recorder)", *warm)
+        log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+        zero = [k for k in MAIN_PATH_KERNELS if warm[2][k] == 0]
+        if zero or warm[0]["n_trees"] != res["n_trees"]:
+            raise AssertionError(f"warm run: kernels not launched {zero}, "
+                                 f"{warm[0]['n_trees']} trees")
+        cold_warm(cold, warm)
+        del warm
 
         # 3b. the banded k-NN route on the main path's own problem
         knn_launches, knn_rec = knn_phase(rec)
+
+        # 3c. the default grouping mode; 3d. its eps-ladder on the card;
+        # 3e. the evaluation protocol; 3f. the kernel smoke
+        from treelearn_tpu_torch.utils.smoke import knot_layout, knot_recovery
+
+        res_hd, cand, _ = hdbscan_plot(path)
+        ladder = {}
+        ladder["plot_candidates"], _ = ladder_phase(
+            "(a) the plot's HDBSCAN candidates", cand, host_route=True)
+        knots = knot_layout()
+        ladder["knots_220k"], knot_labels = ladder_phase(
+            "(b) the 220k knot layout", knots)
+        good, n_clusters, ok = knot_recovery(knot_labels, 96)
+        log(f"  knots recovered {good} of 96, {n_clusters} clusters")
+        if not ok:
+            raise AssertionError("ladder (b): knots not recovered")
+        del cand, knots, knot_labels
+        eval_phase(tmp, res_hd, path)
+        smoke_phase()
 
         # 4. kernels against their plain versions, main-path inputs
         rows = []
@@ -1288,6 +1610,8 @@ def main():
                  float(config.grouping.tau_group))
         for r in rows:
             r["launches"] = launches[r["name"]]
+            if r.get("problem") == "plot":
+                r["ladder_per_hdbscan_call"] = ladder
         check_knn(knn_rec, rows, knn_launches)
         del rec, knn_rec
 

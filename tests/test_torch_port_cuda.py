@@ -666,3 +666,36 @@ def test_subm_conv_fn_bf16_grads_through_wgmma(cuda, cin, cout):
     assert ww.grad.dtype == torch.float32
     assert float((ww.grad - want_dw).abs().max()) <= 1e-3 * float(
         want_dw.abs().max())
+
+
+def test_hdbscan_ladder_rows_card_equal_cpu(cuda, monkeypatch):
+    """The eps-ladder's (L, N) rows on a 20k-point knot layout: kernel 5 on
+    the card, the plain version on the CPU, equal rows; every level with
+    active points launches the kernel once."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.hdbscan import (_ladder, _level_components,
+                                                 kth_neighbor_d2)
+    from treelearn_tpu_torch.utils.smoke import knot_layout
+
+    pts = knot_layout(9)
+    core_d = np.sqrt(kth_neighbor_d2(pts, 50))
+    eps_levels = _ladder(core_d, 32)
+    before = _cuda.LAUNCHES["cc"]
+    log = {}
+    card = _level_components(pts, core_d, eps_levels, device=cuda, log=log)
+    assert _cuda.LAUNCHES["cc"] - before == sum(a > 0 for a in log["active"])
+    cpu = _level_components(pts, core_d, eps_levels, device="cpu")
+    assert np.array_equal(card, cpu)
+
+
+def test_hdbscan_cluster_card_equals_cpu(cuda, monkeypatch):
+    from treelearn_tpu_torch.ops.hdbscan import hdbscan_cluster
+    from treelearn_tpu_torch.utils.smoke import knot_layout, knot_recovery
+
+    monkeypatch.setenv("TL_HDBSCAN_DEVICE_MAX", str(1 << 20))
+    pts = knot_layout(9)
+    log = {}
+    card = hdbscan_cluster(pts, 50, device=cuda, log=log)
+    assert log["route"] == "ladder"
+    assert np.array_equal(card, hdbscan_cluster(pts, 50, device="cpu"))
+    assert knot_recovery(card, 9)[2]

@@ -199,6 +199,9 @@ def test_instances_match_jax(monkeypatch):
     b = ji.assign_remaining_points_nearest_neighbor(
         (pts + offset)[tree], want[tree], -1)
     np.testing.assert_array_equal(a, b)
+    # HDBSCAN mode, with the device limit below the candidate count: both
+    # packages take the same host route and agree exactly
     cfg.use_hdbscan = True
-    with pytest.raises(NotImplementedError):
-        pi.get_instances(*args, device="cpu")
+    monkeypatch.setenv("TL_HDBSCAN_DEVICE_MAX", "10")
+    np.testing.assert_array_equal(pi.get_instances(*args, device="cpu"),
+                                  ji.get_instances(*args))

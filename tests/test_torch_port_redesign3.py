@@ -357,6 +357,41 @@ def test_cc_box_prune_never_rejects_a_hit(seed):
     assert 0 < int(inside.sum()) < len(base)
 
 
+@pytest.mark.parametrize("eps", [0.15, 1.5])
+@pytest.mark.parametrize("seed", range(3))
+def test_cc_box_accept_and_first_walk_are_exact(seed, eps):
+    """The CPU route's shortcuts (``found_bits_plain(p, banded=True)``):
+    where ``box_accepts`` holds, every point of the neighbor cell lies
+    within eps by the computed distance; with them and the first walk of
+    ``PROBE`` points the bits equal the unpruned walk's, on dense cells of
+    far more than ``PROBE`` points and at a coarse eps, where most neighbor
+    cells are accepted whole.  Exact."""
+    from treelearn_tpu_torch.ops import cc
+
+    rng = np.random.default_rng(seed)
+    xy = np.vstack([rng.uniform(0, 6, (500, 2)),
+                    rng.uniform(0, 6, (1, 2)) + rng.normal(0, 0.05, (400, 2)),
+                    rng.uniform(0, 6, (1, 2)) + rng.normal(0, 0.3, (400, 2))]
+                   ).astype(np.float32)
+    p = cc.prepare(torch.from_numpy(xy), eps)
+    nbr = cc.neighbor_cells_banded(p.cell_keys)
+    acc = cc.box_accepts(p, nbr)
+    assert int(acc.sum()) > 0
+    cs = p.cell_start.long()
+    q, bit = torch.nonzero(acc, as_tuple=True)
+    c = nbr[cc._cell_rows(p)[q], bit]
+    span = cs[c + 1] - cs[c]
+    assert int(span.max()) > cc.PROBE
+    offs = torch.arange(int(span.max()))
+    m = offs[None, :] < span[:, None]
+    idx = torch.where(m, cs[c][:, None] + offs[None, :], 0)
+    dx = p.pts[idx, 0] - p.pts[q][:, 0:1]
+    dy = p.pts[idx, 1] - p.pts[q][:, 1:2]
+    assert bool(((dx * dx + dy * dy <= torch.tensor(p.eps2)) | ~m).all())
+    assert torch.equal(cc.found_bits_plain(p, banded=True),
+                       cc.found_bits_plain(p))
+
+
 @pytest.mark.parametrize("kind", ["clumped", "random"])
 def test_cc_labels_match_pallas_interpret(kind, monkeypatch):
     """cc_labels on the clumped input equals the interpret-mode banded

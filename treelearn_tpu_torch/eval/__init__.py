@@ -1,4 +1,15 @@
-"""Evaluation helpers (the part of treelearn_tpu/eval that validation
-needs)."""
+"""Evaluation protocol: detection and segmentation metrics (port of
+treelearn_tpu/eval; partition tables are column dicts, not DataFrames)."""
 
-from .evaluation import get_eval_components  # noqa: F401
+from .evaluation import (  # noqa: F401
+    contingency_matrices,
+    detection_summary,
+    evaluate_instance_segmentation,
+    evaluate_no_partition,
+    evaluate_xy_partition,
+    evaluate_z_partition,
+    get_detection_failures,
+    get_detections,
+    get_eval_components,
+    get_segmentation_metrics,
+)

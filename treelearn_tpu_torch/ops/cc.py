@@ -41,6 +41,7 @@ from . import _cuda
 
 GRID_WIDTH = 30000  # cell-key stride, as treelearn_tpu/ops/cluster.py
 WARP = 32           # points of a work item
+PROBE = 32          # the plain banded route's first walk, points a cell
 
 
 class CCProblem(NamedTuple):
@@ -185,13 +186,60 @@ def box_rejects(p: CCProblem, nbr: torch.Tensor) -> torch.Tensor:
     return (c >= 0) & ~(dx * dx + dy * dy <= eps2)
 
 
+def box_accepts(p: CCProblem, nbr: torch.Tensor) -> torch.Tensor:
+    """(N, 25) bool: the neighbor cell exists and even the farthest corner
+    of its points' bounding box lies within eps of the point, so every point
+    of the cell is a hit.  The upper bound goes through the same rounded
+    steps as the distance test (each monotone), so it is never below the
+    computed distance to a point of the box."""
+    cell = _cell_rows(p)
+    c = nbr[cell]
+    box = p.cell_box[torch.clamp(c, min=0)]
+    x, y = p.pts[:, 0:1], p.pts[:, 1:2]
+    dx = torch.maximum(x - box[..., 0], box[..., 2] - x)
+    dy = torch.maximum(y - box[..., 1], box[..., 3] - y)
+    eps2 = torch.tensor(p.eps2, dtype=torch.float32, device=p.pts.device)
+    return (c >= 0) & (dx * dx + dy * dy <= eps2)
+
+
+def _walk_hits(p: CCProblem, q: torch.Tensor, s: torch.Tensor,
+               span: torch.Tensor, max_block: int) -> torch.Tensor:
+    """(len(q),) bool: whether any of the ``span[i]`` sorted points from row
+    ``s[i]`` lies within eps of sorted point ``q[i]``, gathered in chunks of
+    at most ``max_block`` candidates."""
+    dev = p.pts.device
+    m = q.shape[0]
+    hit = torch.zeros(m, dtype=torch.bool, device=dev)
+    eps2 = torch.tensor(p.eps2, dtype=torch.float32, device=dev)
+    lo = 0
+    while lo < m:
+        width = max(int(span[lo:lo + 4096].max()), 1)
+        hi = min(m, lo + max(1, max_block // width))
+        width = max(int(span[lo:hi].max()), 1)
+        hi = min(hi, lo + max(1, max_block // width))
+        offs = torch.arange(width, device=dev)
+        mk = offs[None, :] < span[lo:hi, None]
+        idx = torch.where(mk, s[lo:hi, None] + offs[None, :], 0)
+        qp = p.pts[q[lo:hi]]
+        dx = p.pts[idx, 0] - qp[:, 0:1]
+        dy = p.pts[idx, 1] - qp[:, 1:2]
+        hit[lo:hi] = (mk & (dx * dx + dy * dy <= eps2)).any(1)
+        lo = hi
+    return hit
+
+
 def found_bits_plain(p: CCProblem, max_block: int = 1 << 24,
                      banded: bool = False) -> torch.Tensor:
     """(N,) int32 found-bit masks in sorted order, the kernel's arithmetic in
     PyTorch: per neighbor offset, the neighbor cell's row range, gathered in
     point chunks of at most ``max_block`` candidates.  With ``banded`` the
     kernel's own route: the band-form cell lookup, the own cell's bit set
-    without a walk, and no walk where :func:`box_rejects`."""
+    without a walk, and no walk where :func:`box_rejects`; on top of it two
+    shortcuts that cannot change a bit and keep the CPU pass from costing a
+    cell's size squared where eps is coarse: the bit set without a walk
+    where :func:`box_accepts`, and a first walk of ``PROBE`` points, after
+    which only the points it left unfound walk the rest (the kernel's walk
+    ends at its first hit)."""
     n = p.pts.shape[0]
     dev = p.pts.device
     out = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -201,36 +249,34 @@ def found_bits_plain(p: CCProblem, max_block: int = 1 << 24,
     cell = _cell_rows(p)
     if banded:
         nbr = neighbor_cells_banded(p.cell_keys)
-        skip = box_rejects(p, nbr)
+        accept = box_accepts(p, nbr)
+        skip = box_rejects(p, nbr) | accept
         skip[:, 12] = True
-        out |= 1 << 12
+        accept[:, 12] = True
     else:
         nbr = neighbor_cells_probes(p.cell_keys)
-    eps2 = torch.tensor(p.eps2, dtype=torch.float32, device=dev)
+    rows = torch.arange(n, device=dev)
     for bit in range(25):
         c = nbr[cell, bit]
         ok = c >= 0
         if banded:
+            out |= accept[:, bit].to(torch.int32) << bit
             ok &= ~skip[:, bit]
         c = torch.clamp(c, min=0)
         s = torch.where(ok, cs[c], 0)
         span = torch.where(ok, cs[c + 1] - cs[c], 0)
         if int(span.max()) == 0:
             continue
-        lo = 0
-        while lo < n:
-            width = max(int(span[lo:lo + 4096].max()), 1)
-            hi = min(n, lo + max(1, max_block // width))
-            width = max(int(span[lo:hi].max()), 1)
-            hi = min(hi, lo + max(1, max_block // width))
-            offs = torch.arange(width, device=dev)
-            m = offs[None, :] < span[lo:hi, None]
-            idx = torch.where(m, s[lo:hi, None] + offs[None, :], 0)
-            dx = p.pts[idx, 0] - p.pts[lo:hi, 0:1]
-            dy = p.pts[idx, 1] - p.pts[lo:hi, 1:2]
-            hit = (m & (dx * dx + dy * dy <= eps2)).any(1)
-            out[lo:hi] |= hit.to(torch.int32) << bit
-            lo = hi
+        if not banded:
+            hit = _walk_hits(p, rows, s, span, max_block)
+        else:
+            hit = _walk_hits(p, rows, s, torch.clamp(span, max=PROBE),
+                             max_block)
+            rest = torch.nonzero(~hit & (span > PROBE)).squeeze(1)
+            if rest.shape[0]:
+                hit[rest] = _walk_hits(p, rest, s[rest] + PROBE,
+                                       span[rest] - PROBE, max_block)
+        out |= hit.to(torch.int32) << bit
     return out
 
 
@@ -254,10 +300,10 @@ def _check(p: CCProblem) -> torch.Tensor:
 
 def found_bits(p: CCProblem) -> torch.Tensor:
     """(N,) int32 found-bit masks in sorted order.  CPU tensors take
-    :func:`found_bits_plain`; CUDA tensors launch the kernel, one warp per
-    work item of ``p.items``."""
+    :func:`found_bits_plain` on the kernel's route (``banded``); CUDA
+    tensors launch the kernel, one warp per work item of ``p.items``."""
     if not p.pts.is_cuda:
-        return found_bits_plain(p)
+        return found_bits_plain(p, banded=True)
     out = _check(p)
     if out.shape[0] == 0:
         return out

@@ -1,12 +1,14 @@
 """Tree instance extraction from pointwise predictions (port of
 treelearn_tpu/pipeline/instances.py).
 
-Parity: get_instances + group_dbscan + remaining-point assignment
-(reference util/pipeline.py:145-206, 287-296).  Cluster candidates: tree
-confidence >= tree_conf_thresh AND verticality > tau_vert AND
-|offset_z| < tau_off; clustering runs on the xy of offset-shifted coords.
-DBSCAN mode only in this port; HDBSCAN mode (``grouping.use_hdbscan``)
-raises until ops/hdbscan.py is ported.
+Parity: get_instances + group_dbscan/group_hdbscan + remaining-point
+assignment (reference util/pipeline.py:145-206, 287-296).  Cluster
+candidates: tree confidence >= tree_conf_thresh AND verticality > tau_vert
+AND |offset_z| < tau_off; clustering runs on the xy of offset-shifted
+coords.  DBSCAN mode is the eps-graph components pass (kernel 5 on the
+card); HDBSCAN mode (``grouping.use_hdbscan``, the repository's default,
+configs/_modular/grouping.yaml) is ops/hdbscan.py with the same tau_min
+post-filter.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.cluster import dbscan_cluster, knn_classify
+from ..ops.hdbscan import hdbscan_cluster
 
 
 def softmax_np(x: np.ndarray) -> np.ndarray:
@@ -31,6 +34,24 @@ def make_labels_consecutive(labels: np.ndarray, start_num: int):
     return new_labels, mapping
 
 
+def group_hdbscan(cluster_coords: np.ndarray, npoint_thr: int,
+                  not_assigned_label: int, start_num: int,
+                  device=None) -> np.ndarray:
+    """HDBSCAN mode (ops/hdbscan.py: core distances + eps-ladder components
+    on ``device`` + condensed-tree extraction).  Same single-hyperparameter
+    contract and tau_min filtering as the reference
+    (util/pipeline.py:184-191)."""
+    labels = hdbscan_cluster(cluster_coords, min_cluster_size=npoint_thr,
+                             not_assigned_label=not_assigned_label,
+                             start_num=start_num, device=device)
+    uniq, counts = np.unique(labels, return_counts=True)
+    valid = uniq[(counts >= npoint_thr) & (uniq != not_assigned_label)]
+    ind_valid = np.isin(labels, valid)
+    labels[ind_valid], _ = make_labels_consecutive(labels[ind_valid], start_num)
+    labels[~ind_valid] = not_assigned_label
+    return labels
+
+
 def get_instances(coords: np.ndarray, offset: np.ndarray,
                   semantic_prediction_logits: np.ndarray, grouping_cfg,
                   verticality_feat: np.ndarray, tree_class_in_dataset: int,
@@ -40,10 +61,6 @@ def get_instances(coords: np.ndarray, offset: np.ndarray,
     """``verticality_feat=None`` defers verticality: it is computed here,
     on ``device``, only for points that already pass the confidence and
     offset filters (neighborhoods still from the full cloud)."""
-    if grouping_cfg.get("use_hdbscan", False):
-        raise NotImplementedError(
-            "grouping.use_hdbscan: HDBSCAN mode is not ported yet "
-            "(ROADMAP A.9); set use_hdbscan: false for DBSCAN mode")
     cluster_coords = (coords + offset)[:, :3]
 
     logits = np.asarray(semantic_prediction_logits)
@@ -78,10 +95,17 @@ def get_instances(coords: np.ndarray, offset: np.ndarray,
 
     predictions = non_trees_label * np.ones(len(cluster_coords))
     predictions[tree_mask] = not_assigned_label
-    pred_instances = dbscan_cluster(
-        filtered_xy.astype(np.float32), eps=grouping_cfg.tau_group,
-        min_size=grouping_cfg.tau_min, not_assigned_label=not_assigned_label,
-        start_num=start_num_preds, device=device)
+
+    if grouping_cfg.get("use_hdbscan", False):
+        pred_instances = group_hdbscan(
+            filtered_xy, grouping_cfg.tau_min, not_assigned_label,
+            start_num_preds, device=device)
+    else:
+        pred_instances = dbscan_cluster(
+            filtered_xy.astype(np.float32), eps=grouping_cfg.tau_group,
+            min_size=grouping_cfg.tau_min,
+            not_assigned_label=not_assigned_label, start_num=start_num_preds,
+            device=device)
     predictions[ind_cluster] = pred_instances
     return predictions.astype(np.int64)
 

@@ -3,7 +3,7 @@
 Parity: run_treelearn_pipeline (reference tools/pipeline/pipeline.py:22-200):
 load forest -> center coords -> voxelize -> whole-plot or tile batches ->
 pointwise inference -> ensemble -> [hull/outer-remove] -> instances
-(deferred verticality + DBSCAN) -> assign remaining (5-NN) -> [save
+(deferred verticality + HDBSCAN or DBSCAN) -> assign remaining (5-NN) -> [save
 pointwise] -> propagate to the original cloud -> de-center -> save full
 forest + per-tree files.
 """
@@ -90,7 +90,13 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
 
     ``model`` defaults to ``TreeLearn(**config.model)`` with seed-0 weights,
     overwritten by ``config.pretrain`` when set.  Runs on ``device``
-    (default ``cuda``; raises without a card unless ``device="cpu"``)."""
+    (default ``cuda``; raises without a card unless ``device="cpu"``).
+    ``config.dist`` (data-parallel inference in the JAX package) raises:
+    the port runs on one device."""
+    if config.get("dist"):
+        raise NotImplementedError(
+            "dist: data-parallel inference is not ported (ROADMAP A.6); "
+            "the port runs on one device")
     device = resolve_device(device)
     t_start = time.time()
     stage_seconds = {}

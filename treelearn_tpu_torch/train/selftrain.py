@@ -6,7 +6,9 @@ the TreeDataset machinery) and writes a checkpoint keyed by a fingerprint
 of the model config and the recipe, so a second call with the same recipe
 returns the cached file.  Progress is saved to a partial checkpoint every
 ``save_every`` steps and at a ``max_seconds`` budget stop; the next call
-resumes from it.
+resumes from it.  :func:`detection_f1_from_pointwise` and
+:func:`segmentation_partition_summary` score a pipeline run's pointwise
+dump against the ground truth it carries.
 
 The JAX package sizes per-level voxel capacities from the crops before it
 trains; eager PyTorch works on exact voxel counts, so there is nothing to
@@ -197,3 +199,93 @@ def train_synthetic_checkpoint(
     if logger:
         logger(f"selftrain: done in {time.time() - t0:.0f}s -> {ckpt_path}")
     return (ckpt_path, info) if return_info else ckpt_path
+
+
+def segmentation_partition_summary(pointwise_npz: str) -> dict:
+    """Mean xy/z partition IoU over matched trees (reference protocol:
+    tools/evaluation/evaluate.py:92-116 with the 10-bin partitions of
+    configs/evaluation/evaluate.yaml) — the hard-mode benchmark's regression
+    anchors for clustering quality.  The partition tables are column dicts;
+    the means skip NaN as the JAX package's DataFrame means do."""
+    from ..eval import (evaluate_xy_partition, evaluate_z_partition,
+                        get_detections)
+    from ..pipeline.instances import make_labels_consecutive
+
+    z = np.load(pointwise_npz)
+    coords = z["coords"].astype(np.float64)
+    gt = z["instance_labels"].astype(np.int64)
+    pred = z["instance_preds"].astype(np.int64)
+
+    gt = np.where(gt == 0, -1, gt)
+    mapping_gt = {-1: -1}
+    m = gt != -1
+    if m.any():
+        gt[m], mg = make_labels_consecutive(gt[m], start_num=0)
+        mapping_gt.update(mg)
+    pred = np.where(pred == 0, -1, pred)
+    mapping_pred = {-1: -1}
+    m = pred != -1
+    if m.any():
+        pred[m], mp = make_labels_consecutive(pred[m], start_num=0)
+        mapping_pred.update(mp)
+
+    _, _, iou, _, _ = get_detections(gt, pred, min_iou_match=0.5,
+                                     non_tree_label=-1)
+    unique_gts = np.arange(iou.shape[1])
+    unique_preds = iou.argmax(axis=0)
+    intvls = [round(0.1 * i, 1) for i in range(11)]
+    xy = evaluate_xy_partition(pred, gt, unique_gts, unique_preds, coords,
+                               intvls, mapping_gt, mapping_pred)
+    zp = evaluate_z_partition(pred, gt, unique_gts, unique_preds, coords,
+                              intvls, mapping_gt, mapping_pred)
+
+    def iou_values(table):
+        return np.array([table[c] for c in table if c.startswith("iou_")],
+                        np.float64)
+
+    return {
+        "xy_partition_mean_iou": round(
+            float(np.nanmean(iou_values(xy))) * 100, 1),
+        "z_partition_mean_iou": round(
+            float(np.nanmean(iou_values(zp))) * 100, 1),
+    }
+
+
+def detection_f1_from_pointwise(pointwise_npz: str) -> dict:
+    """Score a pipeline run's pointwise_results.npz against the ground-truth
+    instance labels it carries (detection protocol of the reference:
+    tools/evaluation/evaluate.py:92-99 via the port's eval stack)."""
+    from ..eval import detection_summary, get_detection_failures, get_detections
+    from ..pipeline.instances import make_labels_consecutive
+
+    z = np.load(pointwise_npz)
+    gt = z["instance_labels"].astype(np.int64)
+    pred = z["instance_preds"].astype(np.int64)
+
+    gt = np.where(gt == 0, -1, gt)          # raw convention: 0 = non-tree
+    m = gt != -1
+    if m.any():
+        gt[m], _ = make_labels_consecutive(gt[m], start_num=0)
+    pred = np.where(pred == 0, -1, pred)    # grouping: 0 = non-tree
+    m = pred != -1
+    if m.any():
+        pred[m], _ = make_labels_consecutive(pred[m], start_num=0)
+
+    matched_gts, matched_preds, iou, prec, rec = get_detections(
+        gt, pred, min_iou_match=0.5, non_tree_label=-1)
+    uniq_gt = np.arange(gt.max() + 1)
+    uniq_pred = np.arange(pred.max() + 1)
+    (nm_gts, nm_preds, nmp_gt, _, _) = get_detection_failures(
+        matched_gts, matched_preds, uniq_gt, uniq_pred, iou, prec, rec,
+        min_precision_for_pred=0.5, min_recall_for_gt=0.5)
+    nmp_filtered = np.array([p for p, g in zip(nm_preds, nmp_gt)
+                             if not np.isnan(g)])
+    summary = detection_summary(matched_gts, nm_gts, matched_preds,
+                                nmp_filtered)
+    # mean pointwise segmentation quality over matched pairs
+    if len(matched_preds):
+        seg_iou = float(np.mean(iou[matched_preds, matched_gts]))
+        summary["mean_matched_iou"] = round(seg_iou * 100, 1)
+    summary["n_gt"] = int(gt.max() + 1)
+    summary["n_pred"] = int(pred.max() + 1)
+    return summary
