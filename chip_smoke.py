@@ -128,7 +128,36 @@ Phases (any failure exits nonzero; nothing is swallowed):
              statistics within 1e-4; the Linear biases before a BatchNorm,
              whose gradient is zero in exact arithmetic, are left out; the
              card step's counts, zeroed just before it, are the SIMT dW
-             kernel's launches.
+             kernel's launches;
+9. datagen:  phase 3's plot written as ``train/forests/plot.npz`` and
+             ``val/forest/plot.npz`` through ``tools/gen_val_data`` and
+             ``tools/gen_train_data`` on the card with the shipped configs,
+             ``n_samples_total`` cut from 25,000 to 32; counts zeroed just
+             before: kernel 4 must launch (once per tool, over every voxel
+             of the plot); seconds per stage, tiles and crops written, the
+             whole-plot call's queries; that call's kernel timed with CUDA
+             events and held to its plain version on the same card tensors
+             as phase 4 holds the ``vert`` row: the ``whole_plot`` row of
+             the ``kernels`` line;
+10. dp:      (a) ``tools/train.py --dist`` as 2 gloo ranks sharing the card
+             (``parallel/launch.py:spawn_ranks``, a file store), full width
+             (configs/training/train.yaml), phase 9's crops and tiles, one
+             epoch, ``examples_per_epoch`` cut to 16 (4 steps a rank),
+             validation on: the rulebook and the tensor-core conv and dW
+             kernels must launch in each rank, every loss be finite and
+             equal across ranks, the parameters bit-equal across ranks,
+             ``epoch_1.pth`` written by rank 0 alone; step seconds per rank;
+             (b) one float32 DP step at world size 1 on nccl against
+             ``make_train_step`` on the same card, seed weights and batch,
+             held as phase 8 holds card to CPU; (c) the pipeline with
+             ``dist: true, whole_plot: false`` as 2 gloo ranks on the card
+             against the same config single-process on the card, on the
+             whole plot (one tile-mode run of it takes under 30 s):
+             pointwise arrays within 1e-6,
+             instance labels and tree count equal, wall time of each;
+11. demo:    ``python -m treelearn_tpu_torch.tools.demo`` with its defaults
+             on the card: exit 0, at least one tree, the labeled cloud and
+             the per-tree files written.
 
 The line before the card line's JSON trailer is ``{"kernels": [...]}``; the
 last line is the device record.  Exits nonzero without CUDA, and when run
@@ -154,6 +183,9 @@ CARD = "cuda"
 MAIN_PATH_KERNELS = ("rulebook", "subm_conv_wgmma", "vert", "cc")
 SLOWER_LIMIT = 1.1            # a redesigned kernel vs the one it replaced,
                               # per shape or pass
+DATAGEN_CROPS = 32            # gen_train_data's n_samples_total (shipped 25,000)
+DP_WORLD = 2                  # data-parallel ranks, sharing the one card
+DP_EXAMPLES = 16              # examples_per_epoch of phase 10a: 4 steps a rank
 
 
 def log(msg):
@@ -532,19 +564,15 @@ def check_subm_conv(rec, lib_rows):
             library_ms=None, **tot))
 
 
-def check_vert(rec, lib_rows):
-    """Kernel 4 on the main path's own problem: against its plain version,
-    raced against the first kernel on the xy table of the same points."""
+def vert_against_plain(p):
+    """Kernel 4 on problem ``p`` against its plain version on the same card
+    tensors; returns (moments, max |dvert|, queries > 1e-3 off, moments'
+    error of scale, plain ms, bound ms, bound by, in-radius pairs)."""
     import torch
 
-    from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.vert import (moments, moments_plain,
-                                              moments_serial, prepare_xy,
-                                              vert_from_moments, verticality)
+                                              vert_from_moments)
 
-    p = rec.inputs[("vert",)]["problem"]
-    if p.table != "xyz":
-        raise AssertionError(f"the plot's verticality table is {p.table}")
     m = moments(p)
     if not torch.equal(m, moments(p)):
         raise AssertionError("verticality: two launches differ")
@@ -568,6 +596,27 @@ def check_vert(rec, lib_rows):
     far = int((dv > 1e-3).sum())
     if far > max(1, int(1e-3 * int(ok.sum()))):
         raise AssertionError(f"verticality: {far} queries differ by > 1e-3")
+    plain = cuda_ms(lambda: moments_plain(p), reps=2, warmup=1)
+    nq, nr = p.queries.shape[0], p.refs4.shape[0]
+    pairs = float(m[:, 0].sum())
+    b, by = bound(16 * nr + 12 * nq + 40 * nq + 4 * p.ranges.numel()
+                  + 4 * p.items.numel(), 30.0 * pairs)
+    return m, err, far, mom_err, plain, b, by, pairs
+
+
+def check_vert(rec, lib_rows):
+    """Kernel 4 on the main path's own problem: against its plain version,
+    raced against the first kernel on the xy table of the same points."""
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.vert import (moments, moments_serial,
+                                              prepare_xy, verticality)
+
+    p = rec.inputs[("vert",)]["problem"]
+    if p.table != "xyz":
+        raise AssertionError(f"the plot's verticality table is {p.table}")
+    m, err, far, mom_err, plain, b, by, pairs = vert_against_plain(p)
     # the first kernel, on the xy table of the same points
     refs = p.refs4[:, :3].contiguous()
     pxy = prepare_xy(refs, p.queries, p.radius)
@@ -576,11 +625,7 @@ def check_vert(rec, lib_rows):
     if not torch.equal(old[:, 0], m[:, 0]):
         raise AssertionError("verticality: the first kernel's counts differ")
     ms, previous = race(lambda: moments(p), lambda: moments_serial(pxy))
-    plain = cuda_ms(lambda: moments_plain(p), reps=2, warmup=1)
     nq, nr = p.queries.shape[0], p.refs4.shape[0]
-    pairs = float(m[:, 0].sum())
-    b, by = bound(16 * nr + 12 * nq + 40 * nq + 4 * p.ranges.numel()
-                  + 4 * p.items.numel(), 30.0 * pairs)
     # candidates a query: the 9 ranges of the 3-D table, the 3 x 3 whole
     # columns of the xy table
     per_group = (p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum(1)
@@ -1098,82 +1143,110 @@ def check_grads(rec, lib_rows, launches, n_steps):
     next(r for r in lib_rows if r["name"] == "subm_conv_wgmma").update(dx)
 
 
+STEP_CFG = dict(channels=8, num_blocks=3, spatial_shape=[256, 256, 128],
+                use_coords=True, use_feats=True)
+STEP_LR = 1e-3
+
+
+def step_sample(tmp):
+    """The training sample of phases 8 and 10b: one crop of a small plot."""
+    from treelearn_tpu_torch.data import TreeDataset
+    from treelearn_tpu_torch.data.synthetic import (make_crop_npz,
+                                                    make_synthetic_forest,
+                                                    verticality_proxy)
+
+    d = osp.join(tmp, "step_crop")
+    if not osp.isdir(d):
+        os.makedirs(d)
+        data, _ = make_synthetic_forest(n_trees=4, extent=12,
+                                        points_per_tree=1500,
+                                        ground_points=6000, seed=5)
+        data[:, :2] -= data[:, :2].mean(0)
+        make_crop_npz(osp.join(d, "c.npz"), data, verticality_proxy(data))
+    return TreeDataset(d, inner_square_edge_length=10.0, training=True)[0]
+
+
+def one_step(make_step, batch, dev):
+    """One float32 step of ``make_step(model, optimizer, scheduler)`` from
+    the seed-0 weights; returns (loss, state_dict, gradients) on the host
+    and the step's launch counts."""
+    from treelearn_tpu_torch.model import TreeLearn
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.train.loop import build_optimizer
+
+    model = TreeLearn(**STEP_CFG).init(0).to(dev)
+    opt, sch = build_optimizer(model.parameters(), {
+        "type": "AdamW", "lr": STEP_LR, "weight_decay": 1e-3})
+    step = make_step(model, opt, sch)
+    _cuda.reset_launches()
+    loss, _ = step(batch)
+    launches = dict(_cuda.LAUNCHES)
+    return (float(loss),
+            {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            {k: p.grad.detach().cpu().clone()
+             for k, p in model.named_parameters()}), launches
+
+
+def compare_steps(got, want, what):
+    """Holds one step's (loss, state, gradients) to another's: the loss
+    within rtol 1e-5, each parameter's gradient within 1e-3 of its max, its
+    update within 1e-2 of the learning rate wherever |g| >= 1e-3 of that
+    max (elsewhere AdamW's first step lr * g / (|g| + 1e-8) amplifies
+    rounding noise), the running statistics within 1e-4; the Linear biases
+    before a BatchNorm, whose gradient is zero in exact arithmetic, are
+    left out."""
+    from treelearn_tpu_torch.model import TreeLearn
+
+    init = TreeLearn(**STEP_CFG).init(0).state_dict()
+    worst_g = worst_u = worst_s = 0.0
+    for k, g_want in want[2].items():
+        if k.endswith("_linear.0.bias"):
+            continue      # zero in exact arithmetic: both sides hold noise
+        scale = max(float(g_want.abs().max()), 1e-12)
+        err_g = float((got[2][k] - g_want).abs().max()) / scale
+        strong = g_want.abs() >= max(1e-3 * scale, 1e-6)
+        du = (got[1][k] - init[k]) - (want[1][k] - init[k])
+        err_u = float(du[strong].abs().max()) if bool(strong.any()) else 0.0
+        if err_g > 1e-3 or err_u > 1e-2 * STEP_LR:
+            raise AssertionError(f"{what}: {k}: gradient err {err_g} of "
+                                 f"max, update err {err_u}")
+        worst_g, worst_u = max(worst_g, err_g), max(worst_u, err_u)
+    for k, v in want[1].items():
+        if k.endswith(("running_mean", "running_var")):
+            err_s = float((got[1][k] - v).abs().max())
+            if err_s > 1e-4:
+                raise AssertionError(f"{what}: {k} differs by {err_s}")
+            worst_s = max(worst_s, err_s)
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    log(f"{what}: loss {got[0]:.6f} vs {want[0]:.6f} (rel {rel:.1e}); "
+        f"gradients within {worst_g:.1e} of each tensor's max; updates "
+        f"where |g| >= 1e-3 of max within {worst_u:.2e} (lr {STEP_LR}); "
+        f"running stats within {worst_s:.1e}")
+    if rel > 1e-5:
+        raise AssertionError(f"{what}: losses differ")
+
+
 def train_step_check(tmp):
     """Phase 8: one float32 step at small width, card against CPU.  Returns
     the card step's launch counts (zeroed just before it): float32 training
     is the path of the SIMT conv and dW kernels."""
-    import numpy as np
     import torch
 
-    from treelearn_tpu_torch.data import TreeDataset, collate_padded
-    from treelearn_tpu_torch.data.synthetic import (make_crop_npz,
-                                                    make_synthetic_forest,
-                                                    verticality_proxy)
-    from treelearn_tpu_torch.model import TreeLearn
-    from treelearn_tpu_torch.ops import _cuda
-    from treelearn_tpu_torch.train.loop import build_optimizer, make_train_step
+    from treelearn_tpu_torch.data import collate_padded
+    from treelearn_tpu_torch.train.loop import make_train_step
 
-    d = osp.join(tmp, "step_crop")
-    os.makedirs(d)
-    data, _ = make_synthetic_forest(n_trees=4, extent=12,
-                                    points_per_tree=1500, ground_points=6000,
-                                    seed=5)
-    data[:, :2] -= data[:, :2].mean(0)
-    make_crop_npz(osp.join(d, "c.npz"), data, verticality_proxy(data))
-    batch = collate_padded([TreeDataset(d, inner_square_edge_length=10.0,
-                                        training=True)[0]])
-    cfg = dict(channels=8, num_blocks=3, spatial_shape=[256, 256, 128],
-               use_coords=True, use_feats=True)
-    lr = 1e-3
+    batch = collate_padded([step_sample(tmp)])
     out = {}
     for dev in (CARD, "cpu"):
-        model = TreeLearn(**cfg).init(0).to(dev)
-        opt, sch = build_optimizer(model.parameters(), {
-            "type": "AdamW", "lr": lr, "weight_decay": 1e-3})
-        step = make_train_step(model, opt, sch, batch_size=1,
-                               compute_dtype=torch.float32,
-                               grad_norm_clip=True, device=dev)
-        _cuda.reset_launches()
-        loss, _ = step(batch)
+        out[dev], step_launches = one_step(
+            lambda m, o, s, dev=dev: make_train_step(
+                m, o, s, batch_size=1, compute_dtype=torch.float32,
+                grad_norm_clip=True, device=dev), batch, dev)
         if dev == CARD:
-            launches = dict(_cuda.LAUNCHES)
-        out[dev] = (float(loss),
-                    {k: v.detach().cpu().clone()
-                     for k, v in model.state_dict().items()},
-                    {k: p.grad.detach().cpu().clone()
-                     for k, p in model.named_parameters()})
-    init = TreeLearn(**cfg).init(0).state_dict()
-    worst_g = worst_u = worst_s = 0.0
-    for k, g_cpu in out["cpu"][2].items():
-        if k.endswith("_linear.0.bias"):
-            continue      # zero in exact arithmetic: both sides hold noise
-        scale = max(float(g_cpu.abs().max()), 1e-12)
-        err_g = float((out[CARD][2][k] - g_cpu).abs().max()) / scale
-        # AdamW's first step is lr * g / (|g| + 1e-8): only where |g| is
-        # well above the rounding noise does it not amplify that noise
-        strong = g_cpu.abs() >= max(1e-3 * scale, 1e-6)
-        du = (out[CARD][1][k] - init[k]) - (out["cpu"][1][k] - init[k])
-        err_u = float(du[strong].abs().max()) if bool(strong.any()) else 0.0
-        if err_g > 1e-3 or err_u > 1e-2 * lr:
-            raise AssertionError(f"train step card vs CPU: {k}: gradient "
-                                 f"err {err_g} of max, update err {err_u}")
-        worst_g, worst_u = max(worst_g, err_g), max(worst_u, err_u)
-    for k, v in out["cpu"][1].items():
-        if k.endswith(("running_mean", "running_var")):
-            err_s = float((out[CARD][1][k] - v).abs().max())
-            if err_s > 1e-4:
-                raise AssertionError(f"train step card vs CPU: {k} differs "
-                                     f"by {err_s}")
-            worst_s = max(worst_s, err_s)
-    rel = abs(out[CARD][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    log(f"train step card vs CPU: loss {out[CARD][0]:.6f} vs "
-        f"{out['cpu'][0]:.6f} (rel {rel:.1e}); gradients within "
-        f"{worst_g:.1e} of each tensor's max; updates where |g| >= 1e-3 of "
-        f"max within {worst_u:.2e} (lr {lr}); running stats within "
-        f"{worst_s:.1e}; {int(batch['n_points'])} points")
-    log(f"  launches on the card {json.dumps(launches)}")
-    if rel > 1e-5:
-        raise AssertionError("train step losses differ")
+            launches = step_launches
+    compare_steps(out[CARD], out["cpu"], "train step card vs CPU")
+    log(f"  {int(batch['n_points'])} points; launches on the card "
+        f"{json.dumps(launches)}")
     zero = [k for k in ("rulebook", "subm_conv", "subm_conv_dw")
             if launches[k] == 0]
     if zero:
@@ -1493,6 +1566,322 @@ def smoke_phase():
         raise AssertionError(f"run_gpu_smoke: {json.dumps(out['errors'])}")
 
 
+def datagen_phase(tmp, data):
+    """Phase 9: the plot through gen_val_data and gen_train_data on the
+    card with the shipped configs (crops cut to ``DATAGEN_CROPS``), counts
+    zeroed just before; returns (launches, the whole-plot verticality
+    problem, the tiles directory, the crops directory)."""
+    import numpy as np
+
+    from treelearn_tpu_torch.config import get_config
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.tools.gen_train_data import generate_random_crops
+    from treelearn_tpu_torch.tools.gen_val_data import generate_val_tiles
+
+    root = osp.join(tmp, "datagen")
+    val_cfg = get_config(osp.join(REPO, "configs", "data_gen",
+                                  "gen_val_data.yaml"))
+    val_cfg.forest_path = osp.join(root, "val", "forest", "plot.npz")
+    train_cfg = get_config(osp.join(REPO, "configs", "data_gen",
+                                    "gen_train_data.yaml"))
+    log(f"datagen: n_samples_total cut from {train_cfg.n_samples_total} to "
+        f"{DATAGEN_CROPS}")
+    train_cfg.base_dir = osp.join(root, "train")
+    train_cfg.n_samples_total = DATAGEN_CROPS
+    for path in (val_cfg.forest_path,
+                 osp.join(root, "train", "forests", "plot.npz")):
+        os.makedirs(osp.dirname(path))
+        np.savez(path, points=data[:, :3].astype(np.float32),
+                 labels=data[:, 3])
+    rec = Recorder()
+    _cuda.set_recorder(rec)
+    _cuda.reset_launches()
+    t0 = time.time()
+    val = generate_val_tiles(val_cfg, device=CARD)
+    t_val = time.time() - t0
+    t0 = time.time()
+    train = generate_random_crops(train_cfg, device=CARD)
+    t_train = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    _cuda.set_recorder(None)
+    p = rec.inputs[("vert",)]["problem"]
+    stages = lambda d: {k: round(v, 3) for k, v in d.items()}  # noqa: E731
+    log(f"  gen_val_data {t_val:.2f} s, {val['tiles']} tiles, stage seconds "
+        f"{json.dumps(stages(val['stage_seconds']))}")
+    log(f"  gen_train_data {t_train:.2f} s, {json.dumps(train['crops'])} "
+        f"crops, stage seconds {json.dumps(stages(train['stage_seconds']))}")
+    log(f"  whole-plot verticality: {p.queries.shape[0]} queries, "
+        f"{p.refs4.shape[0]} refs, table {p.table}; launches "
+        f"{json.dumps(launches)}")
+    if launches["vert"] == 0:
+        raise AssertionError("datagen: kernel 4 not launched")
+    if not val["tiles"] or not sum(train["crops"].values()):
+        raise AssertionError("datagen: no tiles or no crops written")
+    return (launches, p, osp.join(val["tiles_dir"], "npz"),
+            osp.join(root, "train", "random_crops", "npz"))
+
+
+def check_vert_whole(p, launches, lib_rows):
+    """Kernel 4 on the data tools' whole-plot problem against its plain
+    version: the new row of the ``kernels`` line."""
+    from treelearn_tpu_torch.ops.vert import moments
+
+    _, err, far, mom_err, plain, b, by, pairs = vert_against_plain(p)
+    ms = cuda_ms(lambda: moments(p))
+    log(f"  vert whole plot Q={p.queries.shape[0]}: counts exact, moments "
+        f"within {mom_err:.1e} of scale, max |dvert| {err:.2e} ({far} > "
+        f"1e-3), kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+        f"({by}), {pairs:.0f} in-radius pairs, {p.items.shape[0]} work items")
+    lib_rows.append(dict(
+        name="vert", problem="whole_plot", route="cuda",
+        source="treelearn_tpu_torch/csrc/vert.cu",
+        replaces="treelearn_tpu/ops/pallas_vert.py:137",
+        launches=launches["vert"], max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=None,
+        queries=int(p.queries.shape[0])))
+
+
+def dp_train_rank(init_method, cfg_path, work, device):
+    """One rank of phase 10a: ``tools/train.py --dist`` on ``device`` over
+    gloo;
+    its step seconds and losses, launch counts, checkpoints and final
+    state go to files in ``work``."""
+    import torch
+
+    import treelearn_tpu_torch.model.checkpoint as ck
+    import treelearn_tpu_torch.parallel as par
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.tools import train
+
+    os.chdir(work)
+    steps, saved = [], []
+    make, save = par.make_dp_train_step, ck.checkpoint_save
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(batch):
+            t0 = time.time()
+            loss, loss_dict = step(batch)
+            steps.append((time.time() - t0, float(loss)))
+            return loss, loss_dict
+        return timed
+
+    par.make_dp_train_step = timed_make
+    ck.checkpoint_save = lambda *a, **k: saved.append(save(*a, **k))
+    _cuda.reset_launches()
+    model = train.main(["--config", cfg_path, "--dist", "--dist_url",
+                        init_method, "--device", device])
+    rank = int(os.environ["RANK"])
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               osp.join(work, f"state{rank}.pt"))
+    with open(osp.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": dict(_cuda.LAUNCHES), "steps": steps,
+                   "saved": saved}, f)
+
+
+def dp_train_phase(tmp, crops_dir, tiles_dir):
+    """Phase 10a: ``tools/train.py --dist`` as 2 gloo ranks on the card at
+    full width on phase 9's crops and tiles, one epoch, validation on."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from treelearn_tpu_torch.config import config_to_dict, get_config
+    from treelearn_tpu_torch.parallel.launch import spawn_ranks
+
+    work = osp.join(tmp, "dp_train")
+    os.makedirs(work)
+    cfg = get_config(osp.join(REPO, "configs", "training", "train.yaml"))
+    cfg.dataset_train.data_root = crops_dir
+    cfg.dataset_test.data_root = tiles_dir
+    cfg.epochs = 1
+    cfg.validation_frequency = cfg.save_frequency = 1
+    shipped = cfg.examples_per_epoch
+    cfg.examples_per_epoch = DP_EXAMPLES
+    cfg_path = osp.join(work, "train_dp.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config_to_dict(cfg), f)
+    t0 = time.time()
+    spawn_ranks(dp_train_rank, DP_WORLD, osp.join(work, "store"), cfg_path,
+                work, CARD, timeout=600)
+    wall = time.time() - t0
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(osp.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    states = [torch.load(osp.join(work, f"state{r}.pt"))
+              for r in range(DP_WORLD)]
+    log(f"dp train: {DP_WORLD} gloo ranks on one card, {wall:.2f} s with "
+        f"process start, {len(os.listdir(crops_dir))} crops, "
+        f"{len(os.listdir(tiles_dir))} validation tiles, examples_per_epoch "
+        f"cut from {shipped} to {DP_EXAMPLES}")
+    for r, rk in enumerate(ranks):
+        secs = np.asarray([s for s, _ in rk["steps"]])
+        losses = np.asarray([x for _, x in rk["steps"]])
+        log(f"  rank {r}: {len(secs)} steps, first {secs[0]:.4f} s, median "
+            f"of the others {np.median(secs[1:]):.4f} s, losses "
+            f"{[round(float(x), 3) for x in losses]}, launches "
+            f"{json.dumps(rk['launches'])}")
+        if len(secs) < 4 or not np.isfinite(losses).all():
+            raise AssertionError(f"dp train rank {r}: steps {rk['steps']}")
+        zero = [k for k in ("rulebook", "subm_conv_wgmma",
+                            "subm_conv_dw_wgmma") if rk["launches"][k] == 0]
+        if zero:
+            raise AssertionError(f"dp train rank {r}: not launched {zero}")
+    if len({tuple(x for _, x in rk["steps"]) for rk in ranks}) != 1:
+        raise AssertionError("dp train: the ranks' global losses differ")
+    differ = [k for k, v in states[0].items() if not torch.equal(v,
+                                                                 states[1][k])]
+    ckpts = [f for f in os.listdir(osp.join(work, "work_dirs", "train_dp"))
+             if f.endswith(".pth")]
+    log(f"  parameters bit-equal across ranks: {not differ}; checkpoints "
+        f"written: rank 0 {ranks[0]['saved']}, rank 1 {ranks[1]['saved']}")
+    if differ:
+        raise AssertionError(f"dp train: ranks differ in {differ[:5]}")
+    if ckpts != ["epoch_1.pth"] or len(ranks[0]["saved"]) != 1 or any(
+            rk["saved"] for rk in ranks[1:]):
+        raise AssertionError(f"dp train: checkpoints {ckpts}, "
+                             f"{[rk['saved'] for rk in ranks]}")
+
+
+def dp_step_check(tmp):
+    """Phase 10b: one float32 DP step at world size 1 on nccl against
+    ``make_train_step`` on the same card, seed weights and batch."""
+    import torch
+    import torch.distributed as dist
+
+    from treelearn_tpu_torch.data.dataset import collate_dp, collate_padded
+    from treelearn_tpu_torch.parallel import init_dp, make_dp_train_step
+    from treelearn_tpu_torch.train.loop import make_train_step
+
+    sample = step_sample(tmp)
+    os.makedirs(osp.join(tmp, "dp_step"))
+    group = init_dp("nccl", "file://" + osp.join(tmp, "dp_step", "store"),
+                    rank=0, world_size=1, device=CARD)
+    try:
+        dp, launches = one_step(
+            lambda m, o, s: make_dp_train_step(
+                m, o, s, group, batch_size=1, compute_dtype=torch.float32,
+                grad_norm_clip=True), collate_dp([sample], 1, 1), CARD)
+    finally:
+        dist.destroy_process_group()
+    single, _ = one_step(
+        lambda m, o, s: make_train_step(
+            m, o, s, batch_size=1, compute_dtype=torch.float32,
+            grad_norm_clip=True, device=CARD), collate_padded([sample]), CARD)
+    compare_steps(dp, single, f"dp step world 1 ({group.backend}) vs "
+                              f"make_train_step")
+    log(f"  launches {json.dumps(launches)}")
+
+
+def dp_pipeline_rank(init_method, forest, out, device):
+    """One rank of phase 10c: the pipeline with ``dist: true`` on
+    ``device`` over gloo; rank 0 writes its summary and wall seconds."""
+    import torch.distributed as dist
+
+    from treelearn_tpu_torch.parallel import init_dp
+    from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+
+    group = init_dp("gloo", init_method, device=device)
+    t0 = time.time()
+    res = run_treelearn_pipeline(dp_pipeline_config(forest), device=device)
+    wall = time.time() - t0
+    with open(osp.join(out, f"pipeline{group.rank}.json"), "w") as f:
+        json.dump({"wall": wall, "res": None if res is None else {
+            k: res[k] for k in ("n_trees", "n_points", "results_dir",
+                                "stage_seconds")}}, f)
+    dist.destroy_process_group()
+
+
+def dp_pipeline_config(forest):
+    config = pipeline_config(forest, save_pointwise=True)
+    config.whole_plot = False
+    config.dist = True
+    return config
+
+
+def dp_pipeline_phase(tmp, data):
+    """Phase 10c: the pipeline with ``dist: true, whole_plot: false`` as 2
+    gloo ranks on the card against the same config single-process on the
+    card (no process group: the single path)."""
+    import numpy as np
+
+    from treelearn_tpu_torch.parallel.launch import spawn_ranks
+    from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+
+    forests = {}
+    for mode in ("single", "dist"):
+        d = osp.join(tmp, f"dp_pipeline_{mode}", "plot", "forest")
+        os.makedirs(d)
+        forests[mode] = osp.join(d, "smoke.npz")
+        np.savez(forests[mode], points=data[:, :3].astype(np.float32),
+                 labels=data[:, 3])
+    t0 = time.time()
+    single = run_treelearn_pipeline(dp_pipeline_config(forests["single"]),
+                                    device=CARD)
+    wall_single = time.time() - t0
+    out = osp.dirname(forests["dist"])
+    t0 = time.time()
+    spawn_ranks(dp_pipeline_rank, DP_WORLD, osp.join(out, "store"),
+                forests["dist"], out, CARD, timeout=600)
+    wall_spawn = time.time() - t0
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(osp.join(out, f"pipeline{r}.json")) as f:
+            ranks.append(json.load(f))
+    dist_res = ranks[0]["res"]
+    log(f"dp pipeline: {len(data)} points, tile mode; single process {wall_single:.2f} s, {DP_WORLD} gloo "
+        f"ranks {ranks[0]['wall']:.2f} s on rank 0 ({wall_spawn:.2f} s with "
+        f"process start); trees {single['n_trees']} / {dist_res['n_trees']}")
+    log(f"  stage seconds single {json.dumps(single['stage_seconds'])}")
+    log(f"  stage seconds rank 0 {json.dumps(dist_res['stage_seconds'])}")
+    if any(rk["res"] is not None for rk in ranks[1:]):
+        raise AssertionError("dp pipeline: a rank other than 0 returned")
+    a, b = (np.load(osp.join(d, "pointwise_results", "pointwise_results.npz"))
+            for d in (single["results_dir"], dist_res["results_dir"]))
+    worst = 0.0
+    for k in ("semantic_prediction_logits", "offset_predictions", "coords"):
+        if a[k].shape != b[k].shape:
+            raise AssertionError(f"dp pipeline: {k} shapes {a[k].shape} "
+                                 f"{b[k].shape}")
+        worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+    log(f"  pointwise arrays within {worst:.1e}; instance labels equal: "
+        f"{np.array_equal(a['instance_preds'], b['instance_preds'])}")
+    if (worst > 1e-6 or single["n_trees"] != dist_res["n_trees"]
+            or not np.array_equal(a["instance_preds"], b["instance_preds"])):
+        raise AssertionError("dp pipeline: dist run differs from single")
+
+
+def demo_phase(tmp):
+    """Phase 11: ``python -m treelearn_tpu_torch.tools.demo`` with its
+    defaults on the card."""
+    d = osp.join(tmp, "demo")
+    os.makedirs(d)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "treelearn_tpu_torch.tools.demo"],
+                         cwd=d, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.time() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"demo exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    trees = [int(x.split(":")[1]) for x in lines if x.startswith("trees found")]
+    results = osp.join(d, "demo_workdir", "plot", "results")
+    cloud = osp.join(results, "full_forest", "demo_forest.laz")
+    per_tree = [f for _, _, fs in os.walk(osp.join(results, "individual_trees"))
+                for f in fs]
+    log(f"demo: exit 0 in {wall:.2f} s with process start; "
+        f"{' | '.join(x.strip() for x in lines if x.startswith(('points', 'trees', 'wall', 'device')))}; "
+        f"{len(per_tree)} per-tree files")
+    if not trees or trees[0] < 1 or not osp.isfile(cloud) or not per_tree:
+        raise AssertionError(f"demo: trees {trees}, cloud {osp.isfile(cloud)}, "
+                             f"{len(per_tree)} per-tree files")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-trees", type=int, default=48)
@@ -1632,6 +2021,21 @@ def main():
                 r["launches"] = small_launches["subm_conv"]
             elif r["name"] == "subm_conv_dw":
                 r["launches"] = step_launches["subm_conv_dw"]
+
+        # 9. the data tools on the plot: kernel 4 over every voxel
+        dg_launches, vert_whole, tiles_dir, crops_dir = datagen_phase(
+            tmp, data)
+        check_vert_whole(vert_whole, dg_launches, rows)
+        del vert_whole
+
+        # 10. data parallelism: train --dist on 2 ranks, the world-1 step,
+        # the pipeline with dist: true on 2 ranks
+        dp_train_phase(tmp, crops_dir, tiles_dir)
+        dp_step_check(tmp)
+        dp_pipeline_phase(tmp, data)
+
+        # 11. the demo, as a user runs it
+        demo_phase(tmp)
 
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -379,16 +379,26 @@ def test_pipeline_hdbscan_ladder_route_against_jax(tmp_path, monkeypatch):
 
 
 def test_pipeline_refuses_dist(tmp_path):
-    """config.dist (data-parallel inference) is not ported: it raises."""
+    """config.dist no longer raises (data-parallel inference is ported,
+    parallel/mesh.py): without a process group of world size > 1 it runs
+    the single-process path, with the same full-cloud labels as the run
+    without it.  The 2-rank run is tests/test_torch_port_parallel.py's."""
+    import torch.distributed as dist
+
     from test_integration import _pipeline_config
     from treelearn_tpu_torch.config import ConfigDict
+    from treelearn_tpu_torch.io.pointcloud import load_data
     from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
 
-    path, _ = _plot(str(tmp_path))
-    cfg = ConfigDict.from_dict(dict(_pipeline_config(path)))
-    cfg.dist = True
-    with pytest.raises(NotImplementedError, match="dist"):
-        run_treelearn_pipeline(cfg, device="cpu")
+    assert not dist.is_initialized()
+    labels = []
+    for flag in (False, True):
+        path, _ = _plot(str(tmp_path / str(flag)))
+        cfg = ConfigDict.from_dict(dict(_pipeline_config(path)))
+        cfg.dist = flag
+        res = run_treelearn_pipeline(cfg, device="cpu")
+        labels.append(load_data(res["output_path"])[:, 3])
+    np.testing.assert_array_equal(labels[0], labels[1])
 
 
 def test_cli_runs_default_config_on_cpu(tmp_path):

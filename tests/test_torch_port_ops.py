@@ -244,3 +244,32 @@ def test_down_inverse_conv_match_jax():
     np.testing.assert_allclose(pd.numpy(), jd[:n_out], rtol=1e-5, atol=1e-6)
     pu = ps.inverse_conv(pd, torch.from_numpy(w_up), prb)
     np.testing.assert_allclose(pu.numpy(), ju[:n], rtol=1e-5, atol=1e-6)
+
+
+def test_down_conv_sums_corner_slots_without_atomics():
+    """The down conv adds each parent's children through its 8 (parent,
+    corner) slots, not an atomic ``index_add_``: no two kept children share
+    a slot, the float32 result equals the float64 scatter-add within 1e-6
+    of its max, and the bf16 one (inputs, products and sums rounded to
+    bf16's 8 bits) within 2^-6 of it."""
+    from treelearn_tpu_torch.ops import sparse as ps
+
+    ss = (13, 12, 10)
+    keys = _keys_case(7, ss, 500, batch=2)
+    rb = ps.build_downsample(ps.grid_from_sorted_keys(torch.from_numpy(keys),
+                                                      ss))
+    keep = rb.parent_idx >= 0
+    slot = rb.parent_idx[keep] * 8 + rb.corner[keep]
+    assert len(torch.unique(slot)) == int(keep.sum())
+    rng = np.random.default_rng(9)
+    feats = torch.from_numpy(rng.normal(size=(len(keys), 8)))
+    w = torch.from_numpy(rng.normal(size=(8, 8, 16)) * 0.2)
+    wide = (feats @ w.permute(1, 0, 2).reshape(8, 128)).reshape(-1, 8, 16)
+    contrib = wide[torch.arange(len(keys)), rb.corner]
+    want = torch.zeros(rb.out_grid.n_active, 16, dtype=torch.float64)
+    want.index_add_(0, rb.parent_idx[keep], contrib[keep])
+    got = ps.down_conv(feats.float(), w.float(), rb).double()
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    got16 = ps.down_conv(feats.bfloat16(), w.bfloat16(), rb).double()
+    assert float((got16 - want).abs().max()) <= 2 ** -6 * float(
+        want.abs().max())

@@ -100,8 +100,9 @@ def test_pipeline_matches_jax(tmp_path, whole_plot, monkeypatch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of treelearn_tpu_torch (and chip_smoke.py) imports
     without pulling in jax or treelearn_tpu, the k-NN, training, HDBSCAN,
-    evaluation and smoke modules included; nor pandas or sklearn, which the
-    card's machine does not have."""
+    evaluation, smoke, data-tool, plotting and data-parallel modules
+    included; nor pandas, sklearn or matplotlib, which the card's machine
+    does not have."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -113,11 +114,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "s.loader.exec_module(importlib.util.module_from_spec(s))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'treelearn_tpu' or m.startswith('treelearn_tpu.')\n"
-        "       or m.split('.')[0] in ('pandas', 'sklearn')]\n"
+        "       or m.split('.')[0] in ('pandas', 'sklearn', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "new = ['ops.knn', 'train.losses', 'train.loop', 'train.selftrain',\n"
         "       'eval.evaluation', 'tools.train', 'ops.hdbscan',\n"
-        "       'tools.evaluate', 'utils.smoke']\n"
+        "       'tools.evaluate', 'utils.smoke', 'tools.gen_train_data',\n"
+        "       'tools.gen_val_data', 'tools.demo', 'utils.plot',\n"
+        "       'parallel.mesh', 'parallel.launch']\n"
         "missing = [m for m in new if 'treelearn_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('treelearn_tpu_torch')]))\n")

@@ -122,7 +122,12 @@ def get_args(args=None) -> argparse.Namespace:
     parser.add_argument("--config", type=str, help="path to config file")
     parser.add_argument("--resume", type=str, help="path to resume from")
     parser.add_argument("--work_dir", type=str, help="working directory")
-    parser.add_argument("--dist", action="store_true", help="distributed training")
+    parser.add_argument("--dist", action="store_true",
+                        help="data-parallel training, one process per rank "
+                             "(launch under torchrun; parallel/mesh.py)")
+    parser.add_argument("--dist_url", type=str, default=None,
+                        help="init method of the process group "
+                             "(default env://, as torchrun sets it)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     return parser.parse_args(args)

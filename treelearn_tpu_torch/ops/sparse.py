@@ -11,7 +11,9 @@
 * Strided conv k=2 s=2 (SparseConv3d) and its inverse share one
   :class:`DownsampleRulebook` (spconv ``indice_key`` sharing).  The JAX
   package runs these outside Pallas (model/blocks.py:64-72), and so does the
-  port: one wide matmul, a corner select and an ``index_add_`` / gather.
+  port: one wide matmul, a corner select and a sum over the parents'
+  corner slots / a gather.  Nothing here adds with atomics, so a launch on
+  the card gives the same bits every time.
 """
 
 from __future__ import annotations
@@ -166,16 +168,19 @@ def down_conv(feats: torch.Tensor, weight: torch.Tensor,
               rb: DownsampleRulebook) -> torch.Tensor:
     """Strided conv k=2 s=2: feats (V_in, Cin), weight (8, Cin, Cout) ->
     (V_out, Cout): one wide matmul (V_in, Cin) @ (Cin, 8*Cout), a per-row
-    corner select, and an ``index_add_`` onto the parents."""
+    corner select, and each parent's sum over its 8 corner slots (a child
+    is the only one in its (parent, corner) slot), in corner order: an
+    ``index_add_`` would add with atomics on the card, in an order that
+    changes from launch to launch."""
     cin, cout = weight.shape[1], weight.shape[2]
     w = weight.to(feats.dtype).permute(1, 0, 2).reshape(cin, 8 * cout)
     wide = (feats @ w).reshape(-1, 8, cout)
     contrib = _corner_select(wide, rb.corner)
     keep = rb.parent_idx >= 0
-    out = torch.zeros((rb.out_grid.n_active, cout), dtype=feats.dtype,
-                      device=feats.device)
-    out.index_add_(0, rb.parent_idx[keep], contrib[keep])
-    return out
+    slots = torch.zeros((rb.out_grid.n_active * 8, cout), dtype=feats.dtype,
+                        device=feats.device)
+    slots[rb.parent_idx[keep] * 8 + rb.corner[keep]] = contrib[keep]
+    return slots.view(-1, 8, cout).sum(1)
 
 
 def inverse_conv(coarse_feats: torch.Tensor, weight: torch.Tensor,

@@ -99,8 +99,13 @@ def voxelize_points(coords: torch.Tensor, feats: torch.Tensor,
     contrib = point_feats[order][take]
     tid = uid[take]
     f = point_feats.shape[1]
-    sums = torch.zeros((n_voxels, f), dtype=point_feats.dtype, device=dev)
-    sums.index_add_(0, tid, contrib)
+    # each taken point has its own (voxel, scan position) slot; the sum over
+    # slots in scan order gives the same bits on every launch, where an
+    # index_add_ adds with atomics on the card
+    slots = torch.zeros((n_voxels * max_pts, f), dtype=point_feats.dtype,
+                        device=dev)
+    slots[tid * max_pts + (pos - seg_start)[take]] = contrib
+    sums = slots.view(n_voxels, max_pts, f).sum(1)
     cnts = torch.zeros(n_voxels, dtype=point_feats.dtype, device=dev)
     cnts.index_add_(0, tid, torch.ones_like(tid, dtype=point_feats.dtype))
     pooled = sums / torch.clamp(cnts, min=1.0)[:, None]

@@ -5,7 +5,8 @@ load forest -> center coords -> voxelize -> whole-plot or tile batches ->
 pointwise inference -> ensemble -> [hull/outer-remove] -> instances
 (deferred verticality + HDBSCAN or DBSCAN) -> assign remaining (5-NN) -> [save
 pointwise] -> propagate to the original cloud -> de-center -> save full
-forest + per-tree files.
+forest + per-tree files.  With ``dist: true`` under a process group the
+tile batches are dealt to the ranks (JAX pipeline/run.py:265-269).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import config_to_dict
 from ..data.dataset import TreeDataset, TreeLoader
@@ -91,13 +93,21 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
     ``model`` defaults to ``TreeLearn(**config.model)`` with seed-0 weights,
     overwritten by ``config.pretrain`` when set.  Runs on ``device``
     (default ``cuda``; raises without a card unless ``device="cpu"``).
-    ``config.dist`` (data-parallel inference in the JAX package) raises:
-    the port runs on one device."""
+
+    ``config.dist``: when a process group of world size > 1 is initialized
+    (parallel/mesh.py:init_dp), each rank runs on its ``DPGroup.device``
+    and forwards its share of the tile batches.  Rank 0 alone writes the
+    voxelized / feature caches and the results and returns the summary;
+    the other ranks wait at a barrier until the caches exist, forward, and
+    return None.  Without such a group the single path runs and the log
+    says so."""
+    group = None
     if config.get("dist"):
-        raise NotImplementedError(
-            "dist: data-parallel inference is not ported (ROADMAP A.6); "
-            "the port runs on one device")
-    device = resolve_device(device)
+        from ..parallel import make_mesh
+
+        group = make_mesh(device)
+    lead = group is None or group.rank == 0
+    device = group.device if group is not None else resolve_device(device)
     t_start = time.time()
     stage_seconds = {}
     _last = [t_start]
@@ -114,30 +124,42 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
     voxelized_dir = osp.join(base_dir, f"forest_voxelized{config.sample_generation.voxel_size}")
     tiles_dir = osp.join(base_dir, "tiles")
     results_dir = osp.join(base_dir, getattr(config.save_cfg, "results_dir", "results"))
-    for d in (documentation_dir, voxelized_dir, tiles_dir, results_dir):
-        os.makedirs(d, exist_ok=True)
+    if lead:
+        for d in (documentation_dir, voxelized_dir, tiles_dir, results_dir):
+            os.makedirs(d, exist_ok=True)
 
-    logger = logger or get_root_logger(osp.join(documentation_dir, "log_pipeline.txt"))
-    logger.info(pprint.pformat(config_to_dict(config), indent=2))
-    if config_path is not None:
-        shutil.copy(config_path, osp.join(documentation_dir, osp.basename(config_path)))
-
-    # center coords (the reference's large-coordinate workaround,
-    # tools/pipeline/pipeline.py:39-50) and re-save as npz
-    data = load_data(config.forest_path)
-    xyz = data[:, :3].astype(np.float64)
-    xyz_mean = np.mean(xyz, 0)
+    logger = logger or get_root_logger(
+        osp.join(documentation_dir, "log_pipeline.txt") if lead else None)
+    if config.get("dist") and group is None:
+        logger.info("dist: no process group of world size > 1 is "
+                    "initialized; running the single-process path")
+    elif group is not None:
+        logger.info(f"dist: rank {group.rank} of {group.world} on "
+                    f"{group.device} ({group.backend})")
     centered_path = osp.join(osp.dirname(config.forest_path), plot_name + "_centered.npz")
-    # keep the label column: the reference re-saves coords AND labels
-    # (pipeline.py:46-50); labels ride through voxelization (first-point-per-
-    # voxel) into the pointwise dump, where the evaluation joins on them
-    centered_pts = (xyz - xyz_mean).astype(np.float32)
-    np.savez(centered_path, points=centered_pts,
-             labels=(data[:, 3] if data.shape[1] > 3
-                     else np.full(len(data), -1.0)))
+    if lead:
+        logger.info(pprint.pformat(config_to_dict(config), indent=2))
+        if config_path is not None:
+            shutil.copy(config_path, osp.join(documentation_dir, osp.basename(config_path)))
+
+        # center coords (the reference's large-coordinate workaround,
+        # tools/pipeline/pipeline.py:39-50) and re-save as npz
+        data = load_data(config.forest_path)
+        xyz = data[:, :3].astype(np.float64)
+        xyz_mean = np.mean(xyz, 0)
+        # keep the label column: the reference re-saves coords AND labels
+        # (pipeline.py:46-50); labels ride through voxelization (first-point-
+        # per-voxel) into the pointwise dump, where the evaluation joins on
+        # them
+        centered_pts = (xyz - xyz_mean).astype(np.float32)
+        np.savez(centered_path, points=centered_pts,
+                 labels=(data[:, 3] if data.shape[1] > 3
+                         else np.full(len(data), -1.0)))
+        del data, xyz
     config.forest_path = centered_path
-    del data, xyz
     _stage("load_center")
+    if not lead:
+        dist.barrier()  # rank 0 writes the caches below first; then read them
 
     # tiles: streaming mode (default) slices tiles in memory from the sorted
     # voxelized plot; npz mode writes them to disk like the reference
@@ -157,8 +179,11 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
         _stage("voxelize_features")
     elif config.tile_generation:
         logger.info("#################### generating tiles ####################")
-        generate_tiles(config.sample_generation, config.forest_path, logger,
-                       config.save_cfg.return_type, device=device)
+        if lead:
+            generate_tiles(config.sample_generation, config.forest_path,
+                           logger, config.save_cfg.return_type, device=device)
+    if group is not None and lead:
+        dist.barrier()
 
     # model + pointwise predictions
     logger.info(f"{plot_name}: #################### getting pointwise predictions ####################")
@@ -221,8 +246,11 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
                                     need_backbone=bool(
                                         config.save_cfg.save_pointwise
                                         and config.save_cfg.get(
-                                            "save_backbone_feats", True)))
+                                            "save_backbone_feats", True)),
+                                    group=group)
     _stage("inference")
+    if not lead:
+        return None
     (semantic_prediction_logits, semantic_labels, offset_predictions,
      offset_labels, coords, instance_labels, backbone_feats, input_feats,
      point_ids) = pointwise

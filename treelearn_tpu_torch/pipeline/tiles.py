@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import os.path as osp
+import time
 from typing import Optional
 
 import numpy as np
@@ -351,16 +352,21 @@ def prepare_voxelized_features(cfg, forest_path: str, logger,
 
 
 def generate_tiles(cfg, forest_path: str, logger, return_type: str = "voxelized",
-                   features_fn=None, device=None):
+                   features_fn=None, device=None,
+                   stage_seconds: Optional[dict] = None):
     """Voxelize plot (cached), compute features (cached), cut tiles to npz
-    (parity: reference util/pipeline.py:24-75)."""
+    (parity: reference util/pipeline.py:24-75).  ``stage_seconds`` (a
+    dict) receives the seconds of the voxelize + features stage and of the
+    tile cutting."""
     plot_name = os.path.basename(forest_path)[:-4]
     base_dir = os.path.dirname(os.path.dirname(forest_path))
     save_dir = osp.join(base_dir, "tiles")
     os.makedirs(save_dir, exist_ok=True)
 
+    t0 = time.time()
     save_path_vox, save_path_features, _ = prepare_voxelized_features(
         cfg, forest_path, logger, return_type, features_fn, device=device)
+    t1 = time.time()
 
     logger.info("getting tiles...")
     gen = SampleGenerator(
@@ -372,4 +378,7 @@ def generate_tiles(cfg, forest_path: str, logger, return_type: str = "voxelized"
     )
     gen.tile_generate_and_save(cfg.inner_edge, cfg.outer_edge, cfg.stride,
                                logger=logger)
+    if stage_seconds is not None:
+        stage_seconds.update(voxelize_features=t1 - t0,
+                             tiles=time.time() - t1)
     return save_dir

@@ -1,6 +1,7 @@
 """Training CLI of the PyTorch/CUDA port:
 
     python -m treelearn_tpu_torch.tools.train --config configs/training/train.yaml [--device cpu]
+    torchrun --nproc_per_node 2 -m treelearn_tpu_torch.tools.train --config configs/training/train.yaml --dist
 
 Counterpart of tools/train.py (reference tools/training/train.py): epoch
 loop capped at ``examples_per_epoch``, a checkpoint every epoch
@@ -9,11 +10,18 @@ the previous one is kept only on multiples of ``save_frequency``),
 validation every ``validation_frequency`` epochs (semantic accuracy at 0.5
 confidence and the offset loss), ``--resume`` from a saved epoch.  Runs on
 the card by default; ``--device cpu`` runs the plain PyTorch versions of
-the kernels.  Data-parallel training (``--dist``) is not ported yet.
+the kernels.  ``--dist`` trains data-parallel over a torch.distributed
+process group (parallel/mesh.py; JAX tools/train.py:142-208): one process
+per rank, each forwarding its slice of every ``batch_size x world`` global
+batch; rank 0 alone logs, writes checkpoints and validates (single-device
+eval step), ``--resume`` loads on every rank.  ``--dist_url`` replaces
+torchrun's ``env://``; the backend is nccl when each rank owns a card, else
+gloo (parallel/mesh.py:default_backend).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from collections import defaultdict
 
@@ -37,8 +45,9 @@ def train_epoch(config, epoch, train_step, train_loader, logger, writer):
             losses[k].append(float(v))
         seen += batch["n_samples"]
     avg = {k: sum(v) / len(v) for k, v in losses.items()}
-    for k, v in avg.items():
-        writer.add_scalar(f"train/{k}", v, epoch)
+    if writer is not None:
+        for k, v in avg.items():
+            writer.add_scalar(f"train/{k}", v, epoch)
     log = (f"[TRAINING] [{epoch}/{config.epochs}], "
            f"time {time.time() - start:.2f}s")
     for k, v in avg.items():
@@ -93,15 +102,35 @@ def main(argv=None):
     from ..train.loop import build_optimizer, make_eval_step, make_train_step
 
     args, config = get_args_and_cfg(argv)
+    group = None
+    owns_group = False
     if args.dist:
-        raise NotImplementedError("data-parallel training is not ported yet")
-    device = resolve_device(args.device)
-    logger, writer = init_train_logger(config, args)
+        import torch.distributed as dist
+
+        from ..parallel import init_dp
+
+        owns_group = not dist.is_initialized()
+        group = init_dp(init_method=args.dist_url, device=args.device)
+        device = group.device
+    else:
+        device = resolve_device(args.device)
+    lead = group is None or group.rank == 0
+    n_shards = 1 if group is None else group.world
+    if lead:
+        logger, writer = init_train_logger(config, args)
+    else:
+        logger, writer = logging.getLogger(f"TreeLearnTPU.rank{group.rank}"), None
+        logger.setLevel(logging.WARNING)
+    if group is not None:
+        logger.info(f"data-parallel training over {n_shards} ranks "
+                    f"({group.backend}; global batch = "
+                    f"{config.dataloader.train.batch_size} x {n_shards})")
 
     model = TreeLearn(**config.model).init(int(config.get("seed", 0)))
     model.to(device)
     batch_size = int(config.dataloader.train.batch_size)
-    steps_per_epoch = max(config.examples_per_epoch // batch_size, 1)
+    steps_per_epoch = max(config.examples_per_epoch // (batch_size * n_shards),
+                          1)
     optimizer, scheduler = build_optimizer(
         model.parameters(), config.optimizer, config.get("scheduler"),
         steps_per_epoch)
@@ -109,6 +138,7 @@ def main(argv=None):
     train_set = TreeDataset(**config.dataset_train, logger=logger)
     val_set = TreeDataset(**config.dataset_test, logger=logger)
     train_loader = build_dataloader(train_set, training=True,
+                                    n_shards=n_shards,
                                     **config.dataloader.train)
     val_loader = build_dataloader(val_set, training=False,
                                   **config.dataloader.test)
@@ -123,11 +153,18 @@ def main(argv=None):
         load_checkpoint(config.pretrain, model, logger)
 
     compute_dtype = torch.bfloat16 if config.get("fp16") else torch.float32
-    train_step = make_train_step(model, optimizer, scheduler,
-                                 batch_size=batch_size,
-                                 compute_dtype=compute_dtype,
-                                 grad_norm_clip=config.get("grad_norm_clip"),
-                                 device=device)
+    if group is not None:
+        from ..parallel import make_dp_train_step
+
+        train_step = make_dp_train_step(
+            model, optimizer, scheduler, group, batch_size=batch_size,
+            compute_dtype=compute_dtype,
+            grad_norm_clip=config.get("grad_norm_clip"))
+    else:
+        train_step = make_train_step(
+            model, optimizer, scheduler, batch_size=batch_size,
+            compute_dtype=compute_dtype,
+            grad_norm_clip=config.get("grad_norm_clip"), device=device)
     eval_step = make_eval_step(
         model, batch_size=int(config.dataloader.test.batch_size),
         device=device)
@@ -135,6 +172,8 @@ def main(argv=None):
     logger.info("Training")
     for epoch in range(start_epoch, config.epochs + 1):
         train_epoch(config, epoch, train_step, train_loader, logger, writer)
+        if not lead:
+            continue
         checkpoint_save(epoch, model, optimizer, scheduler, config.work_dir,
                         save_freq=config.save_frequency)
         if (config.validation_frequency
@@ -142,7 +181,10 @@ def main(argv=None):
             logger.info("Validation")
             validate(config, epoch, eval_step, val_loader, logger, writer)
         writer.flush()
-    writer.close()
+    if lead:
+        writer.close()
+    if owns_group:
+        dist.destroy_process_group()
     return model
 
 

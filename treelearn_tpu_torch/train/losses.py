@@ -15,13 +15,17 @@ import torch
 LOSS_MULTIPLIER_SEMANTIC = 50.0
 
 
-def point_wise_loss(semantic_prediction_logits: torch.Tensor,  # (N, 2)
-                    offset_predictions: torch.Tensor,          # (N, 3)
-                    masks_sem: torch.Tensor,                   # (N,) bool
-                    masks_off: torch.Tensor,                   # (N,) bool
-                    semantic_labels: torch.Tensor,             # (N,) int
-                    offset_labels: torch.Tensor,               # (N, 3)
-                    weights: Optional[torch.Tensor] = None):
+def point_wise_loss_sums(semantic_prediction_logits: torch.Tensor,  # (N, 2)
+                         offset_predictions: torch.Tensor,          # (N, 3)
+                         masks_sem: torch.Tensor,                   # (N,) bool
+                         masks_off: torch.Tensor,                   # (N,) bool
+                         semantic_labels: torch.Tensor,             # (N,) int
+                         offset_labels: torch.Tensor,               # (N, 3)
+                         weights: Optional[torch.Tensor] = None):
+    """(4,) masked sums [sum ce * m_sem, sum m_sem, sum dist * m_off,
+    sum m_off], whose ratios are the two losses (:func:`masked_means`).
+    The data-parallel step adds them over ranks before it divides
+    (parallel/mesh.py)."""
     logits = semantic_prediction_logits.float()
     offs = offset_predictions.float()
     labels = torch.clamp(semantic_labels.long(), 0, logits.shape[1] - 1)
@@ -30,16 +34,33 @@ def point_wise_loss(semantic_prediction_logits: torch.Tensor,  # (N, 2)
     if weights is not None:
         ce = ce * weights
     msem = masks_sem.float()
-    n_sem = msem.sum()
-    semantic_loss = torch.where(
-        n_sem > 0, (ce * msem).sum() / torch.clamp(n_sem, min=1.0), 0.0)
     dist = torch.sqrt(torch.square(offs - offset_labels.float()).sum(1)
                       + 1e-12)
     moff = masks_off.float()
-    n_off = moff.sum()
+    return torch.stack([(ce * msem).sum(), msem.sum(), (dist * moff).sum(),
+                        moff.sum()])
+
+
+def masked_means(sums: torch.Tensor):
+    """(semantic_loss, offset_loss) from :func:`point_wise_loss_sums`: each
+    sum over its count, zero (with a zero gradient) when the count is 0."""
+    semantic_loss = torch.where(
+        sums[1] > 0, sums[0] / torch.clamp(sums[1], min=1.0), 0.0)
     offset_loss = torch.where(
-        n_off > 0, (dist * moff).sum() / torch.clamp(n_off, min=1.0), 0.0)
+        sums[3] > 0, sums[2] / torch.clamp(sums[3], min=1.0), 0.0)
     return semantic_loss, offset_loss
+
+
+def point_wise_loss(semantic_prediction_logits: torch.Tensor,  # (N, 2)
+                    offset_predictions: torch.Tensor,          # (N, 3)
+                    masks_sem: torch.Tensor,                   # (N,) bool
+                    masks_off: torch.Tensor,                   # (N,) bool
+                    semantic_labels: torch.Tensor,             # (N,) int
+                    offset_labels: torch.Tensor,               # (N, 3)
+                    weights: Optional[torch.Tensor] = None):
+    return masked_means(point_wise_loss_sums(
+        semantic_prediction_logits, offset_predictions, masks_sem, masks_off,
+        semantic_labels, offset_labels, weights))
 
 
 def total_loss(semantic_loss, offset_loss):
