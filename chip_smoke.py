@@ -96,6 +96,16 @@ Phases (any failure exits nonzero; nothing is swallowed):
              with the plain versions on the CPU, must give the same
              partition (ARI >= 0.999) and tree count; the card run's counts,
              zeroed just before it, are the SIMT conv kernel's launches;
+5b. k=5:     the same small plot with a ``kernel_size: 5`` model (2 levels,
+             channels 32, float32, seed-0 weights), card against CPU as in
+             phase 5; the card run's counts, zeroed just before it, must
+             show the SIMT conv (K = 125 offsets) and no rulebook or
+             tensor-core launch, and each recorded conv shape is held to
+             the plain conv (rtol 1e-4); then one float32 training step of
+             that model on phase 8's crop, counts zeroed just before it: the
+             SIMT dW must launch, each of its shapes held to the plain dW
+             (1e-4 of max |dW|); the two ``kernel_size 5`` rows of the
+             ``kernels`` line (``problem``), timed per run and per step;
 6. train:    ``train_synthetic_checkpoint`` at full width (configs/_modular/
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
@@ -157,7 +167,23 @@ Phases (any failure exits nonzero; nothing is swallowed):
              instance labels and tree count equal, wall time of each;
 11. demo:    ``python -m treelearn_tpu_torch.tools.demo`` with its defaults
              on the card: exit 0, at least one tree, the labeled cloud and
-             the per-tree files written.
+             the per-tree files written;
+12. profile: ``tools/profile_model.py --bf16 --trace`` on the plot at full
+             width (channels 32, 7 levels), warm: voxelize / plans / full
+             forward in ms (CUDA events), voxels per level, forward MFU
+             (``analytic_model_flops`` with the exact rule nnz over the bf16
+             peak), each level's conv through kernel 2's routed plan, the
+             SIMT kernel and the plain gather conv (a kernel that disagrees
+             with the plain conv beyond phase 4's tolerance fails the
+             phase); then ``tools/profile_step.py --train --bf16 --trace``
+             (6 steps on ``BENCH_RECIPE`` crops, the first apart); for one
+             warm forward and one warm step the ``torch.profiler`` summary
+             (device ms by kernel family and by launching op, host ms per
+             named part, host waits on the card per part, device-idle share
+             of the window) and the span split without the profiler; counts
+             zeroed just before: the rulebook, both convs and the tensor-core
+             dW must launch; one ``profile:`` JSON line (the traces go to
+             ``--trace-dir``, default the run's temporary directory).
 
 The line before the card line's JSON trailer is ``{"kernels": [...]}``; the
 last line is the device record.  Exits nonzero without CUDA, and when run
@@ -1166,15 +1192,15 @@ def step_sample(tmp):
     return TreeDataset(d, inner_square_edge_length=10.0, training=True)[0]
 
 
-def one_step(make_step, batch, dev):
+def one_step(make_step, batch, dev, cfg=STEP_CFG):
     """One float32 step of ``make_step(model, optimizer, scheduler)`` from
-    the seed-0 weights; returns (loss, state_dict, gradients) on the host
-    and the step's launch counts."""
+    the seed-0 weights of ``TreeLearn(**cfg)``; returns (loss, state_dict,
+    gradients) on the host and the step's launch counts."""
     from treelearn_tpu_torch.model import TreeLearn
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.train.loop import build_optimizer
 
-    model = TreeLearn(**STEP_CFG).init(0).to(dev)
+    model = TreeLearn(**cfg).init(0).to(dev)
     opt, sch = build_optimizer(model.parameters(), {
         "type": "AdamW", "lr": STEP_LR, "weight_decay": 1e-3})
     step = make_step(model, opt, sch)
@@ -1308,6 +1334,208 @@ def small_plot_check(tmp):
         raise AssertionError(f"kernels not launched on the float32 path: "
                              f"{zero}")
     return launches
+
+
+K5_CFG = dict(channels=32, num_blocks=2, kernel_size=5)   # phase 5b's model
+
+
+def k5_conv_rows(rec, launches, lib_rows):
+    """Phase 5b's conv row: every recorded K = 125 conv shape of the card
+    run on the SIMT kernel against the plain conv (float32, rtol 1e-4),
+    timed per run (weighted by calls)."""
+    import torch
+
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv
+
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, by_ops=0,
+               shapes=0)
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv"):
+        a = rec.inputs[key]
+        feats, weight, rule = a["feats"], a["weight"], a["rule"]
+        if weight.shape[0] != 125 or feats.dtype != torch.float32:
+            raise AssertionError(f"phase 5b conv shape {key}")
+        got = subm_conv(feats, weight, rule)
+        want = plain_conv(feats, weight, rule)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max().clamp(min=1e-6))
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+            raise AssertionError(f"subm_conv K=125 {key}: max err "
+                                 f"{float((got - want).abs().max())}")
+        ms = cuda_ms(lambda: subm_conv(feats, weight, rule))
+        plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
+        b, by, flops, _, _ = conv_bound(feats, weight, rule)
+        calls = rec.calls[key]
+        log(f"  subm_conv K=125 float32 V={rule.shape[1]} "
+            f"{weight.shape[1]}->{weight.shape[2]}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, bound "
+            f"{b:.4f} ms ({by}), {calls} call(s)")
+        tot["err"] = max(tot["err"], float((got - want).abs().max()))
+        tot["by_ops"] += by == "operations"
+        tot["shapes"] += 1
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            tot[col] += val * calls
+    if not tot["shapes"]:
+        raise AssertionError("phase 5b recorded no conv")
+    by_ops, shapes = tot.pop("by_ops"), tot.pop("shapes")
+    lib_rows.append(dict(
+        name="subm_conv", route="cuda",
+        source="treelearn_tpu_torch/csrc/subm_conv.cu",
+        replaces="treelearn_tpu/ops/pallas_conv.py:355",
+        problem="kernel_size 5 (phase 5b)", launches=launches["subm_conv"],
+        max_abs_err=tot.pop("err"),
+        bound_by="operations" if by_ops * 2 >= shapes else "bytes",
+        library_ms=None, **tot))
+
+
+def k5_dw_rows(rec, launches, lib_rows):
+    """Phase 5b's dW row: every recorded K = 125 dW shape of the card's
+    training step on the SIMT kernel against the plain dW (float32, 1e-4 of
+    max |dW|), timed per step."""
+    import torch
+
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv_dw
+
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, shapes=0)
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
+        a = rec.inputs[key]
+        x, g, rule = a["x"], a["g"], a["rule"]
+        k, cin, cout = rule.shape[0], x.shape[1], g.shape[1]
+        if k != 125:
+            raise AssertionError(f"phase 5b dW shape {key}: K {k}")
+        got = subm_conv_dw(x, g, rule)
+        want = plain_dw(x, g, rule)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err > 1e-4 * float(want.abs().max().clamp(min=1e-12)):
+            raise AssertionError(f"subm_conv_dw K=125 {key}: err {err}")
+        ms = cuda_ms(lambda: subm_conv_dw(x, g, rule))
+        plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
+        flops = 2.0 * int((rule >= 0).sum()) * cin * cout
+        b, _ = bound(x.numel() * 4 + g.numel() * 4 + rule.numel() * 4
+                     + k * cin * cout * 4, flops)
+        calls = rec.calls[key]
+        log(f"  subm_conv_dw K=125 float32 V={x.shape[0]} {cin}x{cout}: "
+            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms, {calls} call(s) in the step")
+        tot["err"] = max(tot["err"], err)
+        tot["shapes"] += 1
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            tot[col] += val * calls
+    if not tot.pop("shapes"):
+        raise AssertionError("phase 5b recorded no dW")
+    lib_rows.append(dict(
+        name="subm_conv_dw", route="cuda",
+        source="treelearn_tpu_torch/csrc/subm_conv_dw.cu",
+        replaces="treelearn_tpu/ops/pallas_conv.py:438",
+        problem="kernel_size 5 (phase 5b)",
+        launches=launches["subm_conv_dw"], max_abs_err=tot.pop("err"),
+        bound_by="operations", library_ms=None, **tot))
+
+
+def kernel_size5_check(tmp, lib_rows):
+    """Phase 5b: a kernel_size 5 model (2 levels, channels 32, float32,
+    seed-0 weights) on the small plot, card against CPU as phase 5 holds
+    them; the card run's counts, zeroed just before it, must show the SIMT
+    conv with K = 125 and no tensor-core launch.  Then one training step
+    on the card, counts zeroed just before it: the SIMT dW must launch,
+    and each of its shapes is held to the plain dW."""
+    import torch
+
+    from treelearn_tpu_torch.data import collate_padded
+    from treelearn_tpu_torch.io.pointcloud import load_data
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+    from treelearn_tpu_torch.train.loop import make_train_step
+
+    t0 = time.time()
+    out, rec = {}, Recorder()
+    for dev in (CARD, "cpu"):
+        path, data, _ = write_plot(osp.join(tmp, f"k5_{dev}"), 3, n_trees=6,
+                                   extent=20, points_per_tree=800,
+                                   ground_points=4000)
+        config = pipeline_config(path, fp16=False, **{
+            k: v for k, v in K5_CFG.items() if k != "kernel_size"})
+        config.model.kernel_size = K5_CFG["kernel_size"]
+        _cuda.set_recorder(rec if dev == CARD else None)
+        _cuda.reset_launches()
+        res = run_treelearn_pipeline(config, device=dev)
+        if dev == CARD:
+            launches = dict(_cuda.LAUNCHES)
+        _cuda.set_recorder(None)
+        labels = load_data(res["output_path"])[:, 3]
+        if len(labels) != len(data):
+            raise AssertionError(f"k5 {dev}: {len(labels)} output rows")
+        out[dev] = (labels, res["n_trees"])
+    ari = adjusted_rand(out[CARD][0], out["cpu"][0])
+    log(f"kernel_size 5 small plot: n_trees cuda {out[CARD][1]} cpu "
+        f"{out['cpu'][1]}, ARI {ari:.6f}; launches on the card "
+        f"{json.dumps(launches)}")
+    if ari < 0.999 or out[CARD][1] != out["cpu"][1]:
+        raise AssertionError("kernel_size 5: card and CPU pipelines disagree")
+    if (launches["subm_conv"] == 0 or launches["subm_conv_wgmma"]
+            or launches["rulebook"]):
+        raise AssertionError(f"kernel_size 5 launches {launches}")
+    k5_conv_rows(rec, launches, lib_rows)
+    rec = GradRecorder()
+    _cuda.set_recorder(rec)
+    (loss, _, _), step_launches = one_step(
+        lambda m, o, s: make_train_step(
+            m, o, s, batch_size=1, compute_dtype=torch.float32,
+            grad_norm_clip=True, device=CARD),
+        collate_padded([step_sample(tmp)]), CARD,
+        dict(STEP_CFG, **K5_CFG))
+    _cuda.set_recorder(None)
+    log(f"  kernel_size 5 training step on the card: loss {loss:.5f}, "
+        f"launches {json.dumps(step_launches)}")
+    if (step_launches["subm_conv_dw"] == 0 or step_launches[
+            "subm_conv_dw_wgmma"] or not torch.isfinite(torch.tensor(loss))):
+        raise AssertionError(f"kernel_size 5 step launches {step_launches}")
+    k5_dw_rows(rec, step_launches, lib_rows)
+    log(f"  phase 5b: {time.time() - t0:.1f} s")
+
+
+def profile_phase(trace_dir):
+    """Phase 12: ``tools/profile_model.py`` on the plot at full width, bf16,
+    with the trace of one warm forward, and ``tools/profile_step.py
+    --train`` with the trace of one warm training step; counts zeroed just
+    before.  A kernel conv row that disagrees with the plain conv fails the
+    phase inside the tool.  Returns the numbers PERF.md's host table
+    reads."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.tools import profile_model, profile_step
+
+    t0 = time.time()
+    _cuda.reset_launches()
+    model = profile_model.main(["--bf16", "--trace", trace_dir])
+    step = profile_step.main(["--train", "--bf16", "--trace", trace_dir])
+    launches = dict(_cuda.LAUNCHES)
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv",
+                        "subm_conv_dw_wgmma") if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"phase 12: kernels not launched: {zero}")
+
+    def parts(tr):
+        keep = ("parts", "span_split", "syncs", "sync_total", "window_ms",
+                "device_busy_ms", "device_idle_share", "device_events")
+        return dict({k: tr[k] for k in keep}, ops=tr["ops"][:8])
+
+    summary = {
+        "card": model["card"], "forward_ms": model["forward_ms"],
+        "mfu": model["mfu"], "voxelize_ms": model["voxelize_ms"],
+        "plans_ms": model["plans_ms"],
+        "levels": [{k: r[k] for k in ("level", "v", "c", "routed_ms",
+                                      "simt_ms", "plain_ms")}
+                   for r in model["levels"]],
+        "forward_trace": parts(model["trace"]),
+        "first_step_s": step["first_step_s"],
+        "median_step_s": step["median_step_s"],
+        "step_trace": parts(step["trace"])}
+    log(f"profile: {json.dumps(summary)}")
+    log(f"  launches {json.dumps(launches)}; phase 12: "
+        f"{time.time() - t0:.1f} s")
+    return summary
 
 
 def log_plot(what, res, wall, launches, forwards):
@@ -1889,6 +2117,9 @@ def main():
     ap.add_argument("--points-per-tree", type=int, default=16000)
     ap.add_argument("--ground-points", type=int, default=200000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-dir", default=None,
+                    help="where phase 12 writes its two chrome traces "
+                         "(default: the run's temporary directory)")
     args = ap.parse_args()
 
     import torch
@@ -2006,6 +2237,8 @@ def main():
 
         # 5. end-to-end agreement on a small plot; the float32 path's counts
         small_launches = small_plot_check(tmp)
+        # 5b. kernel size 5: the SIMT conv and dW with K = 125
+        kernel_size5_check(tmp, rows)
 
         # 6. training at full width; 7. its backward kernels
         info, train_launches, grad_rec = train_phase(tmp)
@@ -2017,6 +2250,8 @@ def main():
         # the SIMT kernels' paths are the float32 ones since the bf16 input
         # conv is padded onto the tensor cores
         for r in rows:
+            if "problem" in r:
+                continue
             if r["name"] == "subm_conv":
                 r["launches"] = small_launches["subm_conv"]
             elif r["name"] == "subm_conv_dw":
@@ -2036,6 +2271,9 @@ def main():
 
         # 11. the demo, as a user runs it
         demo_phase(tmp)
+
+        # 12. the profilers: stage split, MFU, conv rows, the two traces
+        profile_phase(args.trace_dir or osp.join(tmp, "trace"))
 
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

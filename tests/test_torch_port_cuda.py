@@ -699,3 +699,85 @@ def test_hdbscan_cluster_card_equals_cpu(cuda, monkeypatch):
     assert log["route"] == "ladder"
     assert np.array_equal(card, hdbscan_cluster(pts, 50, device="cpu"))
     assert knot_recovery(card, 9)[2]
+
+
+@pytest.mark.parametrize("k_size", [3, 5])
+@pytest.mark.parametrize("dtype,cin,cout", [
+    (torch.float32, 4, 32), (torch.float32, 32, 32), (torch.bfloat16, 32, 64),
+    (torch.bfloat16, 96, 96)])
+def test_simt_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
+    """The SIMT conv, its dx and the SIMT dW at K = 27 and K = 125 (kernel
+    size 5, the route every K != 27 takes in both dtypes) against their
+    plain versions: the conv f32 rtol 1e-4 / bf16 2e-2 of max |out|, dW
+    1e-4 / 1e-3 of max |dW|; two dW launches give the same bits."""
+    from treelearn_tpu_torch.model.network import level_rule
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv_dx,
+                                                   subm_conv_dw_simt,
+                                                   subm_conv_simt)
+
+    g_ = _grid(cuda, seed=4, n=3000)
+    rule = level_rule(g_, k_size)
+    k = rule.shape[0]
+    assert k == k_size ** 3
+    gen = torch.Generator(device="cpu").manual_seed(k + cin)
+    v = g_.n_active
+    x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
+    w = (torch.randn(k, cin, cout, generator=gen) * 0.1).to(cuda, dtype)
+    go = torch.randn(v, cout, generator=gen).to(cuda, dtype)
+    before = dict(_cuda.LAUNCHES)
+    out = subm_conv_simt(x, w, rule)
+    dx = subm_conv_dx(go, w, rule) if k != 27 else subm_conv_simt(
+        go, w, rule, mirror=True)
+    dw = subm_conv_dw_simt(x, go, rule)
+    again = subm_conv_dw_simt(x, go, rule)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"] + 2
+    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"] + 2
+    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"]
+    assert torch.equal(dw, again) and dw.shape == (k, cin, cout)
+    for got, want in ((out, plain(x, w, rule)),
+                      (dx, plain(go, mirrored(w), rule))):
+        got, want = got.float(), want.float()
+        scale = float(want.abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale)
+        else:
+            assert float((got - want).abs().max()) <= 2e-2 * scale
+    want = plain_dw(x, go, rule)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert float((dw - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_kernel_size_5_routes_and_counts(cuda):
+    """At K = 125 the routed wrappers take the SIMT kernels in bf16 too
+    (no tensor-core launch, no pad) and agree with the plain versions."""
+    from treelearn_tpu_torch.model.network import level_rule
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv, subm_conv_dw
+
+    g_ = _grid(cuda, seed=5, n=40000, ss=(64, 64, 48), batch=1)
+    rule = level_rule(g_, 5)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    v = g_.n_active
+    x = torch.randn(v, 4, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(125, 4, 32, generator=gen) * 0.1).to(cuda,
+                                                          torch.bfloat16)
+    go = torch.randn(v, 32, generator=gen).to(cuda, torch.bfloat16)
+    before = dict(_cuda.LAUNCHES)
+    out = subm_conv(x, w, rule).float()
+    dw = subm_conv_dw(x, go, rule)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"] + 1
+    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"] + 1
+    for name in ("subm_conv_wgmma", "subm_conv_dw_wgmma"):
+        assert _cuda.LAUNCHES[name] == before[name]
+    want = plain(x, w, rule).float()
+    assert float((out - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    want = plain_dw(x, go, rule)
+    assert float((dw - want).abs().max()) <= 1e-3 * float(want.abs().max())

@@ -120,7 +120,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'eval.evaluation', 'tools.train', 'ops.hdbscan',\n"
         "       'tools.evaluate', 'utils.smoke', 'tools.gen_train_data',\n"
         "       'tools.gen_val_data', 'tools.demo', 'utils.plot',\n"
-        "       'parallel.mesh', 'parallel.launch']\n"
+        "       'parallel.mesh', 'parallel.launch', 'utils.trace',\n"
+        "       'utils.profiling', 'tools.profile_model', 'tools.profile_step',\n"
+        "       'tools.profile_kernels', 'tools.microbench_conv',\n"
+        "       'tools.parse_trace']\n"
         "missing = [m for m in new if 'treelearn_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('treelearn_tpu_torch')]))\n")

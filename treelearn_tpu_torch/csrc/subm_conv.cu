@@ -10,7 +10,9 @@
 // windows of the sorted features and selects rows with one-hot MXU
 // products because the TPU gathers slowly; a GPU gathers rows directly, so
 // here a block owns a tile of 64 output voxels x 64 output channels and, for
-// each of the 27 offsets, gathers feats[rule[k, i]] rows of a 32-channel
+// each of the K offsets (27 for kernel_size 3, k^3 for any odd k: the
+// offset count is an argument, and shared memory holds one offset at a
+// time, so nothing here is sized by it), gathers feats[rule[k, i]] rows of a 32-channel
 // slice into shared memory next to the matching 32 x 64 slice of W[k], and
 // every thread accumulates a 4 x 4 block of outputs in float32 registers.
 // Offsets that no voxel of the tile uses are skipped (__syncthreads_or).
@@ -56,7 +58,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 subm_conv_kernel(const T* __restrict__ feats, const T* __restrict__ weight,
                  const int32_t* __restrict__ rule, T* __restrict__ out,
-                 int v_out, int n_live, int cin, int cout) {
+                 int v_out, int n_live, int cin, int cout, int n_offsets) {
   __shared__ float As[TK][TM + 1];  // gathered features, channel-major
   __shared__ float Bs[TK][TN];      // weight slice
   __shared__ int idx_s[TM];
@@ -73,7 +75,7 @@ subm_conv_kernel(const T* __restrict__ feats, const T* __restrict__ weight,
 #pragma unroll
     for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
 
-  for (int k = 0; k < 27; ++k) {
+  for (int k = 0; k < n_offsets; ++k) {
     int my = -1;
     if (tid < TM) {
       const int row = row0 + tid;
@@ -137,30 +139,33 @@ subm_conv_kernel(const T* __restrict__ feats, const T* __restrict__ weight,
 
 template <typename T>
 int launch(const void* feats, const void* weight, const void* rule, void* out,
-           int v_out, int n_live, int cin, int cout, void* stream) {
+           int v_out, int n_live, int cin, int cout, int n_offsets,
+           void* stream) {
   dim3 grid((v_out + TM - 1) / TM, (cout + TN - 1) / TN);
   subm_conv_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)feats, (const T*)weight, (const int32_t*)rule, (T*)out,
-      v_out, n_live, cin, cout);
+      v_out, n_live, cin, cout, n_offsets);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// feats (v_in, cin), weight (n_offsets, cin, cout) in one type, rule
+// (n_offsets, v_out) int32, out (v_out, cout)
 extern "C" int tl_subm_conv_f32(const void* feats, const void* weight,
                                 const void* rule, void* out, int v_in,
                                 int v_out, int n_live, int cin, int cout,
-                                void* stream) {
+                                int n_offsets, void* stream) {
   (void)v_in;
   return launch<float>(feats, weight, rule, out, v_out, n_live, cin, cout,
-                       stream);
+                       n_offsets, stream);
 }
 
 extern "C" int tl_subm_conv_bf16(const void* feats, const void* weight,
                                  const void* rule, void* out, int v_in,
                                  int v_out, int n_live, int cin, int cout,
-                                 void* stream) {
+                                 int n_offsets, void* stream) {
   (void)v_in;
   return launch<__nv_bfloat16>(feats, weight, rule, out, v_out, n_live, cin,
-                               cout, stream);
+                               cout, n_offsets, stream);
 }

@@ -11,7 +11,8 @@
 // blocks, and this kernel takes the deterministic two-pass form:
 //
 //   pass 1: the rows are cut into n_chunks equal chunks; block
-//           (tile, k, chunk) gathers, 32 rows at a time, x[rule[k, i]] (a
+//           (tile, k, chunk), k one of the K kernel offsets (27 for
+//           kernel_size 3, k^3 for any odd k; an argument), gathers, 32 rows at a time, x[rule[k, i]] (a
 //           64-channel slice of Cin) and g[i] (a 64-channel slice of Cout)
 //           into shared memory and every thread sums a 4 x 4 block of
 //           outer products in float32 registers; the block writes its
@@ -30,7 +31,7 @@
 // Bound on the card: operations (2 Cin Cout per rule entry against Cin +
 // Cout values moved per row).  The products run on the float32 SIMT units
 // (bf16 inputs are widened in shared memory), a block owns one (offset,
-// 64 x 64 channel tile, row chunk) and so reads g again for each of the 27
+// 64 x 64 channel tile, row chunk) and so reads g again for each of the K
 // offsets and x again for each Cout tile, and no copy is in flight during
 // the products: about 9 TFLOP/s on bf16 inputs.  The tensor-core route
 // exists for that reason; what stays here is small (Cin = 4) or float32.
@@ -56,8 +57,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   const int32_t* __restrict__ rule, float* __restrict__ partial,
-                  int v, int cin, int cout, int rows_per_chunk,
-                  int tiles_n) {
+                  int v, int cin, int cout, int n_offsets,
+                  int rows_per_chunk, int tiles_n) {
   __shared__ float Xs[TR][TC];
   __shared__ float Gs[TR][TN];
   __shared__ int idx_s[TR];
@@ -121,7 +122,7 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
     __syncthreads();
   }
 
-  float* out = partial + ((int64_t)chunk * 27 + k) * cin * cout;
+  float* out = partial + ((int64_t)chunk * n_offsets + k) * cin * cout;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     const int c = c0 + ty * 4 + p;
@@ -136,36 +137,39 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 template <typename T>
 int launch(const void* x, const void* g, const void* rule, void* partial,
-           void* dw, int v, int cin, int cout, int n_chunks, void* stream) {
+           void* dw, int v, int cin, int cout, int n_offsets, int n_chunks,
+           void* stream) {
   const int tiles_c = (cin + TC - 1) / TC;
   const int tiles_n = (cout + TN - 1) / TN;
   const int rows_per_chunk = (v + n_chunks - 1) / n_chunks;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(tiles_c * tiles_n, 27, n_chunks);
+  dim3 grid(tiles_c * tiles_n, n_offsets, n_chunks);
   dw_partial_kernel<T><<<grid, THREADS, 0, s>>>(
       (const T*)x, (const T*)g, (const int32_t*)rule, (float*)partial, v,
-      cin, cout, rows_per_chunk, tiles_n);
+      cin, cout, n_offsets, rows_per_chunk, tiles_n);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return launch_dw_reduce(partial, dw, n_chunks, (int64_t)27 * cin * cout, s);
+  return launch_dw_reduce(partial, dw, n_chunks,
+                          (int64_t)n_offsets * cin * cout, s);
 }
 
 }  // namespace
 
-// x (v, cin), g (v, cout) in one type, rule (27, v) int32, partial
-// (n_chunks, 27, cin, cout) float32 scratch, dw (27, cin, cout) float32.
+// x (v, cin), g (v, cout) in one type, rule (n_offsets, v) int32, partial
+// (n_chunks, n_offsets, cin, cout) float32 scratch, dw (n_offsets, cin,
+// cout) float32.
 extern "C" int tl_subm_conv_dw_f32(const void* x, const void* g,
                                    const void* rule, void* partial, void* dw,
-                                   int v, int cin, int cout, int n_chunks,
-                                   void* stream) {
-  return launch<float>(x, g, rule, partial, dw, v, cin, cout, n_chunks,
-                       stream);
+                                   int v, int cin, int cout, int n_offsets,
+                                   int n_chunks, void* stream) {
+  return launch<float>(x, g, rule, partial, dw, v, cin, cout, n_offsets,
+                       n_chunks, stream);
 }
 
 extern "C" int tl_subm_conv_dw_bf16(const void* x, const void* g,
                                     const void* rule, void* partial, void* dw,
-                                    int v, int cin, int cout, int n_chunks,
-                                    void* stream) {
+                                    int v, int cin, int cout, int n_offsets,
+                                    int n_chunks, void* stream) {
   return launch<__nv_bfloat16>(x, g, rule, partial, dw, v, cin, cout,
-                               n_chunks, stream);
+                               n_offsets, n_chunks, stream);
 }

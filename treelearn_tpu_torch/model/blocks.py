@@ -36,6 +36,7 @@ from torch import nn
 
 from ..ops.sparse import DownsampleRulebook, SparseGrid, down_conv, inverse_conv
 from ..ops.subm_conv import SubmConvFn
+from ..utils.trace import span
 
 BN_EPS = 1e-4       # reference tree_learn.py:34
 BN_MOMENTUM = 0.1   # reference tree_learn.py:34
@@ -161,7 +162,7 @@ class LevelPlan(NamedTuple):
     spconv ``indice_key`` cache made explicit)."""
 
     grid: SparseGrid
-    rule: torch.Tensor                   # (27, V) int32 subm rule
+    rule: torch.Tensor                   # (k^3, V) int32 subm rule
     down: Optional[DownsampleRulebook]   # None at the deepest level
 
 
@@ -285,18 +286,22 @@ class UBlock(nn.Module):
                 for i in range(block_reps)})
 
     def forward(self, x, plans, level: int = 0):
+        """The level's own work runs under the span ``unet.L<level>`` (two
+        spans of that name, around the recursion into the next level)."""
         plan = plans[level]
-        for blk in self.blocks.values():
-            x = blk(x, plan.rule)
-        if self.u is None:
-            return x
-        identity = x
-        y = torch.relu(self.conv["0"](x))
-        y = down_conv(y, self.conv["2"].weight, plan.down)
+        with span(f"unet.L{level}"):
+            for blk in self.blocks.values():
+                x = blk(x, plan.rule)
+            if self.u is None:
+                return x
+            identity = x
+            y = torch.relu(self.conv["0"](x))
+            y = down_conv(y, self.conv["2"].weight, plan.down)
         y = self.u(y, plans, level + 1)
-        y = torch.relu(self.deconv["0"](y))
-        y = inverse_conv(y, self.deconv["2"].weight, plan.down)
-        x = torch.cat([identity, y], dim=1)
-        for blk in self.blocks_tail.values():
-            x = blk(x, plan.rule)
+        with span(f"unet.L{level}"):
+            y = torch.relu(self.deconv["0"](y))
+            y = inverse_conv(y, self.deconv["2"].weight, plan.down)
+            x = torch.cat([identity, y], dim=1)
+            for blk in self.blocks_tail.values():
+                x = blk(x, plan.rule)
         return x

@@ -52,18 +52,19 @@ _SIGNATURES = {
     # keys, V, sx, sy, sz, rule, stream
     "tl_rulebook": [_P, _I, _I, _I, _I, _P, _P],
     "tl_rulebook_probes": [_P, _I, _I, _I, _I, _P, _P],
-    # feats, weight, rule, out, v_in, v_out, n_live, cin, cout, stream
-    "tl_subm_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tl_subm_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # feats, weight, rule, out, v_in, v_out, n_live, cin, cout, n_offsets,
+    # stream
+    "tl_subm_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tl_subm_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # w, wpack, cin, cout, bn, mirror, stream
     "tl_pack_weight": [_P, _P, _I, _I, _I, _I, _P],
     # feats, wpack, rule, out, v_out, n_live, cin, cout, bm, bn, stages,
     # producers, smem_bytes, stream
     "tl_subm_conv_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
-    # x, g, rule, partial, dw, v, cin, cout, n_chunks, stream
-    "tl_subm_conv_dw_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tl_subm_conv_dw_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, g, rule, partial, dw, v, cin, cout, n_offsets, n_chunks, stream
+    "tl_subm_conv_dw_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tl_subm_conv_dw_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # refs4, q, ranges, items, n_items, r2, moments, stream
     "tl_vert_moments": [_P, _P, _P, _P, _I, _F, _P, _P],
     # refs, q, q_cell, cell_start, nq, ni, nj, r2, moments, stream

@@ -18,6 +18,10 @@ registers.  No windows, so nothing can overflow.
 * A bf16 conv with fewer than 32 input channels (the 4 -> 32 input conv)
   is zero-padded to 32 and takes the bf16 route, as is its weight gradient,
   wherever that is faster with the pad counted (:func:`tensor_core_pad`).
+* A conv of another kernel size than 3 (K = k^3 offsets, any odd k, as the
+  JAX package's rulebook conv takes) goes to the SIMT kernel in both
+  dtypes, as does its weight gradient: the tensor-core sources are built
+  for ``N_OFFSETS`` = 27 (their ring and rule tiles are sized by it).
 
 Kernel 3 replaces ``rule_conv_dw_banded`` (``_dw_kernel``,
 pallas_conv.py:438,415): both routes sum per-chunk partial weight gradients
@@ -69,6 +73,8 @@ SMALL_V_TILES = 32    # fewer 64-row tiles than this: 32-channel blocks
 ONE_WAVE_BLOCKS = 132  # a grid up to one block per SM: 8 producer warps
 WIDE_ROWS_V = 65536   # from here on a 32-channel conv takes 128-row blocks
 PAD_MIN_V = 32768     # from here on a narrow bf16 input is padded to BK
+N_OFFSETS = 27        # offsets of a kernel_size 3 conv: the only count the
+                      # tensor-core kernels take
 
 
 class ConvPlan(NamedTuple):
@@ -92,11 +98,13 @@ def plan_smem_bytes(bm: int, bn: int, stages: int) -> int:
 
 
 def conv_plan(cin: int, cout: int, v: int,
-              dtype: torch.dtype = torch.bfloat16) -> ConvPlan:
+              dtype: torch.dtype = torch.bfloat16,
+              n_offsets: int = N_OFFSETS) -> ConvPlan:
     """Static routing and tiling of kernel 2, from the shape alone.
 
-    bf16 with ``cin`` and ``cout`` multiples of 32 -> the wgmma kernel;
-    float32, the 4 -> 32 input conv and other odd widths -> the SIMT kernel.
+    bf16 with ``cin`` and ``cout`` multiples of 32 and 27 offsets -> the
+    wgmma kernel; float32, the 4 -> 32 input conv, other odd widths and
+    kernel sizes other than 3 (``n_offsets`` != 27) -> the SIMT kernel.
 
     The wgmma kernel gives a block 64 output voxels (one consumer warpgroup
     beside the producer warpgroup) and the whole Cout, or the largest even
@@ -110,8 +118,8 @@ def conv_plan(cin: int, cout: int, v: int,
     length is one block's K loop, gives each block 8 producer warps instead
     of 4 (larger grids lose more by the lower occupancy than they gain).
     """
-    if (dtype != torch.bfloat16 or cin == 0 or cout == 0 or cin % BK
-            or cout % 32):
+    if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS or cin == 0
+            or cout == 0 or cin % BK or cout % 32):
         return ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
     n = 1
     while cout % n or (cout // n) % 32 or cout // n > MAX_BN:
@@ -128,7 +136,8 @@ def conv_plan(cin: int, cout: int, v: int,
                     plan_smem_bytes(bm, bn, stages))
 
 
-def tensor_core_pad(cin: int, cout: int, v: int, dtype: torch.dtype) -> int:
+def tensor_core_pad(cin: int, cout: int, v: int, dtype: torch.dtype,
+                    n_offsets: int = N_OFFSETS) -> int:
     """Zero input channels to append so that a bf16 conv narrower than one K
     step (the 4 -> 32 input conv), or its weight gradient, takes the
     tensor-core route: ``32 - cin``, or 0 where the shape stays on the SIMT
@@ -136,9 +145,10 @@ def tensor_core_pad(cin: int, cout: int, v: int, dtype: torch.dtype) -> int:
     conv's by the order of its float32 sums only.  Below ``PAD_MIN_V`` rows
     both routes cost a launch and the pad is two more: measured on the H100
     by chip_smoke.py (a clear gain from 65,536 rows up, a draw at 16,384, a
-    loss below; see PERF.md)."""
-    if (dtype != torch.bfloat16 or not 0 < cin < BK or cout == 0 or cout % 32
-            or v < PAD_MIN_V):
+    loss below; see PERF.md).  Other kernel sizes than 3 stay on the SIMT
+    kernels unpadded."""
+    if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS
+            or not 0 < cin < BK or cout == 0 or cout % 32 or v < PAD_MIN_V):
         return 0
     return BK - cin
 
@@ -209,7 +219,7 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
     k, cin, cout = w.shape
     if mirror:
         cin, cout = cout, cin
-    if k != 27 or rule.shape[0] != 27 or cin != feats.shape[1]:
+    if rule.shape[0] != k or cin != feats.shape[1]:
         raise ValueError(f"subm_conv: shapes feats {tuple(feats.shape)}, "
                          f"weight {tuple(w.shape)}, rule {tuple(rule.shape)}")
     v_in, v_out = feats.shape[0], rule.shape[1]
@@ -219,12 +229,12 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
         return out
     if not (force_simt or mirror):
         _cuda.record("subm_conv", feats=feats, weight=w, rule=rule)
-        pad = tensor_core_pad(cin, cout, v_out, feats.dtype)
+        pad = tensor_core_pad(cin, cout, v_out, feats.dtype, k)
         if pad:
             feats = F.pad(feats, (0, pad))
             w = F.pad(w, (0, 0, 0, pad))
             cin += pad
-    plan = conv_plan(cin, cout, v_out, feats.dtype)
+    plan = conv_plan(cin, cout, v_out, feats.dtype, k)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(feats)
     if plan.route == "simt" or force_simt:
@@ -233,7 +243,7 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
         fn = (lib.tl_subm_conv_f32 if feats.dtype == torch.float32
               else lib.tl_subm_conv_bf16)
         code = fn(feats.data_ptr(), w.data_ptr(), rule.data_ptr(),
-                  out.data_ptr(), v_in, v_out, n_live, cin, cout, stream)
+                  out.data_ptr(), v_in, v_out, n_live, cin, cout, k, stream)
         _cuda.check(code, "tl_subm_conv")
         _cuda.LAUNCHES["subm_conv"] += 1
         return out
@@ -249,9 +259,10 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
 
 def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
               n_live=None) -> torch.Tensor:
-    """feats (V_in, Cin), weight (27, Cin, Cout), rule (27, V_out) int32 ->
+    """feats (V_in, Cin), weight (K, Cin, Cout), rule (K, V_out) int32 ->
     (V_out, Cout) in feats' dtype, float32 accumulation; rows at or past
-    ``n_live`` (default V_out) are zero.
+    ``n_live`` (default V_out) are zero.  K = k^3 for kernel size k: 27 on
+    every shipped config.
 
     Routing, by device and shape only (:func:`conv_plan`):
 
@@ -260,8 +271,8 @@ def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
       (counted as ``subm_conv_wgmma``); so is the 4 -> 32 input conv over
       ``PAD_MIN_V`` voxels or more, zero-padded to 32 input channels
       (:func:`tensor_core_pad`);
-    * CUDA, float32, or any other width -> csrc/subm_conv.cu (counted as
-      ``subm_conv``).
+    * CUDA, float32, any other width, or K != 27 -> csrc/subm_conv.cu
+      (counted as ``subm_conv``).
 
     A kernel that fails to build or launch raises; no route gives way to
     another.
@@ -274,7 +285,7 @@ def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
 def subm_conv_dx(grad: torch.Tensor, weight: torch.Tensor,
                  rule: torch.Tensor) -> torch.Tensor:
     """Input gradient of :func:`subm_conv`: grad (V, Cout) and the forward
-    weight (27, Cin, Cout) -> (V, Cin), the conv of ``grad`` with
+    weight (K, Cin, Cout) -> (V, Cin), the conv of ``grad`` with
     :func:`mirrored` ``(weight)`` over the same rule, routed as
     :func:`subm_conv` routes a conv of that shape.  On the tensor-core route
     the mirrored tiles are packed straight from ``weight``."""
@@ -323,17 +334,18 @@ def dw_smem_bytes(bn: int, producers: int, stages: int) -> int:
     return 1024 + stages * (2 + bn // 32) * (producers // 4) * 64 + 128 + 256
 
 
-def dw_chunks(v: int, cin: int, cout: int) -> int:
+def dw_chunks(v: int, cin: int, cout: int, n_offsets: int = N_OFFSETS) -> int:
     """Row chunks of the SIMT dW kernel: enough blocks to fill the card, at
     least 256 rows a chunk, partials under ``DW_PARTIAL_BYTES``."""
     tiles = -(-cin // 64) * -(-cout // 64)
-    want = -(-DW_TARGET_BLOCKS // (27 * tiles))
-    by_mem = max(1, DW_PARTIAL_BYTES // (27 * cin * cout * 4))
+    want = -(-DW_TARGET_BLOCKS // (n_offsets * tiles))
+    by_mem = max(1, DW_PARTIAL_BYTES // (n_offsets * cin * cout * 4))
     return max(1, min(want, -(-v // 256), by_mem))
 
 
-def _dw_plan_simt(cin: int, cout: int, v: int) -> DwPlan:
-    n = dw_chunks(v, cin, cout)
+def _dw_plan_simt(cin: int, cout: int, v: int,
+                  n_offsets: int = N_OFFSETS) -> DwPlan:
+    n = dw_chunks(v, cin, cout, n_offsets)
     return DwPlan("simt", 64, -(-cout // 64), 0, 1, n, -(-max(v, 1) // n), 0)
 
 
@@ -374,15 +386,17 @@ def dw_plan_wgmma(cin: int, cout: int, v: int,
 
 @functools.lru_cache(maxsize=None)
 def dw_plan(cin: int, cout: int, v: int,
-            dtype: torch.dtype = torch.bfloat16) -> DwPlan:
+            dtype: torch.dtype = torch.bfloat16,
+            n_offsets: int = N_OFFSETS) -> DwPlan:
     """Static routing and tiling of kernel 3, from the shape alone.
 
-    bf16 with ``cin`` and ``cout`` multiples of 32 -> the wgmma kernel
-    (csrc/subm_conv_dw_wgmma.cu); float32, the 4 -> 32 input conv and other
-    odd widths -> the SIMT kernel (csrc/subm_conv_dw.cu)."""
-    if (dtype != torch.bfloat16 or cin == 0 or cout == 0 or cin % 32
-            or cout % 32):
-        return _dw_plan_simt(cin, cout, v)
+    bf16 with ``cin`` and ``cout`` multiples of 32 and 27 offsets -> the
+    wgmma kernel (csrc/subm_conv_dw_wgmma.cu); float32, the 4 -> 32 input
+    conv, other odd widths and kernel sizes other than 3 -> the SIMT kernel
+    (csrc/subm_conv_dw.cu)."""
+    if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS or cin == 0
+            or cout == 0 or cin % 32 or cout % 32):
+        return _dw_plan_simt(cin, cout, v, n_offsets)
     return dw_plan_wgmma(cin, cout, v)
 
 
@@ -393,43 +407,45 @@ def _dw_cuda(x, g, rule, force_simt=False):
     _cuda.require(rule, "subm_conv_dw rule", torch.int32, 2)
     v, cin = x.shape
     cout = g.shape[1]
-    if rule.shape != (27, v) or g.shape[0] != v:
+    k = rule.shape[0]
+    if rule.shape != (k, v) or g.shape[0] != v:
         raise ValueError(f"subm_conv_dw: shapes x {tuple(x.shape)}, "
                          f"g {tuple(g.shape)}, rule {tuple(rule.shape)}")
     if v == 0:
-        return torch.zeros((27, cin, cout), dtype=torch.float32,
+        return torch.zeros((k, cin, cout), dtype=torch.float32,
                            device=x.device)
     if not force_simt:
         _cuda.record("subm_conv_dw", x=x, g=g, rule=rule)
-        pad = tensor_core_pad(cin, cout, v, x.dtype)
+        pad = tensor_core_pad(cin, cout, v, x.dtype, k)
         if pad:    # dW of the padded conv; its first cin rows are the answer
             return _dw_launch(F.pad(x, (0, pad)), g, rule, dw_plan(
                 cin + pad, cout, v, x.dtype))[:, :cin].contiguous()
-    return _dw_launch(x, g, rule, _dw_plan_simt(cin, cout, v) if force_simt
-                      else dw_plan(cin, cout, v, x.dtype))
+    return _dw_launch(x, g, rule, _dw_plan_simt(cin, cout, v, k) if force_simt
+                      else dw_plan(cin, cout, v, x.dtype, k))
 
 
 def _dw_launch(x, g, rule, plan):
     """Launch kernel 3 on checked inputs under ``plan``."""
     v, cin = x.shape
     cout = g.shape[1]
-    dw = torch.empty((27, cin, cout), dtype=torch.float32, device=x.device)
+    k = rule.shape[0]
+    dw = torch.empty((k, cin, cout), dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(x)
     if plan.route == "simt":
-        partial = torch.empty((plan.n_chunks, 27, cin, cout),
+        partial = torch.empty((plan.n_chunks, k, cin, cout),
                               dtype=torch.float32, device=x.device)
         fn = (lib.tl_subm_conv_dw_f32 if x.dtype == torch.float32
               else lib.tl_subm_conv_dw_bf16)
         code = fn(x.data_ptr(), g.data_ptr(), rule.data_ptr(),
-                  partial.data_ptr(), dw.data_ptr(), v, cin, cout,
+                  partial.data_ptr(), dw.data_ptr(), v, cin, cout, k,
                   plan.n_chunks, stream)
         _cuda.check(code, "tl_subm_conv_dw")
         _cuda.LAUNCHES["subm_conv_dw"] += 1
         return dw
     # one chunk writes dW itself: no partials
     partial = dw if plan.n_chunks == 1 else torch.empty(
-        (plan.n_chunks, 27, cin, cout), dtype=torch.float32, device=x.device)
+        (plan.n_chunks, k, cin, cout), dtype=torch.float32, device=x.device)
     code = lib.tl_subm_conv_dw_wgmma(
         x.data_ptr(), g.data_ptr(), rule.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), v, cin, cout, plan.bn, plan.producers, plan.stages,
@@ -441,8 +457,8 @@ def _dw_launch(x, g, rule, plan):
 
 def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
                  rule: torch.Tensor) -> torch.Tensor:
-    """x (V, Cin), g (V, Cout) in one working type, rule (27, V) int32 ->
-    (27, Cin, Cout) float32 weight gradient.
+    """x (V, Cin), g (V, Cout) in one working type, rule (K, V) int32 ->
+    (K, Cin, Cout) float32 weight gradient (K = 27 at kernel size 3).
 
     Routing, by device, dtype and shape only (:func:`dw_plan`):
 
@@ -452,8 +468,8 @@ def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
       the 4 -> 32 input conv's over ``PAD_MIN_V`` rows or more, x zero-padded
       to 32 channels and dW cut back to its 4 rows
       (:func:`tensor_core_pad`);
-    * CUDA, float32, or any other width -> csrc/subm_conv_dw.cu (counted as
-      ``subm_conv_dw``).
+    * CUDA, float32, any other width, or K != 27 -> csrc/subm_conv_dw.cu
+      (counted as ``subm_conv_dw``).
 
     A kernel that fails to build or launch raises; no route gives way to
     another."""
@@ -474,8 +490,8 @@ def dw_chunked_plain(x: torch.Tensor, g: torch.Tensor, rule: torch.Tensor,
                      plan: DwPlan) -> torch.Tensor:
     """The two-pass sum of the dW kernels in PyTorch: the plain weight
     gradient of each row chunk of ``plan``, the chunks added in order."""
-    dw = torch.zeros((27, x.shape[1], g.shape[1]), dtype=torch.float32,
-                     device=x.device)
+    dw = torch.zeros((rule.shape[0], x.shape[1], g.shape[1]),
+                     dtype=torch.float32, device=x.device)
     for c in range(plan.n_chunks):
         lo = c * plan.rows_per_chunk
         hi = min(x.shape[0], lo + plan.rows_per_chunk)
@@ -485,8 +501,9 @@ def dw_chunked_plain(x: torch.Tensor, g: torch.Tensor, rule: torch.Tensor,
 
 
 def mirrored(weight: torch.Tensor) -> torch.Tensor:
-    """(27, Cin, Cout) -> (27, Cout, Cin): the weights whose conv over the
-    same submanifold rule is the transpose of ``weight``'s."""
+    """(K, Cin, Cout) -> (K, Cout, Cin): the weights whose conv over the
+    same submanifold rule is the transpose of ``weight``'s (``flip(0)``
+    mirrors the offsets of any odd kernel size)."""
     return weight.flip(0).transpose(1, 2).contiguous()
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.trace import span
 
 
 _HOST_KEYS = ("semantic_labels", "offset_labels", "instance_labels",
@@ -35,40 +36,47 @@ def forward_harvest(model, batch, dev, compute_dtype=torch.float32,
                     need_backbone: bool = True) -> dict:
     """Forward one loader batch on ``dev`` in eval mode and harvest its
     inner-mask points as host arrays (the outputs rounded through float16
-    on the device), with the batch's per-level voxel and rule counts."""
+    on the device), with the batch's per-level voxel and rule counts.  Its
+    parts run under the spans harvest.h2d, harvest.forward, harvest.d2h
+    and harvest.host (utils/trace.py)."""
     # drop the collate padding: eager shapes need no buckets
     n = int(batch.get("n_points", len(batch["coords"])))
     to = lambda k: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(batch[k][:n])).to(dev)
     with torch.no_grad():
-        output = model(to("coords"), to("input_feats"), to("batch_ids"),
-                       to("valid"), batch_size=int(batch["batch_size"]),
-                       compute_dtype=compute_dtype)
-        keep = np.asarray(batch["masks_inner"][:n]) & np.asarray(
-            batch["valid"][:n])
-        sel = np.flatnonzero(keep)
-        sel_t = torch.from_numpy(sel).to(dev)
-        preds = [output["semantic_prediction_logits"][sel_t],
-                 output["offset_predictions"][sel_t]]
-        if need_backbone:
-            preds.append(output["backbone_feats"][sel_t])
-        packed = torch.cat(preds, dim=1).to(torch.float16).float().cpu()
-    packed = packed.numpy()
-    out = {
-        "semantic_prediction_logits": packed[:, :2],
-        "offset_predictions": packed[:, 2:5],
-        "backbone_feats": (packed[:, 5:] if need_backbone
-                           else np.zeros((len(sel), 0), np.float32)),
-        "coords": (np.asarray(batch["coords"])[sel]
-                   + np.asarray(batch["centers"])[sel]),
-        "n_points": n,
-        "n_vox_levels": np.asarray(output["n_voxels_per_level"]),
-        "rule_nnz": np.asarray(output["rule_nnz_per_level"]),
-    }
-    for k in _HOST_KEYS:
-        out[k] = np.asarray(batch[k])[sel]
-    if "point_ids" in batch:
-        out["point_ids"] = np.asarray(batch["point_ids"])[sel]
+        with span("harvest.h2d"):
+            inputs = [to(k) for k in ("coords", "input_feats", "batch_ids",
+                                      "valid")]
+        with span("harvest.forward"):
+            output = model(*inputs, batch_size=int(batch["batch_size"]),
+                           compute_dtype=compute_dtype)
+        with span("harvest.d2h"):
+            keep = np.asarray(batch["masks_inner"][:n]) & np.asarray(
+                batch["valid"][:n])
+            sel = np.flatnonzero(keep)
+            sel_t = torch.from_numpy(sel).to(dev)
+            preds = [output["semantic_prediction_logits"][sel_t],
+                     output["offset_predictions"][sel_t]]
+            if need_backbone:
+                preds.append(output["backbone_feats"][sel_t])
+            packed = torch.cat(preds, dim=1).to(torch.float16).float().cpu()
+    with span("harvest.host"):
+        packed = packed.numpy()
+        out = {
+            "semantic_prediction_logits": packed[:, :2],
+            "offset_predictions": packed[:, 2:5],
+            "backbone_feats": (packed[:, 5:] if need_backbone
+                               else np.zeros((len(sel), 0), np.float32)),
+            "coords": (np.asarray(batch["coords"])[sel]
+                       + np.asarray(batch["centers"])[sel]),
+            "n_points": n,
+            "n_vox_levels": np.asarray(output["n_voxels_per_level"]),
+            "rule_nnz": np.asarray(output["rule_nnz_per_level"]),
+        }
+        for k in _HOST_KEYS:
+            out[k] = np.asarray(batch[k])[sel]
+        if "point_ids" in batch:
+            out["point_ids"] = np.asarray(batch["point_ids"])[sel]
     return out
 
 

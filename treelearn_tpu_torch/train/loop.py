@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .losses import point_wise_loss, total_loss
 
 _BATCH_TENSORS = ("coords", "input_feats", "batch_ids", "valid", "masks_sem",
@@ -112,7 +113,9 @@ def make_train_step(model, optimizer, scheduler=None, *, batch_size: int,
     """One optimization step over a padded flat batch (the loader's numpy
     dict): forward in training mode, loss, backward, clip, AdamW update,
     schedule step.  Returns ``(loss, loss_dict)`` as detached tensors.
-    ``grad_norm_clip=True`` means 1.0, as the reference's config does."""
+    ``grad_norm_clip=True`` means 1.0, as the reference's config does.  Its
+    parts run under the spans step.h2d, step.forward, step.loss,
+    step.backward, step.clip and step.optimizer (utils/trace.py)."""
     device = next(model.parameters()).device if device is None else device
     clip = (1.0 if grad_norm_clip is True
             else float(grad_norm_clip) if grad_norm_clip else None)
@@ -120,18 +123,24 @@ def make_train_step(model, optimizer, scheduler=None, *, batch_size: int,
 
     def train_step(batch):
         model.train()
-        b = batch_to_device(batch, device)
-        output = model(b["coords"], b["input_feats"], b["batch_ids"],
-                       b["valid"], batch_size=batch_size,
-                       compute_dtype=compute_dtype)
-        loss, loss_dict = loss_from_output(output, b)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if clip is not None:
-            clip_by_global_norm_(params, clip)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with span("step.h2d"):
+            b = batch_to_device(batch, device)
+        with span("step.forward"):
+            output = model(b["coords"], b["input_feats"], b["batch_ids"],
+                           b["valid"], batch_size=batch_size,
+                           compute_dtype=compute_dtype)
+        with span("step.loss"):
+            loss, loss_dict = loss_from_output(output, b)
+        with span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("step.clip"):
+            if clip is not None:
+                clip_by_global_norm_(params, clip)
+        with span("step.optimizer"):
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
         return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}
 
     return train_step
