@@ -183,7 +183,19 @@ Phases (any failure exits nonzero; nothing is swallowed):
              of the window) and the span split without the profiler; counts
              zeroed just before: the rulebook, both convs and the tensor-core
              dW must launch; one ``profile:`` JSON line (the traces go to
-             ``--trace-dir``, default the run's temporary directory).
+             ``--trace-dir``, default the run's temporary directory);
+13. bench:   ``python -m treelearn_tpu_torch.tools.bench`` as a subprocess
+             on the card at a reduced budget (``BENCH_TRAIN_STEPS=200
+             BENCH_TRAIN_CROPS=8 BENCH_STEADY_PASSES=1 TL_GPU_SMOKE=0
+             BENCH_BUDGET_S=300``; phase 3f runs the smoke), its own HOME and
+             work directory under the run's temporary directory: exit 0, a
+             last line that parses, ``device`` the card's name,
+             ``detection_f1``, ``hard_detection_f1``,
+             ``hdbscan_detection_f1`` and ``model_mfu`` (in (0, 1]) present,
+             no ``exception_*``, ``watchdog_*`` or ``interrupted_*`` in
+             ``degraded``, and its stderr showing the rulebook, the
+             tensor-core conv and verticality launched in its cold pass; the
+             bench's line is printed as ``bench:``.
 
 The line before the card line's JSON trailer is ``{"kernels": [...]}``; the
 last line is the device record.  Exits nonzero without CUDA, and when run
@@ -281,6 +293,7 @@ def run_plot(path, **cfg):
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.cluster import KNN_LOG
     from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+    from treelearn_tpu_torch.utils.profiling import ForwardTimer
 
     config = pipeline_config(path, **cfg)
     forwards = ForwardTimer()
@@ -331,43 +344,6 @@ class Recorder:
         if key not in self.inputs:
             self.inputs[key] = {k: (v.clone() if hasattr(v, "clone") else v)
                                 for k, v in args.items()}
-
-
-class ForwardTimer:
-    """CUDA events and the host clock around every TreeLearn forward, through
-    global module hooks: measurement only, nothing in the path changes."""
-
-    def __init__(self):
-        import torch
-        from torch.nn.modules import module as nn_module
-
-        from treelearn_tpu_torch.model import TreeLearn
-
-        self.events, self.host_s, self._t0 = [], [], 0.0
-
-        def before(mod, args):
-            if isinstance(mod, TreeLearn):
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-                self.events.append([start, None])
-                self._t0 = time.time()
-
-        def after(mod, args, output):
-            if isinstance(mod, TreeLearn):
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                self.events[-1][1] = end
-                self.host_s.append(time.time() - self._t0)
-
-        self._handles = [nn_module.register_module_forward_pre_hook(before),
-                         nn_module.register_module_forward_hook(after)]
-
-    def remove(self):
-        for h in self._handles:
-            h.remove()
-
-    def device_ms(self):
-        return [a.elapsed_time(b) for a, b in self.events]
 
 
 def check_rulebook(rec, lib_rows):
@@ -2110,6 +2086,56 @@ def demo_phase(tmp):
                              f"{len(per_tree)} per-tree files")
 
 
+def bench_phase(tmp):
+    """Phase 13: the bench as a user runs it, on the card, at a reduced
+    budget; returns its JSON line."""
+    import torch
+
+    home, work = osp.join(tmp, "bench_home"), osp.join(tmp, "bench")
+    os.makedirs(home)
+    os.makedirs(work)
+    env = dict(os.environ, HOME=home, BENCH_TRAIN_STEPS="200",
+               BENCH_TRAIN_CROPS="8", BENCH_STEADY_PASSES="1",
+               TL_GPU_SMOKE="0", BENCH_BUDGET_S="300",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "treelearn_tpu_torch.tools.bench"], cwd=work,
+        env=env, capture_output=True, text=True, timeout=480)
+    wall = time.time() - t0
+    if out.returncode != 0 or not out.stdout.strip():
+        raise AssertionError(f"bench exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"bench: {json.dumps(line)}")
+    cold = [x for x in out.stderr.splitlines() if "cold pass: launches" in x]
+    launches = (json.loads(cold[0].split("launches ", 1)[1].split("}")[0]
+                           + "}") if cold else {})
+    bad = [d for d in line.get("degraded", [])
+           if d.startswith(("exception_", "watchdog_", "interrupted_"))]
+    missing = [k for k in ("detection_f1", "hard_detection_f1",
+                           "hdbscan_detection_f1", "model_mfu")
+               if line.get(k) is None]
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "vert")
+            if not launches.get(k)]
+    log(f"  bench exit 0 in {wall:.1f} s with process start; cold pass "
+        f"launches {json.dumps(launches)}; trained steps "
+        f"{line.get('trained_steps')}; F1 easy / hard / hdbscan "
+        f"{line.get('detection_f1')} / {line.get('hard_detection_f1')} / "
+        f"{line.get('hdbscan_detection_f1')}; model_mfu "
+        f"{line.get('model_mfu')}; degraded {line.get('degraded')}")
+    if (bad or missing or zero
+            or line.get("device") != torch.cuda.get_device_name(0)
+            or not 0 < (line.get("model_mfu") or 0) <= 1):
+        raise AssertionError(f"bench: degraded {bad}, missing {missing}, "
+                             f"cold pass kernels not launched {zero}, device "
+                             f"{line.get('device')}, model_mfu "
+                             f"{line.get('model_mfu')}\n"
+                             f"{out.stderr[-3000:]}")
+    return line
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-trees", type=int, default=48)
@@ -2274,6 +2300,9 @@ def main():
 
         # 12. the profilers: stage split, MFU, conv rows, the two traces
         profile_phase(args.trace_dir or osp.join(tmp, "trace"))
+
+        # 13. the bench, as a user runs it, at a reduced budget
+        bench_phase(tmp)
 
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

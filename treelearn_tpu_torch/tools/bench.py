@@ -1,0 +1,560 @@
+"""End-to-end segmentation benchmark of the port (counterpart of the
+repository's ``bench.py``, step for step):
+
+    python -m treelearn_tpu_torch.tools.bench [--device cpu]
+
+Runs the full pipeline (voxelize -> whole-plot or tile batches -> sparse
+U-Net inference -> ensemble -> cluster -> assign remaining -> propagate ->
+save) on a procedurally generated forest on the card and reports throughput
+in Mpts/sec over raw input points, with the detection quality of each pass
+against the forest's own labels.  ``--device cpu`` runs the plain PyTorch
+versions of the kernels (for the tests, at a small plot); without it the
+bench runs on ``cuda`` and raises when there is no card.
+
+Passes, in order: self-training (``BENCH_TRAIN``; ``BENCH_RECIPE`` with
+``BENCH_TRAIN_STEPS`` / ``BENCH_TRAIN_CROPS`` overrides, resumed from and
+cached in ``~/.cache/treelearn_bench_torch``), the cold pass and its
+detection score, ``BENCH_STEADY_PASSES`` steady passes (the fastest is
+kept; its model forwards are timed between CUDA events for the model-only
+rate and the forward MFU over the H100's dense bf16 peak), the hard forest
+(``BENCH_HARD``; detection and the 10-bin xy / z partition IoUs, best of
+2), the HDBSCAN grouping mode (``BENCH_HDBSCAN``), the kernel smoke
+(``TL_GPU_SMOKE``) and the forward's voxelize / plans / full split
+(``BENCH_DECOMPOSE``).  The plot is ``make_synthetic_forest`` with
+``BENCH_TREES`` (48), ``BENCH_PPT`` (16000), ``BENCH_GROUND`` (200000) and
+``BENCH_EXTENT`` (60 m), written with its labels under
+``bench_workdir_torch/`` in the current directory; ``BENCH_CAPACITY`` is
+kept in the config and ignored (eager shapes).  ``BENCH_PROFILE=DIR``
+writes a ``torch.profiler`` chrome trace of the steady passes.  Each pass
+logs its kernel launch counts (zeroed just before it) and its peak device
+memory to stderr.
+
+Output: ONE JSON line on stdout, emitted unconditionally.  A wall-clock
+budget (``BENCH_BUDGET_S``, default 1500 s) sheds the optional passes as it
+tightens and names each shed one in ``degraded``; SIGTERM, SIGINT and an
+alarm at budget + 60 s, and a thread at budget + 90 s, print the partial
+line and exit 0; a crash adds ``exception_<Name>`` and an ``error`` key.
+With ``BENCH_TRAIN=0`` the weights are seed-0 random ones and every F1 is
+a smoke value, not a quality.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import os.path as osp
+import shutil
+import signal
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+REPO = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
+BASELINE_MPTS_PER_SEC = 0.010
+BASELINE_SOURCE = ("colab-T4 estimate (plot_7_cut.laz ~12-15 min, "
+                   "TreeLearn_Pipeline.ipynb); reference never measured here "
+                   "- see BASELINE_MEASURED.json")
+WORK_DIR = "bench_workdir_torch"
+CACHE_DIR = osp.join("~", ".cache", "treelearn_bench_torch")
+RANDOM_WEIGHTS = " (random weights: a smoke value, not a quality)"
+
+T0 = time.time()
+BUDGET_S = 1500.0
+
+# Accumulated measurements and the shed-pass record.  emit_result() prints
+# the ONE JSON line from whatever these hold; it runs at normal completion,
+# from the signal handlers and from the watchdog thread.  First emit wins.
+RESULT: dict = {}
+DEGRADED: list = []
+_EMITTED = False
+
+
+def log(msg):
+    print(f"[bench +{time.time() - T0:7.1f}s] {msg}", file=sys.stderr,
+          flush=True)
+
+
+def start() -> None:
+    """Start a run: the clock, the budget (``BENCH_BUDGET_S``) and an empty
+    result."""
+    global T0, BUDGET_S, _EMITTED
+    T0 = time.time()
+    BUDGET_S = float(os.environ.get("BENCH_BUDGET_S", 1500))
+    RESULT.clear()
+    DEGRADED.clear()
+    _EMITTED = False
+
+
+def remaining() -> float:
+    return BUDGET_S - (time.time() - T0)
+
+
+def emit_result():
+    global _EMITTED
+    if _EMITTED:
+        return
+    _EMITTED = True
+    easy_pts = RESULT.get("n_points") or 0
+    easy_s = RESULT.get("seconds")
+    if easy_s is None and RESULT.get("cold_seconds"):
+        easy_s = RESULT["cold_seconds"]
+        DEGRADED.append("steady_state_unmeasured_using_cold")
+    hard_pts = RESULT.get("hard_n_points") or 0
+    hard_s = RESULT.get("hard_seconds") or 0.0
+    if easy_pts and easy_s:
+        value = (easy_pts + hard_pts) / (easy_s + hard_s) / 1e6
+        RESULT["easy_mpts_per_sec"] = round(easy_pts / easy_s / 1e6, 4)
+    else:
+        value = 0.0
+        DEGRADED.append("no_scored_pass_completed")
+    out = {
+        "metric": "synthetic forest end-to-end segmentation "
+                  "(steady state, easy+hard passes)",
+        "value": round(value, 4),
+        "unit": "Mpts/sec",
+        "vs_baseline": round(value / BASELINE_MPTS_PER_SEC, 2),
+        "baseline_source": BASELINE_SOURCE,
+        **RESULT,
+        "budget_s": BUDGET_S,
+        "elapsed_s": round(time.time() - T0, 1),
+        **({"degraded": DEGRADED} if DEGRADED else {}),
+    }
+    print(json.dumps(out))
+    sys.stdout.flush()
+
+
+def _emit_and_exit(signum, frame):
+    # formats the line and leaves: no tensor, no device call
+    log(f"signal {signum}: emitting partial result")
+    DEGRADED.append(f"interrupted_signal_{signum}")
+    emit_result()
+    os._exit(0)
+
+
+def install_watchdogs():
+    """SIGTERM, SIGINT and SIGALRM (at budget + 60 s) print the partial
+    line and exit 0; a thread does the same at budget + 90 s for a main
+    thread held inside one long native call, where handlers cannot run."""
+    signal.signal(signal.SIGTERM, _emit_and_exit)
+    signal.signal(signal.SIGINT, _emit_and_exit)
+    signal.signal(signal.SIGALRM, _emit_and_exit)
+    signal.alarm(int(BUDGET_S) + 60)
+
+    def _watch():
+        time.sleep(max(BUDGET_S + 90 - (time.time() - T0), 1))
+        if not _EMITTED:
+            log("watchdog thread: budget+90s exceeded, emitting")
+            DEGRADED.append("watchdog_thread_fired")
+            emit_result()
+            os._exit(0)
+
+    threading.Thread(target=_watch, daemon=True).start()
+
+
+def card_fields(dev) -> dict:
+    """``device`` (the card's name, or ``"cpu"``) and ``power_limit_w``
+    (watts, from ``nvidia-smi``; None off the card)."""
+    from ..utils.profiling import card_line
+
+    if dev.type != "cuda":
+        return {"device": "cpu", "power_limit_w": None}
+    line = card_line(dev)
+    watts = line.rsplit(",", 1)[-1].strip()
+    try:
+        power = float(watts.split()[0])
+    except (ValueError, IndexError):
+        power = None
+    return {"device": torch.cuda.get_device_name(0), "power_limit_w": power}
+
+
+def bench_config(forest_path: str, capacity: int):
+    """The pipeline config every pass runs: ``configs/pipeline/pipeline.yaml``
+    with the bench's settings (DBSCAN grouping, random weights until the
+    training pass sets ``pretrain``, the pointwise dump without backbone
+    features, no outer removal, batch 1)."""
+    from ..config import ConfigDict, get_config
+
+    config = get_config(osp.join(REPO, "configs", "pipeline",
+                                 "pipeline.yaml"))
+    config.forest_path = forest_path
+    config.pretrain = None
+    config.tile_generation = True
+    config.grouping.use_hdbscan = False
+    config.save_cfg = ConfigDict.from_dict({
+        "save_formats": ["las"], "save_treewise": False,
+        "save_pointwise": True, "return_type": "original",
+        "save_backbone_feats": False,
+        "results_dir": "results",
+    })
+    config.shape_cfg.outer_remove = None
+    config.voxel_capacity = capacity
+    config.dataloader.batch_size = 1
+    return config
+
+
+def train_pass(config, dev) -> None:
+    """Self-trained weights (``BENCH_TRAIN``, default on): trains or
+    resumes ``BENCH_RECIPE`` within max(remaining - 480 s, 120 s), sets
+    ``config.pretrain``, ``trained_steps`` and, for a partial run,
+    ``selftrain_partial_<done>of<target>``."""
+    if os.environ.get("BENCH_TRAIN", "1") == "0":
+        RESULT["trained_steps"] = 0
+        return
+    from ..ops import _cuda
+    from ..train import selftrain
+
+    recipe = dict(selftrain.BENCH_RECIPE)
+    recipe["steps"] = int(os.environ.get("BENCH_TRAIN_STEPS",
+                                         recipe["steps"]))
+    recipe["n_crops"] = int(os.environ.get("BENCH_TRAIN_CROPS",
+                                           recipe["n_crops"]))
+    # leave room for the scored cold pass, smoke and scoring
+    train_budget = max(remaining() - 480, 120)
+    _cuda.reset_launches()
+    config.pretrain, info = selftrain.train_synthetic_checkpoint(
+        dict(config.model), cache_dir=osp.expanduser(CACHE_DIR), logger=log,
+        max_seconds=train_budget, return_info=True, device=dev,
+        compute_dtype=torch.bfloat16, **recipe)
+    step_s = info.get("step_seconds", [])
+    log(f"training: {len(step_s)} steps in this run (median "
+        f"{np.median(step_s[1:]) if len(step_s) > 1 else float('nan'):.4f}"
+        f" s after the first), launches {json.dumps(_cuda.LAUNCHES)}")
+    RESULT["trained_steps"] = info["completed_steps"]
+    if not info["complete"]:
+        DEGRADED.append(f"selftrain_partial_{info['completed_steps']}of"
+                        f"{info['target_steps']}")
+
+
+def run_pass(config, forest_path: str, dev, what: str, timer=False):
+    """One pipeline run on ``forest_path``, launch counts zeroed and peak
+    device memory reset just before, both logged just after with the k-NN
+    calls' routes and sizes (``ops/cluster.py:KNN_LOG``).  Returns
+    (result, seconds, forward timer or None)."""
+    from ..ops import _cuda
+    from ..ops.cluster import KNN_LOG
+    from ..pipeline import run_treelearn_pipeline
+    from ..utils.profiling import ForwardTimer
+
+    config.forest_path = forest_path
+    forwards = ForwardTimer() if timer and dev.type == "cuda" else None
+    _cuda.reset_launches()
+    del KNN_LOG[:]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        res = run_treelearn_pipeline(config, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        if forwards is not None:
+            forwards.remove()
+    dt = time.time() - t0
+    peak = (f"{torch.cuda.max_memory_allocated()} B" if dev.type == "cuda"
+            else "not measured (cpu)")
+    knn = "; ".join(f"{c.route} {c.n_refs} refs {c.n_queries} queries"
+                    for c in KNN_LOG)
+    log(f"{what}: launches {json.dumps(_cuda.LAUNCHES)}, peak device "
+        f"memory {peak}, k-NN {knn or 'none'}")
+    return res, dt, forwards
+
+
+def pointwise_path(res) -> str:
+    return osp.join(res["results_dir"], "pointwise_results",
+                    "pointwise_results.npz")
+
+
+def model_only(config, res, forwards, dev) -> None:
+    """Model-only rate and forward MFU of the kept steady pass: its
+    TreeLearn forwards between CUDA events (no harvest, no host copies),
+    ``analytic_model_flops`` with the exact rule nnz over 989 TFLOP/s.  Not
+    written off the card."""
+    tm = res.get("model_timings", {})
+    if not tm.get("steps") or forwards is None or not forwards.events:
+        return
+    from ..model.network import analytic_model_flops
+    from ..utils.profiling import H100_BF16_PEAK_FLOPS
+
+    torch.cuda.synchronize()
+    compute_s = sum(forwards.device_ms()) / 1e3
+    model_mpts = tm["points"] / compute_s / 1e6
+    flops_per_step = analytic_model_flops(
+        tm["n_vox_levels"], tm["points"] // tm["steps"],
+        channels=config.model.get("channels", 32),
+        num_blocks=config.model.get("num_blocks", 7),
+        rule_nnz_per_level=tm.get("rule_nnz"))
+    mfu = flops_per_step * tm["steps"] / compute_s / H100_BF16_PEAK_FLOPS
+    log(f"model: {tm['steps']} steps, forward {compute_s * 1e3:.2f} ms "
+        f"between CUDA events -> {model_mpts:.1f} Mpts/s model-only, MFU "
+        f"{100 * mfu:.2f}% of the bf16 peak ({RESULT.get('device')}, "
+        f"{RESULT.get('power_limit_w')} W)")
+    RESULT.update({"model_only_mpts_per_sec": round(model_mpts, 2),
+                   "model_flops_per_step": flops_per_step,
+                   "model_mfu": round(mfu, 4)})
+
+
+def decompose_model_step(config, work: str, dev) -> dict:
+    """Seconds of the whole-plot forward's parts on the voxelized plot as
+    one batch, with the pass's weights: voxelize alone, voxelize + the
+    level plans, the full forward (``tools/profile_model.py:stage_split``,
+    CUDA events on a card), and plans_net = plans - voxelize, convs_net =
+    full - plans (the U-Net, its down / inverse convs and the heads)."""
+    from ..model import TreeLearn, load_checkpoint
+    from ..utils.profiling import model_inputs
+    from .profile_model import stage_split
+
+    vox = np.load(osp.join(
+        work, "plot",
+        f"forest_voxelized{config.sample_generation.voxel_size}",
+        "bench_forest_centered.npz"))
+    pts = vox["points"].astype(np.float32)
+    vs = float(config.model.get("voxel_size", 0.1))
+    ext = pts.max(axis=0).astype(np.float64) - pts.min(axis=0)
+    mc = dict(config.model)
+    mc["spatial_shape"] = [int(np.ceil((np.ceil(e / vs) + 2) / 64)) * 64
+                           for e in ext]
+    model = TreeLearn(**mc).init(0)
+    if config.get("pretrain"):
+        load_checkpoint(config.pretrain, model)
+    model = model.to(dev).eval()
+    dtype = torch.bfloat16 if config.get("fp16") else torch.float32
+    split = stage_split(model, model_inputs(pts, dev), dev, dtype, reps=3)
+    times = {"voxelize": split["voxelize_ms"], "plans": split["plans_ms"],
+             "full": split["forward_ms"]}
+    times = {k: round(v / 1e3, 4) for k, v in times.items()}
+    times["plans_net"] = round(times["plans"] - times["voxelize"], 4)
+    times["convs_net"] = round(times["full"] - times["plans"], 4)
+    log("model step decompose: " + " ".join(
+        f"{k}={v:.4f}s" for k, v in times.items()))
+    return times
+
+
+def score(res, prefix: str, trained: bool) -> dict:
+    """Detection F1, completeness, commission and matched IoU of a pass's
+    pointwise dump, logged."""
+    from ..train.selftrain import detection_f1_from_pointwise
+
+    q = detection_f1_from_pointwise(pointwise_path(res))
+    log(f"{prefix}detection: F1 {q['f1_score']}% completeness "
+        f"{q['completeness']}% commission {q['commission_error_rate']}% "
+        f"matched-IoU {q.get('mean_matched_iou')}% ({q['n_pred']} preds / "
+        f"{q['n_gt']} gt){'' if trained else RANDOM_WEIGHTS}")
+    return q
+
+
+def run(device=None) -> None:
+    """The passes, filling RESULT and DEGRADED (the caller emits)."""
+    from ..data.synthetic import make_synthetic_forest
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    RESULT.update(card_fields(dev))
+    log(f"device: {dev} ({RESULT['device']}, power limit "
+        f"{RESULT['power_limit_w']} W)")
+    work = osp.abspath(WORK_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    forest_dir = osp.join(work, "plot", "forest")
+    os.makedirs(forest_dir, exist_ok=True)
+
+    n_trees = int(os.environ.get("BENCH_TREES", 48))
+    points_per_tree = int(os.environ.get("BENCH_PPT", 16000))
+    ground = int(os.environ.get("BENCH_GROUND", 200000))
+    extent = float(os.environ.get("BENCH_EXTENT", 60.0))
+    capacity = int(os.environ.get("BENCH_CAPACITY", 1 << 18))
+    data, _ = make_synthetic_forest(
+        n_trees=n_trees, extent=extent, points_per_tree=points_per_tree,
+        ground_points=ground, seed=0)
+    n_points = len(data)
+    forest_path = osp.join(forest_dir, "bench_forest.npz")
+    np.savez(forest_path, points=data[:, :3].astype(np.float32),
+             labels=data[:, 3])
+    del data
+    log(f"synthetic forest: {n_points} pts, {n_trees} trees, {extent}m extent")
+    RESULT["n_points"] = n_points
+
+    config = bench_config(forest_path, capacity)
+    train_pass(config, dev)
+    trained = RESULT["trained_steps"] > 0
+
+    profile_dir = os.environ.get("BENCH_PROFILE")
+    # the scored pass runs first: it pays the process's first-call costs,
+    # and its score exists even if the run is killed right after it
+    result, cold_elapsed, _ = run_pass(config, forest_path, dev, "cold pass")
+    RESULT["cold_seconds"] = round(cold_elapsed, 1)
+    RESULT["cold_mpts_per_sec"] = round(n_points / cold_elapsed / 1e6, 4)
+    RESULT["cold_stage_seconds"] = dict(result.get("stage_seconds", {}))
+    RESULT["n_trees_found"] = result["n_trees"]
+    log(f"cold pass: {cold_elapsed:.1f}s - stages "
+        f"{RESULT['cold_stage_seconds']}")
+    if osp.isfile(pointwise_path(result)):
+        q = score(result, "", trained)
+        RESULT.update({
+            "detection_f1": q["f1_score"],
+            "completeness": q["completeness"],
+            "commission_error_rate": q["commission_error_rate"],
+            "mean_matched_iou": q.get("mean_matched_iou"),
+        })
+
+    # several steady passes, keep the fastest
+    n_steady = int(os.environ.get("BENCH_STEADY_PASSES", 3))
+    steady_est = max(cold_elapsed * 0.3, 15.0)
+    elapsed, forwards = None, None
+    prof = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+        prof.start()
+    for p in range(n_steady):
+        if remaining() < steady_est + 60:
+            DEGRADED.append(f"steady_passes_{p}of{n_steady}")
+            break
+        shutil.rmtree(result["results_dir"], ignore_errors=True)
+        # the pipeline re-points forest_path at the centered copy it wrote;
+        # run_pass restores the original so each pass repeats the full work
+        r, dt, fw = run_pass(config, forest_path, dev,
+                             f"steady pass {p + 1}", timer=True)
+        steady_est = min(steady_est, dt)
+        log(f"steady pass {p + 1}/{n_steady}: {dt:.1f}s "
+            f"(budget: {remaining():.0f}s left)")
+        if elapsed is None or dt < elapsed:
+            elapsed, result, forwards = dt, r, fw
+    if prof is not None:
+        from ..utils.trace import print_trace_summary, summarize_trace
+
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        trace_path = osp.join(profile_dir, "steady.trace.json")
+        prof.export_chrome_trace(trace_path)
+        print_trace_summary(summarize_trace(trace_path), log)
+        log(f"profiler trace written to {trace_path}")
+
+    if elapsed is not None:
+        RESULT["seconds"] = round(elapsed, 1)
+        RESULT["stage_seconds"] = result.get("stage_seconds", {})
+        for name, secs in RESULT["stage_seconds"].items():
+            log(f"stage {name:<18} {secs:7.2f}s")
+    model_only(config, result, forwards, dev)
+    tm = result.get("model_timings", {})
+
+    # hard mode: interlocking crowns, understory, occlusion, density
+    # gradients; detection plus the 10-bin xy / z partition IoUs
+    if os.environ.get("BENCH_HARD", "1") != "0" and remaining() > 120:
+        from ..data.synthetic import make_synthetic_forest_hard
+        from ..train.selftrain import segmentation_partition_summary
+
+        hdata, _ = make_synthetic_forest_hard(
+            n_trees=n_trees, extent=extent,
+            points_per_tree=points_per_tree, ground_points=ground, seed=0)
+        hard_path = osp.join(forest_dir, "bench_forest_hard.npz")
+        np.savez(hard_path, points=hdata[:, :3].astype(np.float32),
+                 labels=hdata[:, 3])
+        n_hard = len(hdata)
+        log(f"hard forest: {n_hard} pts, {int(hdata[:, 3].max())} trees")
+        del hdata
+        # best of 2 when the budget allows: the second is the warm one
+        hard_elapsed = float("inf")
+        for hp_i in range(2):
+            hres, dt, _ = run_pass(config, hard_path, dev,
+                                   f"hard pass {hp_i + 1}")
+            hard_elapsed = min(hard_elapsed, dt)
+            if hp_i == 0:
+                hq = score(hres, "hard ", trained)
+                hp = segmentation_partition_summary(pointwise_path(hres))
+                RESULT.update({
+                    "hard_n_points": n_hard,
+                    "hard_seconds": round(hard_elapsed, 1),
+                    "hard_detection_f1": hq["f1_score"],
+                    "hard_completeness": hq["completeness"],
+                    "hard_commission_error_rate": hq["commission_error_rate"],
+                    "hard_mean_matched_iou": hq.get("mean_matched_iou"),
+                    "hard_xy_partition_mean_iou": hp["xy_partition_mean_iou"],
+                    "hard_z_partition_mean_iou": hp["z_partition_mean_iou"],
+                })
+                log(f"hard pass: {dt:.1f}s; partitions: xy mean IoU "
+                    f"{hp['xy_partition_mean_iou']}% z mean IoU "
+                    f"{hp['z_partition_mean_iou']}%")
+                if remaining() < hard_elapsed + 60:
+                    DEGRADED.append("hard_single_pass")
+                    break
+        RESULT["hard_seconds"] = round(hard_elapsed, 1)
+    elif os.environ.get("BENCH_HARD", "1") != "0":
+        DEGRADED.append("hard_pass_skipped")
+
+    # the repository's default grouping mode on the easy plot
+    if os.environ.get("BENCH_HDBSCAN", "1") != "0" and remaining() > 90:
+        config.grouping.use_hdbscan = True
+        shutil.rmtree(result["results_dir"], ignore_errors=True)
+        hres, hd_elapsed, _ = run_pass(config, forest_path, dev,
+                                       "hdbscan pass")
+        hq = score(hres, "hdbscan mode ", trained)
+        log(f"hdbscan pass: {hd_elapsed:.1f}s")
+        RESULT.update({
+            "hdbscan_seconds": round(hd_elapsed, 1),
+            "hdbscan_mpts_per_sec": round(n_points / hd_elapsed / 1e6, 4),
+            "hdbscan_detection_f1": hq["f1_score"],
+            "hdbscan_completeness": hq["completeness"],
+            "hdbscan_commission_error_rate": hq["commission_error_rate"],
+            "hdbscan_mean_matched_iou": hq.get("mean_matched_iou"),
+            "hdbscan_cluster_seconds": hres["stage_seconds"].get("cluster"),
+        })
+        config.grouping.use_hdbscan = False
+    elif os.environ.get("BENCH_HDBSCAN", "1") != "0":
+        DEGRADED.append("hdbscan_pass_skipped")
+
+    # every kernel against its plain version, after the scored passes
+    if os.environ.get("TL_GPU_SMOKE", "1") != "0" and remaining() > 30:
+        from ..ops import _cuda
+        from ..utils.smoke import run_gpu_smoke
+
+        t0 = time.time()
+        _cuda.reset_launches()
+        smoke = run_gpu_smoke(device=dev)
+        log(f"gpu kernel smoke: {smoke['passed']} passed {smoke['failed']} "
+            f"failed {smoke['checks']} ({time.time() - t0:.1f}s); launches "
+            f"{json.dumps(_cuda.LAUNCHES)}")
+        RESULT["gpu_smoke"] = smoke
+    elif os.environ.get("TL_GPU_SMOKE", "1") != "0":
+        DEGRADED.append("gpu_smoke_skipped")
+
+    if (os.environ.get("BENCH_DECOMPOSE", "1") != "0" and tm.get("steps")
+            and remaining() > 120):
+        RESULT["model_step_decompose_s"] = decompose_model_step(
+            config, work, dev)
+    elif os.environ.get("BENCH_DECOMPOSE", "1") != "0":
+        DEGRADED.append("decompose_skipped")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the tests' small plots)")
+    args = ap.parse_args(argv)
+    from ..device import resolve_device
+
+    resolve_device(args.device)   # no card and no --device cpu: raise here
+    start()
+    install_watchdogs()
+    try:
+        run(args.device)
+    except BaseException as e:  # the JSON line must exist even on a crash
+        import traceback
+
+        log(f"FATAL {type(e).__name__}: {e}")
+        traceback.print_exc()
+        DEGRADED.append(f"exception_{type(e).__name__}")
+        RESULT.setdefault("error", f"{type(e).__name__}: {e}"[:500])
+        emit_result()
+        raise SystemExit(0)
+    emit_result()
+
+
+if __name__ == "__main__":
+    main()

@@ -53,6 +53,45 @@ def plot_batch(pts: np.ndarray) -> dict:
             "n_points": n}
 
 
+def stage_split(model, inputs, dev, dtype, reps: int,
+                with_model: bool = True) -> dict:
+    """Milliseconds of voxelize alone, voxelize + the level plans (rulebooks
+    and downsample rulebooks) and, with ``with_model``, the full forward of
+    ``model`` (eval mode) on one batch ``inputs`` (:func:`timed_ms`: CUDA
+    events on a card, the host clock on the CPU); their differences put the
+    time on each stage.  Also returns the level plans, the active voxels
+    per level and the full forward's output (``out``)."""
+    from ..model.network import build_level_plans
+    from ..ops.sparse import grid_from_sorted_keys
+    from ..ops.voxelize import voxelize_points
+
+    def stage_vox():
+        vb = voxelize_points(*inputs, batch_size=1,
+                             voxel_size=model.voxel_size,
+                             max_pts=model.max_pts,
+                             spatial_shape=model.spatial_shape,
+                             use_coords=model.use_coords,
+                             use_feats=model.use_feats)
+        return vb, grid_from_sorted_keys(vb.voxel_keys, vb.spatial_shape)
+
+    def stage_plans():
+        return build_level_plans(stage_vox()[1], model.num_blocks,
+                                 model.kernel_size)
+
+    def full():
+        with torch.no_grad():
+            return model(*inputs, batch_size=1, compute_dtype=dtype)
+
+    res = {"voxelize_ms": timed_ms(stage_vox, dev, reps)}
+    res["plans"] = stage_plans()
+    res["voxels_per_level"] = [p.grid.n_active for p in res["plans"]]
+    res["plans_ms"] = timed_ms(stage_plans, dev, reps)
+    if with_model:
+        res["out"] = full()
+        res["forward_ms"] = timed_ms(full, dev, reps)
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--points", type=int, default=968000)
@@ -67,9 +106,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     from ..model import TreeLearn
-    from ..model.network import analytic_model_flops, build_level_plans
-    from ..ops.sparse import grid_from_sorted_keys
-    from ..ops.voxelize import voxelize_points
+    from ..model.network import analytic_model_flops
 
     dev = resolve_device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -85,30 +122,17 @@ def main(argv=None) -> dict:
     model = TreeLearn(num_blocks=args.levels,
                       spatial_shape=sshape).init(0).to(dev).eval()
 
-    def stage_vox():
-        vb = voxelize_points(*inputs, batch_size=1, voxel_size=0.1,
-                             max_pts=3, spatial_shape=sshape)
-        return vb, grid_from_sorted_keys(vb.voxel_keys, vb.spatial_shape)
-
-    def stage_plans():
-        return build_level_plans(stage_vox()[1], args.levels)
-
-    def full():
-        with torch.no_grad():
-            return model(*inputs, batch_size=1, compute_dtype=dtype)
-
     res = {"card": card, "points": len(pts)}
-    res["voxelize_ms"] = timed_ms(stage_vox, dev, args.reps)
+    split = stage_split(model, inputs, dev, dtype, args.reps,
+                        with_model=not args.skip_model)
+    plans = split.pop("plans")
+    out = split.pop("out", None)
+    res.update(split)
     print(f"voxelize:           {res['voxelize_ms']:9.2f} ms")
-    plans = stage_plans()
-    res["voxels_per_level"] = [p.grid.n_active for p in plans]
     print(f"active voxels/level: {res['voxels_per_level']}")
-    res["plans_ms"] = timed_ms(stage_plans, dev, args.reps)
     print(f"voxelize+plans:     {res['plans_ms']:9.2f} ms  (plans "
           f"~{res['plans_ms'] - res['voxelize_ms']:.2f} ms)")
     if not args.skip_model:
-        out = full()
-        res["forward_ms"] = timed_ms(full, dev, args.reps)
         res["flops"] = analytic_model_flops(
             out["n_voxels_per_level"], len(pts), channels=model.channels,
             num_blocks=args.levels,

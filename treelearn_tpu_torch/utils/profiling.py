@@ -1,5 +1,6 @@
-"""What the profilers in tools/ share: the card line, the timer, the bench
-plot, and the per-shape conv rows with their agreement test.
+"""What the profilers in tools/ and the bench share: the card line, the
+timers, the bench plot, and the per-shape conv rows with their agreement
+test.
 
 Times on a card are CUDA events on the current stream: two warm-up calls,
 then the mean of ``reps`` calls, as the JAX package's ``timed``
@@ -56,6 +57,45 @@ def timed_ms(fn, device, reps: int = 5, warmup: int = 2) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+class ForwardTimer:
+    """CUDA events and the host clock around every TreeLearn forward, through
+    global module hooks: measurement only, nothing in the path changes (no
+    synchronize).  Card only; ``remove()`` uninstalls the hooks, and
+    ``device_ms()`` reads each forward's milliseconds once its end event
+    has completed."""
+
+    def __init__(self):
+        from torch.nn.modules import module as nn_module
+
+        from ..model import TreeLearn
+
+        self.events, self.host_s, self._t0 = [], [], 0.0
+
+        def before(mod, args):
+            if isinstance(mod, TreeLearn):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                self.events.append([start, None])
+                self._t0 = time.time()
+
+        def after(mod, args, output):
+            if isinstance(mod, TreeLearn):
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self.events[-1][1] = end
+                self.host_s.append(time.time() - self._t0)
+
+        self._handles = [nn_module.register_module_forward_pre_hook(before),
+                         nn_module.register_module_forward_hook(after)]
+
+    def remove(self):
+        for h in self._handles:
+            h.remove()
+
+    def device_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
 
 
 def mfu_text(flops: float, ms: float, device) -> str:
