@@ -20,7 +20,8 @@ Phases (any failure exits nonzero; nothing is swallowed):
              padded onto the tensor cores); the wrappers' inputs are
              recorded (first call of each shape) for phase 4; CUDA events
              around each model forward give the card's milliseconds beside
-             the inference stage's host seconds.  This first (cold) run is
+             the inference stage's host seconds; its pointwise dump is kept
+             for phase 14.  This first (cold) run is
              followed by a warm one in the same process, with no recorder:
              wall time, stage seconds and the forward's card milliseconds
              and host seconds are printed cold and warm side by side;
@@ -195,7 +196,24 @@ Phases (any failure exits nonzero; nothing is swallowed):
              no ``exception_*``, ``watchdog_*`` or ``interrupted_*`` in
              ``degraded``, and its stderr showing the rulebook, the
              tensor-core conv and verticality launched in its cold pass; the
-             bench's line is printed as ``bench:``.
+             bench's line is printed as ``bench:``;
+14. quality: the quality and toolchain tools on the card: (a)
+             ``tools/oracle_ceiling.py:run_oracle`` on the script's default
+             hard forest (24 trees, 42 m, seed 7777), counts zeroed just
+             before: verticality and found bits must launch, and its labels
+             equal the CPU port's on the same input as a partition (ARI >=
+             0.999, same tree count), F1 and seconds per stage of both;
+             (b) ``python -m treelearn_tpu_torch.tools.hard_quality`` as a
+             subprocess at a tiny recipe (``QUALITY_RECIPE``: 60 steps, 4
+             crops, a 16 m eval forest; its own HOME): exit 0, a last line
+             that parses, every ``quality_chain`` key finite; (c)
+             ``tools/profile_cluster.py`` on phase 3's dump: the sub-steps'
+             labels equal ``get_instances`` + assignment and the dump's own
+             labels, seconds per sub-step and the k-NN route; (d)
+             ``python -m treelearn_tpu_torch.tools.five_stage`` as a
+             subprocess on the card (the script's plots, ``--samples 24``):
+             every stage PASS (the notebook runs where ``matplotlib``
+             imports, else its line says so).
 
 The line before the card line's JSON trailer is ``{"kernels": [...]}``; the
 last line is the device record.  Exits nonzero without CUDA, and when run
@@ -208,6 +226,7 @@ import argparse
 import json
 import os
 import os.path as osp
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -224,6 +243,9 @@ SLOWER_LIMIT = 1.1            # a redesigned kernel vs the one it replaced,
 DATAGEN_CROPS = 32            # gen_train_data's n_samples_total (shipped 25,000)
 DP_WORLD = 2                  # data-parallel ranks, sharing the one card
 DP_EXAMPLES = 16              # examples_per_epoch of phase 10a: 4 steps a rank
+# phase 14b's recipe: hard_quality's flags
+QUALITY_RECIPE = ["--steps", "60", "--crops", "4", "--trees", "4",
+                  "--extent", "16"]
 
 
 def log(msg):
@@ -2136,6 +2158,107 @@ def bench_phase(tmp):
     return line
 
 
+def tool_env(**extra):
+    return dict(os.environ, **extra, PYTHONPATH=os.pathsep.join(
+        [REPO] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+
+
+def quality_phase(tmp, dump):
+    """Phase 14: the oracle ceiling card vs CPU, hard_quality at a tiny
+    recipe, profile_cluster on phase 3's dump, the five stages."""
+    import numpy as np
+
+    from treelearn_tpu_torch.eval.quality import KEYS
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.tools.oracle_ceiling import hard_forest, run_oracle
+    from treelearn_tpu_torch.tools.profile_cluster import profile_cluster
+
+    t_phase = time.time()
+    # (a) the oracle ceiling, card against the CPU port
+    data = hard_forest()
+    _cuda.reset_launches()
+    t0 = time.time()
+    card = run_oracle(data, device=CARD)
+    wall = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    t0 = time.time()
+    cpu = run_oracle(data, device="cpu")
+    cpu_wall = time.time() - t0
+    ari = adjusted_rand(card["labels"], cpu["labels"])
+    log(f"quality (a) oracle ceiling: {card['n_points']} points, "
+        f"{card['n_voxels']} voxels, {card['n_trees']} trees; card F1 "
+        f"{card['f1']} (completeness {card['completeness']}, commission "
+        f"{card['commission']}, {card['n_pred']} preds / {card['n_gt']}) in "
+        f"{wall:.2f} s, CPU F1 {cpu['f1']} in {cpu_wall:.2f} s; ARI card vs "
+        f"CPU {ari:.6f}")
+    log(f"  card stage seconds {json.dumps(card['stage_seconds'])}; k-NN "
+        f"{json.dumps(card['knn'])}; launches {json.dumps(launches)}")
+    n_card, n_cpu = (len(np.unique(x["labels"])) for x in (card, cpu))
+    zero = [k for k in ("vert", "cc") if not launches[k]]
+    if zero or ari < 0.999 or n_card != n_cpu:
+        raise AssertionError(f"oracle: kernels not launched {zero}, ARI "
+                             f"{ari}, labels {n_card} vs {n_cpu}")
+    del data, card, cpu
+
+    # (b) hard_quality at a tiny recipe, as a user runs it
+    home = osp.join(tmp, "hq_home")
+    os.makedirs(home)
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "treelearn_tpu_torch.tools.hard_quality"]
+        + QUALITY_RECIPE, cwd=home, env=tool_env(HOME=home),
+        capture_output=True, text=True, timeout=300)
+    if out.returncode != 0 or not out.stdout.strip():
+        raise AssertionError(f"hard_quality exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [k for k in KEYS
+           if not isinstance(line.get(k), (int, float))
+           or not np.isfinite(line[k])]
+    log(f"quality (b) hard_quality {' '.join(QUALITY_RECIPE)}: exit 0 in "
+        f"{time.time() - t0:.1f} s with process start; {json.dumps(line)}")
+    for x in out.stderr.splitlines():
+        if "launches" in x:
+            log(f"  {x.strip()}")
+    if bad:
+        raise AssertionError(f"hard_quality: keys not finite {bad}")
+
+    # (c) profile_cluster on phase 3's dump
+    _cuda.reset_launches()
+    prof = profile_cluster(dump, device=CARD)
+    log(f"quality (c) profile_cluster on phase 3's dump: "
+        f"{prof['n_points']} points, {prof['n_candidates']} candidates, "
+        f"{prof['n_clusters']} clusters, {prof['n_remaining']} remaining; "
+        f"seconds {json.dumps(prof['seconds'])}; k-NN "
+        f"{json.dumps(prof['knn'])}; launches {json.dumps(_cuda.LAUNCHES)}")
+    if not (prof["labels_equal"] and prof.get("dump_equal")):
+        raise AssertionError(f"profile_cluster: labels equal to "
+                             f"get_instances {prof['labels_equal']}, to "
+                             f"phase 3's {prof.get('dump_equal')}")
+
+    # (d) the five stages on the card
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "treelearn_tpu_torch.tools.five_stage",
+         "--work", osp.join(tmp, "five_stage"), "--samples", "24"],
+        cwd=tmp, env=tool_env(), capture_output=True, text=True,
+        timeout=600)
+    lines = out.stdout.splitlines()
+    for x in lines:
+        if x.startswith(("[PASS", "[FAIL", "notebook", "FIVE-STAGE")):
+            log(f"  {x}")
+    passed = [s for s in ("gen_train_data", "gen_val_data", "train",
+                          "pipeline", "evaluate")
+              if any(x.startswith("[PASS") and x.endswith(f"] {s}")
+                     for x in lines)]
+    log(f"quality (d) five_stage: exit {out.returncode} in "
+        f"{time.time() - t0:.1f} s, {len(passed)} of 5 stages PASS")
+    if out.returncode != 0 or len(passed) != 5:
+        raise AssertionError(f"five_stage:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    log(f"  phase 14: {time.time() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-trees", type=int, default=48)
@@ -2192,9 +2315,13 @@ def main():
 
         rec = Recorder()
         _cuda.set_recorder(rec)
-        cold = run_plot(path)
+        cold = run_plot(path, save_pointwise=True)
         _cuda.set_recorder(None)
         res, _, launches, _ = cold
+        # phase 14c reads this dump; later phases rewrite the results dir
+        dump = osp.join(tmp, "phase3_pointwise_results.npz")
+        shutil.copy(osp.join(res["results_dir"], "pointwise_results",
+                             "pointwise_results.npz"), dump)
         log_plot("pipeline (cold: first run, recorder installed)", *cold)
         mt = res["model_timings"]
         log(f"  voxels per level {[int(x) for x in mt['n_vox_levels']]}, "
@@ -2303,6 +2430,9 @@ def main():
 
         # 13. the bench, as a user runs it, at a reduced budget
         bench_phase(tmp)
+
+        # 14. the quality and toolchain tools
+        quality_phase(tmp, dump)
 
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -100,8 +100,8 @@ def test_pipeline_matches_jax(tmp_path, whole_plot, monkeypatch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of treelearn_tpu_torch (and chip_smoke.py) imports
     without pulling in jax or treelearn_tpu, the k-NN, training, HDBSCAN,
-    evaluation, smoke, data-tool, plotting, data-parallel, profiler and
-    bench modules included; nor pandas, sklearn or matplotlib, which the
+    evaluation, smoke, data-tool, plotting, data-parallel, profiler, bench,
+    quality and toolchain modules included; nor pandas, sklearn or matplotlib, which the
     card's machine does not have."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -123,7 +123,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'parallel.mesh', 'parallel.launch', 'utils.trace',\n"
         "       'utils.profiling', 'tools.profile_model', 'tools.profile_step',\n"
         "       'tools.profile_kernels', 'tools.microbench_conv',\n"
-        "       'tools.parse_trace', 'tools.bench']\n"
+        "       'tools.parse_trace', 'tools.bench', 'tools.oracle_ceiling',\n"
+        "       'eval.quality', 'tools.hard_quality', 'tools.profile_cluster',\n"
+        "       'tools.five_stage', 'tools.skip_count', 'utils.notebook']\n"
         "missing = [m for m in new if 'treelearn_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('treelearn_tpu_torch')]))\n")

@@ -85,7 +85,9 @@ def get_detection_failures(matched_gts, matched_preds, unique_instance_labels,
     non_matched_gts_corresponding_pred = []
     non_matched_gts_corresponding_other_tree = []
     for g in non_matched_gts:
-        if recall_matrix[:, g].max() < min_recall_for_gt:
+        # no prediction at all: every gt is missed with no correspondence
+        if (len(recall_matrix) == 0
+                or recall_matrix[:, g].max() < min_recall_for_gt):
             non_matched_gts_corresponding_pred.append(np.nan)
             non_matched_gts_corresponding_other_tree.append(np.nan)
         else:

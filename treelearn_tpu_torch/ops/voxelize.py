@@ -181,14 +181,22 @@ def voxel_downsample_trace_np(points, voxel_size: float, round_decimals: int = 2
 
 
 def level_voxel_counts_np(xyz, voxel_size: float, spatial_shape,
-                          num_levels: int):
+                          num_levels: int, reciprocal: bool = False):
     """Host-side exact per-level active-voxel counts for one batch element:
     the float32 min-corner grid of :func:`compute_voxel_ijk`, clamping to
     ``spatial_shape``, and the k=2 s=2 downsample rule of
-    ops/sparse.py:build_downsample (``out_dim = in_dim // 2``)."""
+    ops/sparse.py:build_downsample (``out_dim = in_dim // 2``).  The cell
+    index divides by ``voxel_size`` as the JAX package's host sizing does;
+    ``reciprocal`` multiplies by its float32 reciprocal instead, as the
+    jitted JAX forward and :func:`compute_voxel_ijk` do."""
     p = np.asarray(xyz, np.float32)
     shape = np.asarray(spatial_shape, np.int64)
-    ijk = np.floor((p - p.min(axis=0)) / np.float32(voxel_size)).astype(np.int64)
+    rel = p - p.min(axis=0)
+    if reciprocal:
+        rel = rel * (np.float32(1.0) / np.float32(voxel_size))
+    else:
+        rel = rel / np.float32(voxel_size)
+    ijk = np.floor(rel).astype(np.int64)
     ijk = np.clip(ijk, 0, shape - 1)
 
     def dedup(ijk, shape):

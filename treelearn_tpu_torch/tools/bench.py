@@ -373,8 +373,9 @@ def run(device=None) -> None:
     np.savez(forest_path, points=data[:, :3].astype(np.float32),
              labels=data[:, 3])
     del data
-    log(f"synthetic forest: {n_points} pts, {n_trees} trees, {extent}m extent")
+    # recorded before the log line: a signal that follows the line finds it
     RESULT["n_points"] = n_points
+    log(f"synthetic forest: {n_points} pts, {n_trees} trees, {extent}m extent")
 
     config = bench_config(forest_path, capacity)
     train_pass(config, dev)

@@ -11,11 +11,16 @@ resumes from it.  :func:`detection_f1_from_pointwise` and
 dump against the ground truth it carries.
 
 The JAX package sizes per-level voxel capacities from the crops before it
-trains; eager PyTorch works on exact voxel counts, so there is nothing to
-size.  Randomness is explicit: the weights come from
-``SeedSequence(seed0)``, crop densities, augmentations and the batch order
-from numpy generators seeded with ``seed0``; the training step itself draws
-no random numbers.
+trains and skips any step whose voxel counts overflow them; eager PyTorch
+works on exact voxel counts, so there is nothing to size and no step to
+skip (``tools/skip_count.py`` counts the JAX run's skips).  Randomness is
+explicit and follows the JAX package: the weights come from
+``SeedSequence(seed0)``, crop ``i`` from seed ``seed0 + i`` and the crop
+densities from a numpy generator seeded with ``seed0``; the augmentations
+and the batch order come from the dataset's and the loader's generators,
+seeded with ``STREAM_SEED`` (0) as the JAX package's defaults seed them,
+so both packages train on the same batch stream.  The training step
+itself draws no random numbers.
 """
 
 from __future__ import annotations
@@ -34,6 +39,10 @@ import torch
 # The benchmark training recipe of the JAX package (selftrain.py:36-37).
 BENCH_RECIPE = {"steps": 6000, "n_crops": 192, "hard_frac": 0.8,
                 "crop_extent": 24.0, "ppt": (10000, 16000), "lr": 1.5e-3}
+
+# Seed of the dataset's augmentations and the loader's batch order: the JAX
+# package builds both with their default seed 0 (selftrain.py:139-145).
+STREAM_SEED = 0
 
 
 def _recipe_key(model_cfg: dict, recipe: dict) -> str:
@@ -65,6 +74,21 @@ def write_synthetic_crops(crops_dir: str, n_crops: int, crop_extent: float,
                       verticality_proxy(data))
 
 
+def training_stream(crops_dir: str, crop_extent: float, batch_size: int):
+    """The loader over ``crops_dir`` that the JAX package's
+    ``train_synthetic_checkpoint`` builds: its augmentations, and the
+    dataset's and the loader's generators seeded with ``STREAM_SEED``."""
+    from ..data import TreeDataset, TreeLoader
+
+    dataset = TreeDataset(
+        crops_dir, inner_square_edge_length=crop_extent, training=True,
+        data_augmentations={"jitter": True, "flip": True, "rot": True,
+                            "scaled": False, "point_jitter": False},
+        seed=STREAM_SEED)
+    return TreeLoader(dataset, batch_size=batch_size, training=True,
+                      seed=STREAM_SEED)
+
+
 def train_synthetic_checkpoint(
     model_cfg: dict,
     cache_dir: str,
@@ -91,7 +115,6 @@ def train_synthetic_checkpoint(
     ``target_steps``, ``cached`` and, for the steps this call ran, each
     step's ``losses`` and ``step_seconds`` (host clock around the step,
     which ends in a device sync when its loss is read)."""
-    from ..data import TreeDataset, TreeLoader
     from ..device import resolve_device
     from ..model import TreeLearn
     from ..model.checkpoint import resume_checkpoint, save_checkpoint
@@ -100,7 +123,8 @@ def train_synthetic_checkpoint(
     dev = resolve_device(device)
     recipe = {"steps": steps, "lr": lr, "batch_size": batch_size,
               "n_crops": n_crops, "crop_extent": crop_extent, "seed0": seed0,
-              "v": recipe_v, "dtype": str(compute_dtype)}
+              "v": recipe_v, "dtype": str(compute_dtype),
+              "stream_seed": STREAM_SEED}
     if hard_frac != 0.5:
         recipe["hard_frac"] = hard_frac
     if ppt != 9000:
@@ -156,13 +180,7 @@ def train_synthetic_checkpoint(
     with tempfile.TemporaryDirectory(dir=cache_dir) as crops_dir:
         write_synthetic_crops(crops_dir, n_crops, crop_extent, seed0,
                               hard_frac, ppt)
-        dataset = TreeDataset(
-            crops_dir, inner_square_edge_length=crop_extent, training=True,
-            data_augmentations={"jitter": True, "flip": True, "rot": True,
-                                "scaled": False, "point_jitter": False},
-            seed=seed0)
-        loader = TreeLoader(dataset, batch_size=batch_size, training=True,
-                            seed=seed0)
+        loader = training_stream(crops_dir, crop_extent, batch_size)
         while n_done < steps and not out_of_time:
             for batch in loader:
                 if n_done >= steps:
@@ -231,6 +249,9 @@ def segmentation_partition_summary(pointwise_npz: str) -> dict:
 
     _, _, iou, _, _ = get_detections(gt, pred, min_iou_match=0.5,
                                      non_tree_label=-1)
+    if iou.shape[0] == 0:
+        # no predicted tree: every gt tree's bins hold misses only
+        return {"xy_partition_mean_iou": 0.0, "z_partition_mean_iou": 0.0}
     unique_gts = np.arange(iou.shape[1])
     unique_preds = iou.argmax(axis=0)
     intvls = [round(0.1 * i, 1) for i in range(11)]
