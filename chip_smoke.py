@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero; nothing is swallowed):
 
 1. card:     name and power limit as nvidia-smi reports them;
-2. build:    the eight CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
+2. build:    the ten CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
              source, all started together), build seconds and each kernel's
              ptxas registers / shared memory;
 3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
@@ -15,13 +15,13 @@ Phases (any failure exits nonzero; nothing is swallowed):
              points_per_tree=16000, ground_points=200000, seed=0)``; launch
              counts are zeroed just before and read just after, and every
              kernel of the path must have launched (the rulebook, the
-             tensor-core conv, verticality, found bits; the SIMT conv's path
-             is the float32 one of phase 5 since the bf16 input conv is
-             padded onto the tensor cores); the wrappers' inputs are
-             recorded (first call of each shape) for phase 4; CUDA events
-             around each model forward give the card's milliseconds beside
-             the inference stage's host seconds; its pointwise dump is kept
-             for phase 14.  This first (cold) run is
+             tensor-core conv, verticality, found bits; the 3xTF32 kernels'
+             path is the float32 one of phases 5, 5b, 8 and 8b, the SIMT
+             kernels' the bf16 kernel_size 5 one of 5b); the wrappers'
+             inputs are recorded (first call of each shape) for phase 4;
+             CUDA events around each model forward give the card's
+             milliseconds beside the inference stage's host seconds; its
+             pointwise dump is kept for phase 14.  This first (cold) run is
              followed by a warm one in the same process, with no recorder:
              wall time, stage seconds and the forward's card milliseconds
              and host seconds are printed cold and warm side by side;
@@ -64,15 +64,15 @@ Phases (any failure exits nonzero; nothing is swallowed):
 3f. smoke:   ``utils/smoke.py:run_gpu_smoke``: every check must pass;
 4. kernels:  each kernel against its plain PyTorch version on the inputs its
              path gave it (rulebook exact, timed beside the 27-probe kernel
-             it replaced; subm conv in float32 with rtol 1e-4 on the SIMT
-             route and in bf16 within 2e-2 of the output's max magnitude on
-             the route its shape takes, the tensor-core kernel also timed
-             beside the SIMT kernel at the same shape (``previous_ms``), its
-             repeat launch bit-equal, and its gather traffic printed beside
-             the compulsory bytes; the 4 -> 32 input conv in bf16 zero-padded
-             onto the tensor cores beside the SIMT kernel over the first
-             1024 .. all rows of its shape, the pad's time counted, and in
-             float32 on the SIMT kernel, which is that kernel's row;
+             it replaced; subm conv in float32 with rtol 1e-4 on the route
+             float32 takes (3xTF32) and in bf16 within 2e-2 of the output's
+             max magnitude on the tensor-core route, also timed beside the
+             SIMT kernel at the same shape (``previous_ms``; the SIMT output
+             held to the same gate), its repeat launch bit-equal, and its
+             gather traffic printed beside the compulsory bytes; the 4 -> 32
+             input conv in bf16 zero-padded onto the tensor cores beside the
+             SIMT kernel over the first 1024 .. all rows of its shape, the
+             pad's time counted;
              verticality counts exact, moments within 1e-4 of each column's
              scale, |dvert| <= 1e-3 after the float16 rounding but on a 1e-3
              share of ill-conditioned neighborhoods, repeat launch bit-equal,
@@ -96,17 +96,22 @@ Phases (any failure exits nonzero; nothing is swallowed):
 5. check:    the port's pipeline on a small plot in float32, on the card and
              with the plain versions on the CPU, must give the same
              partition (ARI >= 0.999) and tree count; the card run's counts,
-             zeroed just before it, are the SIMT conv kernel's launches;
+             zeroed just before it, must show the 3xTF32 conv;
 5b. k=5:     the same small plot with a ``kernel_size: 5`` model (2 levels,
              channels 32, float32, seed-0 weights), card against CPU as in
              phase 5; the card run's counts, zeroed just before it, must
-             show the SIMT conv (K = 125 offsets) and no rulebook or
-             tensor-core launch, and each recorded conv shape is held to
-             the plain conv (rtol 1e-4); then one float32 training step of
-             that model on phase 8's crop, counts zeroed just before it: the
-             SIMT dW must launch, each of its shapes held to the plain dW
-             (1e-4 of max |dW|); the two ``kernel_size 5`` rows of the
-             ``kernels`` line (``problem``), timed per run and per step;
+             show the 3xTF32 conv (K = 125 offsets) and no rulebook, SIMT or
+             bf16 tensor-core launch; each recorded conv shape: the 3xTF32
+             and the SIMT kernel held to the plain conv (rtol 1e-4), timed
+             in turns; then one float32 training step of that model on
+             phase 8's crop, counts zeroed just before it: the 3xTF32 dW
+             must launch, each of its shapes held likewise (1e-4 of max
+             |dW|); then the same plot and step in bf16 on the card, the
+             path the SIMT kernels keep (K != 27), counts zeroed just before
+             each: the SIMT conv and dW must launch, each shape held to the
+             plain version (2e-2 of max |out|, 1e-3 of max |dW|); the
+             ``kernel_size 5`` rows of the ``kernels`` line (``problem``),
+             timed per run and per step;
 6. train:    ``train_synthetic_checkpoint`` at full width (configs/_modular/
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
@@ -117,14 +122,14 @@ Phases (any failure exits nonzero; nothing is swallowed):
              seconds apart from the median of the others, steps/s, peak
              memory;
 7. grads:    on the first training step's inputs, one per shape: the dW
-             kernels against the plain dW (float32, SIMT route: rtol 1e-4 of
-             max |dW|; bf16 on the route its shape takes: 1e-3 of max |dW|,
+             kernels against the plain dW (float32, 3xTF32 route: rtol 1e-4
+             of max |dW|; bf16 on the tensor-core route: 1e-3 of max |dW|,
              repeat launch bit-equal), the tensor-core route timed beside
-             the SIMT kernel at the same shape (``previous_ms``; no shape
-             more than 1.1x slower, the per-step total lower) with its
-             TFLOP/s and gathered bytes; the input conv's dW padded beside
-             SIMT over the first 1024 .. all rows, and in float32 on the SIMT
-             kernel (that kernel's row); the conv's dx (kernel 2 with the
+             the SIMT kernel at the same shape (``previous_ms``, the SIMT
+             output held to the same gate; no shape more than 1.1x slower,
+             the per-step total lower) with its TFLOP/s and gathered bytes;
+             the input conv's dW padded beside SIMT over the first 1024 ..
+             all rows; the conv's dx (kernel 2 with the
              mirrored weights) in float32 against autograd through the plain
              conv (1e-4 of max |dx|) and in bf16 against the plain conv with
              the mirrored weights (2e-2), timed beside its bound, its plain
@@ -138,8 +143,27 @@ Phases (any failure exits nonzero; nothing is swallowed):
              lr * g / (|g| + 1e-8) amplifies rounding noise), the running
              statistics within 1e-4; the Linear biases before a BatchNorm,
              whose gradient is zero in exact arithmetic, are left out; the
-             card step's counts, zeroed just before it, are the SIMT dW
-             kernel's launches;
+             card step's counts, zeroed just before it, must show both
+             3xTF32 kernels;
+8b. float32: the float32 route at full width (channels 32, 7 levels,
+             ``fp16: False``): phase 3's plot, counts zeroed just before:
+             the rulebook, the 3xTF32 conv, verticality and found bits must
+             launch and no other conv; at each recorded conv shape the
+             3xTF32 kernel and the SIMT kernel it replaced held to the plain
+             conv (rtol 1e-4), the tf32 pack to the torch pack exactly,
+             timed in turns (``previous_ms``: no shape more than 1.1x
+             slower, the total lower): the ``subm_conv_tf32`` row, per run
+             and per shape; the plot again warm, then with the SIMT route
+             forced in-process: the same partition (ARI >= 0.999) and tree
+             count, wall time and the forward's CUDA-event ms of each beside
+             the bf16 plot's; then phase 6's training in float32 (20 steps,
+             counts zeroed just before): the rulebook and both 3xTF32
+             kernels must launch, every loss be finite and the last 5 below
+             the first 5, the median step beside the bf16 one; each dW shape
+             held as phase 5b holds them (the ``subm_conv_dw_tf32`` row, per
+             step) and each dx shape, the 3xTF32 and the SIMT kernel, to
+             autograd through the plain conv (1e-4 of max |dx|; the row's
+             ``dx_*`` fields);
 9. datagen:  phase 3's plot written as ``train/forests/plot.npz`` and
              ``val/forest/plot.npz`` through ``tools/gen_val_data`` and
              ``tools/gen_train_data`` on the card with the shipped configs,
@@ -223,6 +247,7 @@ outside the repository (the port's package is not importable then).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import os.path as osp
@@ -233,7 +258,9 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# dense peaks; "tf32" is the tensor cores' TF32 rate, which the 3xTF32
+# kernels spend three products of per float32 multiply
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 REPO = osp.dirname(osp.abspath(__file__))
 TRAIN_STEPS = 20
 CARD = "cuda"
@@ -417,10 +444,11 @@ def check_rulebook(rec, lib_rows):
         bound_by="bytes", **total))
 
 
-def conv_bound(feats, weight, rule):
+def conv_bound(feats, weight, rule, tf32x3=False):
     """(bound ms, by, flops, compulsory bytes, gathered bytes) of one conv
     call: every input read once and the output written once, against
-    2 nnz Cin Cout operations; the gather moves nnz rows of Cin values."""
+    2 nnz Cin Cout operations (with ``tf32x3`` three TF32 products each, at
+    the TF32 peak); the gather moves nnz rows of Cin values."""
     import torch
 
     nnz = int((rule >= 0).sum())
@@ -430,18 +458,58 @@ def conv_bound(feats, weight, rule):
     bytes_moved = (feats.numel() * s + weight.numel() * s + rule.numel() * 4
                    + rule.shape[1] * cout * s)
     dtype = "bfloat16" if feats.dtype == torch.bfloat16 else "float32"
-    b, by = bound(bytes_moved, flops, dtype)
+    if tf32x3:
+        b, by = bound(bytes_moved, 3 * flops, "tf32")
+    else:
+        b, by = bound(bytes_moved, flops, dtype)
     return b, by, flops, bytes_moved, nnz * cin * s
+
+
+def dw_bound(x, g, rule, tf32x3=False):
+    """(bound ms, by, flops) of one weight-gradient call: x, g and the rule
+    read once, dW written once, against 2 nnz Cin Cout operations (three
+    TF32 products each with ``tf32x3``)."""
+    import torch
+
+    k, cin, cout = rule.shape[0], x.shape[1], g.shape[1]
+    s = x.element_size()
+    flops = 2.0 * int((rule >= 0).sum()) * cin * cout
+    bytes_moved = (x.numel() * s + g.numel() * s + rule.numel() * 4
+                   + k * cin * cout * 4)
+    if tf32x3:
+        return (*bound(bytes_moved, 3 * flops, "tf32"), flops)
+    dtype = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    return (*bound(bytes_moved, flops, dtype), flops)
+
+
+def rel_err(got, want):
+    """Max |got - want| over max |want| (float32)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / float(
+        want.abs().max().clamp(min=1e-12))
+
+
+def held(what, got, want, limit):
+    """Fails unless ``got`` is within ``limit`` of max |want|; returns the
+    max abs error."""
+    err = rel_err(got, want)
+    if not err <= limit:
+        raise AssertionError(f"{what}: max err {err:.3e} of max |ref|, "
+                             f"limit {limit}")
+    return float((got.float() - want.float()).abs().max())
 
 
 def pad_sweep(feats, weight, rule, g=None):
     """The 4 -> 32 input conv (with ``g`` its weight gradient) in bf16 on
     the SIMT kernel and zero-padded onto the tensor-core route, the pad's
     own time counted, over the first v rows of the recorded shape: what
-    ``ops/subm_conv.py:PAD_MIN_V`` rests on.  Measurement only."""
+    ``ops/subm_conv.py:PAD_MIN_V`` rests on, the SIMT kernel held to the
+    plain version at each size (bf16 gates).  Measurement only."""
     import torch
     import torch.nn.functional as F
 
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
     from treelearn_tpu_torch.ops.subm_conv import (subm_conv, subm_conv_dw,
                                                    subm_conv_dw_simt,
                                                    subm_conv_simt)
@@ -455,12 +523,16 @@ def pad_sweep(feats, weight, rule, g=None):
         r = torch.where(r < v, r, -1).contiguous()
         x = feats[:v].contiguous()
         if g is None:
+            held(f"SIMT input conv V={v}", subm_conv_simt(x, weight, r),
+                 plain_conv(x, weight, r), 2e-2)
             new, old = race(
                 lambda: subm_conv(F.pad(x, (0, pad)),
                                   F.pad(weight, (0, 0, 0, pad)), r),
                 lambda: subm_conv_simt(x, weight, r))
         else:
             gv = g[:v].contiguous()
+            held(f"SIMT input dW V={v}", subm_conv_dw_simt(x, gv, r),
+                 plain_dw(x, gv, r), 1e-3)
             new, old = race(
                 lambda: subm_conv_dw(F.pad(x, (0, pad)), gv,
                                      r)[:, :x.shape[1]].contiguous(),
@@ -470,8 +542,9 @@ def pad_sweep(feats, weight, rule, g=None):
 
 
 def check_subm_conv(rec, lib_rows):
-    """The recorded conv shapes: float32 on the SIMT route, the working type
-    on the route its shape takes; one row per kernel."""
+    """The recorded conv shapes: float32 on the route float32 takes (the
+    3xTF32 kernel; its row comes from phase 8b's float32 plot), the working
+    type on the route its shape takes; the tensor-core kernel's row."""
     import torch
 
     import torch.nn.functional as F
@@ -484,8 +557,7 @@ def check_subm_conv(rec, lib_rows):
     keys = sorted((k for k in rec.inputs if k[0] == "subm_conv"),
                   key=lambda k: (k[1][0], k[2]))
     csrc = "treelearn_tpu_torch/csrc/"
-    sources = {"subm_conv": csrc + "subm_conv.cu",
-               "subm_conv_wgmma": csrc + "subm_conv_wgmma.cu"}
+    sources = {"subm_conv_wgmma": csrc + "subm_conv_wgmma.cu"}
     totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, by_ops=0,
                       shapes=0) for n in sources}
     totals["subm_conv_wgmma"]["previous_ms"] = 0.0
@@ -494,7 +566,7 @@ def check_subm_conv(rec, lib_rows):
         feats, weight, rule = a["feats"], a["weight"], a["rule"]
         calls = rec.calls[key]
         cin, cout = weight.shape[1], weight.shape[2]
-        # float32: same algorithm, float32 products and sums (SIMT route)
+        # float32: same algorithm, float32 sums (the 3xTF32 route)
         x32, w32 = feats.float(), weight.float()
         f32 = subm_conv(x32, w32, rule)
         r32 = plain_conv(x32, w32, rule)
@@ -504,28 +576,15 @@ def check_subm_conv(rec, lib_rows):
             raise AssertionError(f"subm_conv f32 {cin}->{cout}: max err "
                                  f"{float((f32 - r32).abs().max())}")
         if cin < 32:
-            # the SIMT kernel's row: the input conv in float32, the type that
-            # stays on it at this shape (bf16 is padded onto the tensor cores)
-            tot = totals["subm_conv"]
-            ms32 = cuda_ms(lambda: subm_conv(x32, w32, rule))
-            plain32 = cuda_ms(lambda: plain_conv(x32, w32, rule), reps=3)
-            b32, by32, _, _, _ = conv_bound(x32, w32, rule)
-            tot["err"] = max(tot["err"], float((f32 - r32).abs().max()))
-            tot["by_ops"] += by32 == "operations"
-            tot["shapes"] += 1
-            log(f"  subm_conv float32 V={feats.shape[0]} {cin}->{cout}: "
-                f"rtol 1e-4, kernel {ms32:.4f} ms, plain {plain32:.4f} ms, "
-                f"bound {b32:.4f} ms ({by32}), {calls} call(s) at this shape")
-            for col, val in (("ms", ms32), ("plain_ms", plain32),
-                             ("bound_ms", b32)):
-                tot[col] += val * calls
             pad_sweep(feats, weight, rule)
         del x32, w32, f32, r32
         # working type: bf16 inputs and output, float32 sums in both; the
         # outputs differ by summation order before the final bf16 rounding
         pad = tensor_core_pad(cin, cout, rule.shape[1], feats.dtype)
         plan = conv_plan(cin + pad, cout, rule.shape[1], feats.dtype)
-        name = "subm_conv_wgmma" if plan.route == "wgmma" else "subm_conv"
+        name = "subm_conv_wgmma"
+        if plan.route != "wgmma":
+            raise AssertionError(f"bf16 conv {cin}->{cout} took {plan.route}")
         tot = totals[name]
         first = subm_conv(feats, weight, rule)
         if not torch.equal(first, subm_conv(feats, weight, rule)):
@@ -540,11 +599,10 @@ def check_subm_conv(rec, lib_rows):
             raise AssertionError(f"subm_conv {feats.dtype} {cin}->{cout}: "
                                  f"max err {rel} of max |out|")
         tot["err"] = max(tot["err"], abs_err)
-        if name == "subm_conv_wgmma":
-            ms, previous = race(lambda: subm_conv(feats, weight, rule),
-                                lambda: subm_conv_simt(feats, weight, rule))
-        else:
-            ms = cuda_ms(lambda: subm_conv(feats, weight, rule))
+        held(f"SIMT conv {cin}->{cout}", subm_conv_simt(feats, weight, rule),
+             want, 2e-2)
+        ms, previous = race(lambda: subm_conv(feats, weight, rule),
+                            lambda: subm_conv_simt(feats, weight, rule))
         plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
         b, by, flops, compulsory, gathered = conv_bound(feats, weight, rule)
         tot["by_ops"] += by == "operations"
@@ -558,20 +616,19 @@ def check_subm_conv(rec, lib_rows):
                 f"{gathered / 1e6:.2f} MB "
                 f"({gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
                 f"rate), {calls} call(s)")
-        if name == "subm_conv_wgmma":
-            w_in = F.pad(weight, (0, 0, 0, pad))
-            for mirror in (False, True):   # the pack kernel, exactly
-                if not torch.equal(
-                        pack_weight(w_in, 32, mirror).cpu(),
-                        pack_weight(w_in.cpu(), 32, mirror)):
-                    raise AssertionError(f"pack_weight {cin}->{cout} "
-                                         f"mirror={mirror} differs")
-            tot["previous_ms"] += previous * calls
-            line += f", SIMT kernel {previous:.4f} ms"
-            if ms > SLOWER_LIMIT * previous:
-                raise AssertionError(
-                    f"subm_conv {cin}->{cout} V={feats.shape[0]}: the wgmma "
-                    f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
+        w_in = F.pad(weight, (0, 0, 0, pad))
+        for mirror in (False, True):   # the pack kernel, exactly
+            if not torch.equal(
+                    pack_weight(w_in, 32, mirror).cpu(),
+                    pack_weight(w_in.cpu(), 32, mirror)):
+                raise AssertionError(f"pack_weight {cin}->{cout} "
+                                     f"mirror={mirror} differs")
+        tot["previous_ms"] += previous * calls
+        line += f", SIMT kernel {previous:.4f} ms"
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(
+                f"subm_conv {cin}->{cout} V={feats.shape[0]}: the wgmma "
+                f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
         log(line)
         for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * calls
@@ -1012,12 +1069,9 @@ def check_grads(rec, lib_rows, launches, n_steps):
                                                    subm_conv_simt,
                                                    tensor_core_pad)
 
-    csrc = "treelearn_tpu_torch/csrc/"
-    sources = {"subm_conv_dw": csrc + "subm_conv_dw.cu",
-               "subm_conv_dw_wgmma": csrc + "subm_conv_dw_wgmma.cu"}
-    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, shapes=0)
-              for n in sources}
-    totals["subm_conv_dw_wgmma"]["previous_ms"] = 0.0
+    name = "subm_conv_dw_wgmma"
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, shapes=0,
+               previous_ms=0.0)
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
         a = rec.inputs[key]
         x, g, rule = a["x"], a["g"], a["rule"]
@@ -1025,33 +1079,16 @@ def check_grads(rec, lib_rows, launches, n_steps):
         cin, cout = x.shape[1], g.shape[1]
         pad = tensor_core_pad(cin, cout, x.shape[0], x.dtype)
         plan = dw_plan(cin + pad, cout, x.shape[0], x.dtype)
-        name = ("subm_conv_dw_wgmma" if plan.route == "wgmma"
-                else "subm_conv_dw")
-        # float32: the SIMT route at every shape; working type: the route
-        # the shape takes
+        if plan.route != "wgmma":
+            raise AssertionError(f"bf16 dW {cin}x{cout} took {plan.route}")
+        # float32: the route float32 takes (3xTF32; its row is phase 8b's);
+        # working type: the tensor-core route
         x32, g32 = x.float(), g.float()
         got = subm_conv_dw(x32, g32, rule)
         want = plain_dw(x32, g32, rule)
         if cin < 32:
-            # the SIMT kernel's row: the input conv's dW in float32, the type
-            # that stays on it at this shape
-            tot = totals["subm_conv_dw"]
-            ms32 = cuda_ms(lambda: subm_conv_dw(x32, g32, rule))
-            plain32 = cuda_ms(lambda: plain_dw(x32, g32, rule), reps=3)
-            b32, _ = bound(x32.numel() * 4 + g32.numel() * 4
-                           + rule.numel() * 4 + 27 * cin * cout * 4,
-                           2.0 * int((rule >= 0).sum()) * cin * cout)
-            tot["err"] = max(tot["err"], float((got - want).abs().max()))
-            tot["shapes"] += 1
-            log(f"  subm_conv_dw float32 V={x.shape[0]} {cin}x{cout}: kernel "
-                f"{ms32:.4f} ms, plain {plain32:.4f} ms, bound {b32:.4f} ms, "
-                f"{per_step:.1f} call(s) per step at this shape")
-            for col, val in (("ms", ms32), ("plain_ms", plain32),
-                             ("bound_ms", b32)):
-                tot[col] += val * per_step
             pad_sweep(x, None, rule, g=g)
         del x32, g32
-        tot = totals[name]
         got16 = subm_conv_dw(x, g, rule)
         if not torch.equal(got16, subm_conv_dw(x, g, rule)):
             raise AssertionError(f"subm_conv_dw {key}: two launches differ")
@@ -1064,46 +1101,41 @@ def check_grads(rec, lib_rows, launches, n_steps):
         if err32 > 1e-4 or abs16 > 1e-3 * scale16:
             raise AssertionError(f"subm_conv_dw {key}: f32 err {err32}, "
                                  f"bf16 err {abs16 / scale16} of max |dW|")
+        held(f"SIMT dW {key}", subm_conv_dw_simt(x, g, rule), want16, 1e-3)
         tot["err"] = max(tot["err"], abs16)
         tot["shapes"] += 1
-        if name == "subm_conv_dw_wgmma":
-            ms, previous = race(lambda: subm_conv_dw(x, g, rule),
-                                lambda: subm_conv_dw_simt(x, g, rule),
-                                rounds=5)
-        else:
-            ms = cuda_ms(lambda: subm_conv_dw(x, g, rule))
+        ms, previous = race(lambda: subm_conv_dw(x, g, rule),
+                            lambda: subm_conv_dw_simt(x, g, rule),
+                            rounds=5)
         plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
         nnz = int((rule >= 0).sum())
-        s = x.element_size()
-        flops = 2.0 * nnz * cin * cout
-        b, _ = bound(x.numel() * s + g.numel() * s + rule.numel() * 4
-                     + 27 * cin * cout * 4, flops, "bfloat16")
+        b, _, flops = dw_bound(x, g, rule)
         line = (f"  {name} {key[3][6:]} V={x.shape[0]} {cin}x{cout}"
                 f"{f' (+{pad} zero channels)' if pad else ''}: f32 "
                 f"err {err32:.1e}, bf16 err {abs16 / scale16:.1e} of max "
                 f"|dW|, kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
                 f"plain {plain:.4f} ms, bound {b:.4f} ms, gathered "
-                f"{nnz * cin * s / 1e6:.2f} MB, {per_step:.1f} call(s) per "
-                f"step")
-        if name == "subm_conv_dw_wgmma":
-            tot["previous_ms"] += previous * per_step
-            line += (f", {plan.n_chunks} chunk(s) of {plan.rows_per_chunk} "
-                     f"rows, SIMT kernel {previous:.4f} ms")
-            if ms > SLOWER_LIMIT * previous:
-                raise AssertionError(
-                    f"subm_conv_dw {cin}x{cout} V={x.shape[0]}: the wgmma "
-                    f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
+                f"{nnz * cin * x.element_size() / 1e6:.2f} MB, "
+                f"{per_step:.1f} call(s) per step, {plan.n_chunks} chunk(s) "
+                f"of {plan.rows_per_chunk} rows, SIMT kernel "
+                f"{previous:.4f} ms")
+        tot["previous_ms"] += previous * per_step
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(
+                f"subm_conv_dw {cin}x{cout} V={x.shape[0]}: the wgmma "
+                f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
         log(line)
         for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * per_step
-    for name, tot in totals.items():
-        if not tot.pop("shapes"):
-            raise AssertionError(f"no recorded dW shape took {name}")
-        lib_rows.append(dict(
-            name=name, route="cuda", source=sources[name],
-            replaces="treelearn_tpu/ops/pallas_conv.py:438",
-            launches=launches[name], max_abs_err=tot.pop("err"),
-            bound_by="operations", library_ms=None, **tot))
+    if not tot.pop("shapes"):
+        raise AssertionError(f"no recorded dW shape took {name}")
+    totals = {name: tot}
+    lib_rows.append(dict(
+        name=name, route="cuda",
+        source="treelearn_tpu_torch/csrc/subm_conv_dw_wgmma.cu",
+        replaces="treelearn_tpu/ops/pallas_conv.py:438",
+        launches=launches[name], max_abs_err=tot.pop("err"),
+        bound_by="operations", library_ms=None, **tot))
     new, old = (totals["subm_conv_dw_wgmma"][c] for c in ("ms",
                                                           "previous_ms"))
     log(f"  dW per training step on the tensor-core route: {new:.4f} ms, "
@@ -1146,6 +1178,8 @@ def check_grads(rec, lib_rows, launches, n_steps):
             if err > tol:
                 raise AssertionError(f"dx {key}: err {err} of max, limit "
                                      f"{tol}")
+        held(f"SIMT dx {key}", subm_conv_simt(g, w, rule, mirror=True),
+             want, 2e-2)
         ms, previous = race(
             lambda: subm_conv_dx(g, w, rule),
             lambda: subm_conv_simt(g, w, rule, mirror=True))
@@ -1253,7 +1287,7 @@ def compare_steps(got, want, what):
 def train_step_check(tmp):
     """Phase 8: one float32 step at small width, card against CPU.  Returns
     the card step's launch counts (zeroed just before it): float32 training
-    is the path of the SIMT conv and dW kernels."""
+    is a path of the 3xTF32 conv and dW kernels."""
     import torch
 
     from treelearn_tpu_torch.data import collate_padded
@@ -1271,7 +1305,7 @@ def train_step_check(tmp):
     compare_steps(out[CARD], out["cpu"], "train step card vs CPU")
     log(f"  {int(batch['n_points'])} points; launches on the card "
         f"{json.dumps(launches)}")
-    zero = [k for k in ("rulebook", "subm_conv", "subm_conv_dw")
+    zero = [k for k in ("rulebook", "subm_conv_tf32", "subm_conv_dw_tf32")
             if launches[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched in the float32 step: "
@@ -1299,8 +1333,8 @@ def adjusted_rand(a, b):
 def small_plot_check(tmp):
     """The port's pipeline on a small plot: card vs the plain versions on
     the CPU, float32 both, same seed weights.  Returns the card run's launch
-    counts (zeroed just before it): the float32 path is the one that runs
-    every conv on the SIMT kernel."""
+    counts (zeroed just before it): the float32 path runs every conv on the
+    3xTF32 kernel (the 4 -> 8 input conv padded to 8 channels)."""
     from treelearn_tpu_torch.io.pointcloud import load_data
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
@@ -1326,7 +1360,7 @@ def small_plot_check(tmp):
     log(f"  launches on the card {json.dumps(launches)}")
     if ari < 0.999 or out["cuda"][1] != out["cpu"][1]:
         raise AssertionError("card and CPU pipelines disagree")
-    zero = [k for k in ("rulebook", "subm_conv", "vert", "cc")
+    zero = [k for k in ("rulebook", "subm_conv_tf32", "vert", "cc")
             if launches[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched on the float32 path: "
@@ -1337,161 +1371,530 @@ def small_plot_check(tmp):
 K5_CFG = dict(channels=32, num_blocks=2, kernel_size=5)   # phase 5b's model
 
 
-def k5_conv_rows(rec, launches, lib_rows):
-    """Phase 5b's conv row: every recorded K = 125 conv shape of the card
-    run on the SIMT kernel against the plain conv (float32, rtol 1e-4),
-    timed per run (weighted by calls)."""
+def tf32_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
+    """The ``subm_conv_tf32`` row of a float32 path's recorded conv shapes:
+    at each, the 3xTF32 kernel (repeat launch bit-equal) and the SIMT kernel
+    it replaced each held to the plain conv (rtol 1e-4, atol 1e-4 of max
+    |out|: the SIMT row's float32 tolerance), the tf32 pack kernel to the
+    torch pack exactly, both kernels timed in turns (``previous_ms``), none
+    more than ``SLOWER_LIMIT`` slower, the total lower; ms per run
+    (weighted by calls over ``n_runs``), per shape in ``per_shape``.
+    ``launches``: the path's counts.  Returns the row."""
     import torch
+    import torch.nn.functional as F
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
-    from treelearn_tpu_torch.ops.subm_conv import subm_conv
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan,
+                                                   pack_weight_tf32,
+                                                   subm_conv, subm_conv_simt,
+                                                   tensor_core_pad)
 
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, by_ops=0,
-               shapes=0)
-    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv"):
+    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    err, by_ops, shapes = 0.0, 0, []
+    for key in sorted((k for k in rec.inputs if k[0] == "subm_conv"),
+                      key=lambda k: (-k[1][0], k[2])):
         a = rec.inputs[key]
         feats, weight, rule = a["feats"], a["weight"], a["rule"]
-        if weight.shape[0] != 125 or feats.dtype != torch.float32:
-            raise AssertionError(f"phase 5b conv shape {key}")
+        k, cin, cout = weight.shape
+        v = rule.shape[1]
+        pad = tensor_core_pad(cin, cout, v, feats.dtype, k)
+        plan = conv_plan(cin + pad, cout, v, feats.dtype, k)
+        if feats.dtype != torch.float32 or plan.route != "tf32x3":
+            raise AssertionError(f"{problem}: conv {key} took {plan.route}")
+        calls = rec.calls[key] / n_runs
         got = subm_conv(feats, weight, rule)
+        if not torch.equal(got, subm_conv(feats, weight, rule)):
+            raise AssertionError(f"{problem}: subm_conv_tf32 {key}: two "
+                                 "launches differ")
         want = plain_conv(feats, weight, rule)
+        simt = subm_conv_simt(feats, weight, rule)
         torch.cuda.synchronize()
         scale = float(want.abs().max().clamp(min=1e-6))
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
-            raise AssertionError(f"subm_conv K=125 {key}: max err "
-                                 f"{float((got - want).abs().max())}")
-        ms = cuda_ms(lambda: subm_conv(feats, weight, rule))
+        for what, out in (("3xTF32", got), ("SIMT", simt)):
+            if not torch.allclose(out, want, rtol=1e-4, atol=1e-4 * scale):
+                raise AssertionError(
+                    f"{problem}: {what} conv K={k} {cin}->{cout} V={v}: max "
+                    f"err {float((out - want).abs().max())}")
+        wp = F.pad(weight, (0, 0, 0, pad)).contiguous()
+        if not torch.equal(pack_weight_tf32(wp, plan.bn, plan.bk).cpu(),
+                           pack_weight_tf32(wp.cpu(), plan.bn, plan.bk)):
+            raise AssertionError(f"{problem}: pack_weight_tf32 {key} differs")
+        err = max(err, float((got - want).abs().max()))
+        ms, previous = race(lambda: subm_conv(feats, weight, rule),
+                            lambda: subm_conv_simt(feats, weight, rule))
         plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
-        b, by, flops, _, _ = conv_bound(feats, weight, rule)
-        calls = rec.calls[key]
-        log(f"  subm_conv K=125 float32 V={rule.shape[1]} "
-            f"{weight.shape[1]}->{weight.shape[2]}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, bound "
-            f"{b:.4f} ms ({by}), {calls} call(s)")
-        tot["err"] = max(tot["err"], float((got - want).abs().max()))
-        tot["by_ops"] += by == "operations"
-        tot["shapes"] += 1
-        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+        b, by, flops, _, gathered = conv_bound(feats, weight, rule,
+                                               tf32x3=True)
+        by_ops += by == "operations"
+        log(f"  subm_conv_tf32 K={k} V={v} {cin}->{cout}"
+            f"{f' (+{pad} zero channels)' if pad else ''} {plan.bm}x"
+            f"{plan.bn}, {plan.bk}-channel slots: err "
+            f"{rel_err(got, want):.1e} of max|out|, kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), SIMT kernel "
+            f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+            f"({by}), gathered {gathered / 1e6:.2f} MB, {calls:g} call(s)")
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(
+                f"{problem}: subm_conv_tf32 {cin}->{cout} V={v}: {ms:.4f} ms, "
+                f"the SIMT kernel {previous:.4f}")
+        shapes.append(dict(k=k, v=v, cin=cin, cout=cout, calls=calls, ms=ms,
+                           previous_ms=previous, plain_ms=plain, bound_ms=b))
+        for col, val in (("ms", ms), ("previous_ms", previous),
+                         ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * calls
-    if not tot["shapes"]:
-        raise AssertionError("phase 5b recorded no conv")
-    by_ops, shapes = tot.pop("by_ops"), tot.pop("shapes")
-    lib_rows.append(dict(
-        name="subm_conv", route="cuda",
-        source="treelearn_tpu_torch/csrc/subm_conv.cu",
-        replaces="treelearn_tpu/ops/pallas_conv.py:355",
-        problem="kernel_size 5 (phase 5b)", launches=launches["subm_conv"],
-        max_abs_err=tot.pop("err"),
-        bound_by="operations" if by_ops * 2 >= shapes else "bytes",
-        library_ms=None, **tot))
+    if not shapes:
+        raise AssertionError(f"{problem}: no conv recorded")
+    log(f"  {problem}: 3xTF32 convs {tot['ms']:.4f} ms a run, the SIMT "
+        f"kernel at the same shapes {tot['previous_ms']:.4f} ms")
+    if not tot["ms"] < tot["previous_ms"]:
+        raise AssertionError(f"{problem}: the 3xTF32 convs are not faster")
+    row = dict(name="subm_conv_tf32", route="cuda",
+               source="treelearn_tpu_torch/csrc/subm_conv_tf32.cu",
+               replaces="treelearn_tpu/ops/pallas_conv.py:355",
+               problem=problem, launches=launches["subm_conv_tf32"],
+               max_abs_err=err,
+               bound_by="operations" if by_ops * 2 >= len(shapes)
+               else "bytes", library_ms=None, per_shape=shapes, **tot)
+    lib_rows.append(row)
+    return row
 
 
-def k5_dw_rows(rec, launches, lib_rows):
-    """Phase 5b's dW row: every recorded K = 125 dW shape of the card's
-    training step on the SIMT kernel against the plain dW (float32, 1e-4 of
-    max |dW|), timed per step."""
+def tf32_dw_rows(rec, launches, lib_rows, problem, n_steps):
+    """The ``subm_conv_dw_tf32`` row of a float32 training path's recorded
+    dW shapes: the 3xTF32 kernel (repeat launch bit-equal) and the SIMT
+    kernel each within 1e-4 of max |dW| of the plain dW (the SIMT row's
+    float32 tolerance), timed in turns, none more than ``SLOWER_LIMIT``
+    slower, the total lower; ms per step."""
     import torch
 
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import subm_conv_dw
+    from treelearn_tpu_torch.ops.subm_conv import (dw_plan, subm_conv_dw,
+                                                   subm_conv_dw_simt,
+                                                   tensor_core_pad)
 
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, shapes=0)
+    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    err, by_ops, shapes = 0.0, 0, []
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
         a = rec.inputs[key]
         x, g, rule = a["x"], a["g"], a["rule"]
-        k, cin, cout = rule.shape[0], x.shape[1], g.shape[1]
-        if k != 125:
-            raise AssertionError(f"phase 5b dW shape {key}: K {k}")
+        k, (v, cin), cout = rule.shape[0], x.shape, g.shape[1]
+        pad = tensor_core_pad(cin, cout, v, x.dtype, k)
+        plan = dw_plan(cin + pad, cout, v, x.dtype, k)
+        if x.dtype != torch.float32 or plan.route != "tf32x3":
+            raise AssertionError(f"{problem}: dW {key} took {plan.route}")
+        per_step = rec.calls[key] / n_steps
         got = subm_conv_dw(x, g, rule)
+        if not torch.equal(got, subm_conv_dw(x, g, rule)):
+            raise AssertionError(f"{problem}: subm_conv_dw_tf32 {key}: two "
+                                 "launches differ")
         want = plain_dw(x, g, rule)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if err > 1e-4 * float(want.abs().max().clamp(min=1e-12)):
-            raise AssertionError(f"subm_conv_dw K=125 {key}: err {err}")
-        ms = cuda_ms(lambda: subm_conv_dw(x, g, rule))
+        held(f"{problem}: 3xTF32 dW K={k} {cin}x{cout} V={v}", got, want,
+             1e-4)
+        held(f"{problem}: SIMT dW K={k} {cin}x{cout} V={v}",
+             subm_conv_dw_simt(x, g, rule), want, 1e-4)
+        err = max(err, float((got - want).abs().max()))
+        ms, previous = race(lambda: subm_conv_dw(x, g, rule),
+                            lambda: subm_conv_dw_simt(x, g, rule), rounds=5)
         plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
-        flops = 2.0 * int((rule >= 0).sum()) * cin * cout
-        b, _ = bound(x.numel() * 4 + g.numel() * 4 + rule.numel() * 4
-                     + k * cin * cout * 4, flops)
-        calls = rec.calls[key]
-        log(f"  subm_conv_dw K=125 float32 V={x.shape[0]} {cin}x{cout}: "
-            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-            f"{plain:.4f} ms, bound {b:.4f} ms, {calls} call(s) in the step")
-        tot["err"] = max(tot["err"], err)
-        tot["shapes"] += 1
-        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
-            tot[col] += val * calls
-    if not tot.pop("shapes"):
-        raise AssertionError("phase 5b recorded no dW")
-    lib_rows.append(dict(
-        name="subm_conv_dw", route="cuda",
-        source="treelearn_tpu_torch/csrc/subm_conv_dw.cu",
-        replaces="treelearn_tpu/ops/pallas_conv.py:438",
-        problem="kernel_size 5 (phase 5b)",
-        launches=launches["subm_conv_dw"], max_abs_err=tot.pop("err"),
-        bound_by="operations", library_ms=None, **tot))
+        b, by, flops = dw_bound(x, g, rule, tf32x3=True)
+        by_ops += by == "operations"
+        log(f"  subm_conv_dw_tf32 K={k} V={v} {cin}x{cout}"
+            f"{f' (+{pad} zero channels)' if pad else ''}: err "
+            f"{rel_err(got, want):.1e} of max|dW|, kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), SIMT kernel "
+            f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+            f"({by}), {plan.n_chunks} chunk(s) of {plan.rows_per_chunk} "
+            f"rows, {per_step:g} call(s) per step")
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(
+                f"{problem}: subm_conv_dw_tf32 {cin}x{cout} V={v}: "
+                f"{ms:.4f} ms, the SIMT kernel {previous:.4f}")
+        shapes.append(dict(k=k, v=v, cin=cin, cout=cout, per_step=per_step,
+                           ms=ms, previous_ms=previous, plain_ms=plain,
+                           bound_ms=b))
+        for col, val in (("ms", ms), ("previous_ms", previous),
+                         ("plain_ms", plain), ("bound_ms", b)):
+            tot[col] += val * per_step
+    if not shapes:
+        raise AssertionError(f"{problem}: no dW recorded")
+    log(f"  {problem}: 3xTF32 dW {tot['ms']:.4f} ms a step, the SIMT kernel "
+        f"at the same shapes {tot['previous_ms']:.4f} ms")
+    if not tot["ms"] < tot["previous_ms"]:
+        raise AssertionError(f"{problem}: the 3xTF32 dW is not faster")
+    row = dict(name="subm_conv_dw_tf32", route="cuda",
+               source="treelearn_tpu_torch/csrc/subm_conv_dw_tf32.cu",
+               replaces="treelearn_tpu/ops/pallas_conv.py:438",
+               problem=problem, launches=launches["subm_conv_dw_tf32"],
+               max_abs_err=err,
+               bound_by="operations" if by_ops * 2 >= len(shapes)
+               else "bytes", library_ms=None, per_shape=shapes, **tot)
+    lib_rows.append(row)
+    return row
 
 
-def kernel_size5_check(tmp, lib_rows):
-    """Phase 5b: a kernel_size 5 model (2 levels, channels 32, float32,
-    seed-0 weights) on the small plot, card against CPU as phase 5 holds
-    them; the card run's counts, zeroed just before it, must show the SIMT
-    conv with K = 125 and no tensor-core launch.  Then one training step
-    on the card, counts zeroed just before it: the SIMT dW must launch,
-    and each of its shapes is held to the plain dW."""
+def tf32_dx_fields(rec, row, n_steps):
+    """dx of a float32 training path (the conv with the mirrored weights on
+    the 3xTF32 kernel, tiles packed mirrored): at each recorded shape held,
+    and the SIMT kernel with it, to autograd through the plain conv (1e-4
+    of max |dx|), the mirrored pack to the torch pack exactly, both timed in
+    turns, none more than ``SLOWER_LIMIT`` slower, the total lower; the
+    per-step sums go into ``row`` as ``dx_*``."""
     import torch
 
-    from treelearn_tpu_torch.data import collate_padded
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, mirrored,
+                                                   pack_weight_tf32,
+                                                   subm_conv_dx,
+                                                   subm_conv_simt)
+
+    dx = dict(dx_ms=0.0, dx_previous_ms=0.0, dx_plain_ms=0.0,
+              dx_bound_ms=0.0, dx_launches_per_step=0.0)
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
+        a = rec.inputs[key]
+        g, w, rule = a["g"], a["weight"], a["rule"]
+        k, cin, cout = w.shape
+        plan = conv_plan(cout, cin, rule.shape[1], g.dtype, k)
+        if g.dtype != torch.float32 or plan.route != "tf32x3":
+            raise AssertionError(f"dx {key} took {plan.route}")
+        per_step = rec.calls[key] / n_steps
+        x0 = torch.zeros((rule.shape[1], cin), device=g.device,
+                         requires_grad=True)
+        (want,) = torch.autograd.grad((plain_conv(x0, w, rule) * g).sum(),
+                                      x0)
+        held(f"3xTF32 dx {key}", subm_conv_dx(g, w, rule), want, 1e-4)
+        held(f"SIMT dx {key}", subm_conv_simt(g, w, rule, mirror=True), want,
+             1e-4)
+        if not torch.equal(
+                pack_weight_tf32(w, plan.bn, plan.bk, mirror=True).cpu(),
+                pack_weight_tf32(w.cpu(), plan.bn, plan.bk, mirror=True)):
+            raise AssertionError(f"mirrored pack_weight_tf32 {key} differs")
+        ms, previous = race(lambda: subm_conv_dx(g, w, rule),
+                            lambda: subm_conv_simt(g, w, rule, mirror=True))
+        wm = mirrored(w)
+        plain = cuda_ms(lambda: plain_conv(g, wm, rule), reps=3)
+        b, by, flops, _, _ = conv_bound(g, wm, rule, tf32x3=True)
+        log(f"  dx 3xTF32 V={g.shape[0]} {cin}<-{cout}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), SIMT kernel "
+            f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+            f"({by}), {per_step:g} call(s) per step")
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(f"dx {key}: {ms:.4f} ms, the SIMT kernel "
+                                 f"{previous:.4f}")
+        for col, val in (("dx_ms", ms), ("dx_previous_ms", previous),
+                         ("dx_plain_ms", plain), ("dx_bound_ms", b),
+                         ("dx_launches_per_step", 1.0)):
+            dx[col] += val * per_step
+    log(f"  dx per float32 training step: {json.dumps(dx)}")
+    if not dx["dx_ms"] < dx["dx_previous_ms"]:
+        raise AssertionError("the 3xTF32 dx is not faster per step")
+    row.update(dx)
+
+
+def simt_rows(rec, launches, lib_rows, problem, n_steps=None):
+    """The SIMT kernels' rows on the path that still takes them (bf16 at
+    kernel size 5): each recorded conv (or, with ``n_steps``, dW) shape on
+    the route its shape takes, which must be SIMT, held to the plain
+    version (bf16 gates: 2e-2 of max |out|, 1e-3 of max |dW|) and timed;
+    ms per run or per step."""
+    import torch
+
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_plan,
+                                                   subm_conv, subm_conv_dw)
+
+    dw = n_steps is not None
+    name = "subm_conv_dw" if dw else "subm_conv"
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    err, by_ops, n = 0.0, 0, 0
+    for key in sorted(k for k in rec.inputs if k[0] == name):
+        a = rec.inputs[key]
+        if dw:
+            x, g, rule = a["x"], a["g"], a["rule"]
+            k, cin, cout = rule.shape[0], x.shape[1], g.shape[1]
+            route = dw_plan(cin, cout, x.shape[0], x.dtype, k).route
+            fn, plain = (lambda: subm_conv_dw(x, g, rule),
+                         lambda: plain_dw(x, g, rule))
+            b, by, flops = dw_bound(x, g, rule)
+            limit, dtype, per = 1e-3, x.dtype, rec.calls[key] / n_steps
+        else:
+            x, w, rule = a["feats"], a["weight"], a["rule"]
+            k, cin, cout = w.shape
+            route = conv_plan(cin, cout, rule.shape[1], x.dtype, k).route
+            fn, plain = (lambda: subm_conv(x, w, rule),
+                         lambda: plain_conv(x, w, rule))
+            b, by, flops, _, _ = conv_bound(x, w, rule)
+            limit, dtype, per = 2e-2, x.dtype, rec.calls[key]
+        if route != "simt":
+            raise AssertionError(f"{problem}: {key} took {route}")
+        err = max(err, held(f"{problem}: SIMT {name} {key}", fn(), plain(),
+                            limit))
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, reps=3)
+        log(f"  {name} (SIMT) K={k} {str(dtype)[6:]} V={x.shape[0]} "
+            f"{cin}->{cout}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+            f"TFLOP/s), plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), "
+            f"{per:g} call(s)")
+        by_ops += by == "operations"
+        n += 1
+        for col, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b)):
+            tot[col] += val * per
+    if not n:
+        raise AssertionError(f"{problem}: no {name} recorded")
+    lib_rows.append(dict(
+        name=name, route="cuda",
+        source=f"treelearn_tpu_torch/csrc/{name}.cu",
+        replaces=("treelearn_tpu/ops/pallas_conv.py:438" if dw
+                  else "treelearn_tpu/ops/pallas_conv.py:355"),
+        problem=problem, launches=launches[name], max_abs_err=err,
+        bound_by="operations" if by_ops * 2 >= n else "bytes",
+        library_ms=None, **tot))
+
+
+def k5_small_plot(tmp, dev, fp16, rec=None):
+    """The ``kernel_size: 5`` model on the small plot on ``dev``; counts
+    zeroed just before.  Returns (labels, n_trees, launches, n_points)."""
     from treelearn_tpu_torch.io.pointcloud import load_data
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
+
+    path, data, _ = write_plot(osp.join(tmp, f"k5_{dev}_{int(fp16)}"), 3,
+                               n_trees=6, extent=20, points_per_tree=800,
+                               ground_points=4000)
+    config = pipeline_config(path, fp16=fp16, **{
+        k: v for k, v in K5_CFG.items() if k != "kernel_size"})
+    config.model.kernel_size = K5_CFG["kernel_size"]
+    _cuda.set_recorder(rec)
+    _cuda.reset_launches()
+    res = run_treelearn_pipeline(config, device=dev)
+    launches = dict(_cuda.LAUNCHES)
+    _cuda.set_recorder(None)
+    labels = load_data(res["output_path"])[:, 3]
+    if len(labels) != len(data):
+        raise AssertionError(f"k5 {dev}: {len(labels)} output rows")
+    return labels, res["n_trees"], launches, len(data)
+
+
+def k5_step(tmp, dtype, rec):
+    """One training step of the ``kernel_size: 5`` model on the card in
+    ``dtype`` with ``rec`` installed; returns (loss, launches)."""
+    import torch
+
+    from treelearn_tpu_torch.data import collate_padded
+    from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.train.loop import make_train_step
 
-    t0 = time.time()
-    out, rec = {}, Recorder()
-    for dev in (CARD, "cpu"):
-        path, data, _ = write_plot(osp.join(tmp, f"k5_{dev}"), 3, n_trees=6,
-                                   extent=20, points_per_tree=800,
-                                   ground_points=4000)
-        config = pipeline_config(path, fp16=False, **{
-            k: v for k, v in K5_CFG.items() if k != "kernel_size"})
-        config.model.kernel_size = K5_CFG["kernel_size"]
-        _cuda.set_recorder(rec if dev == CARD else None)
-        _cuda.reset_launches()
-        res = run_treelearn_pipeline(config, device=dev)
-        if dev == CARD:
-            launches = dict(_cuda.LAUNCHES)
-        _cuda.set_recorder(None)
-        labels = load_data(res["output_path"])[:, 3]
-        if len(labels) != len(data):
-            raise AssertionError(f"k5 {dev}: {len(labels)} output rows")
-        out[dev] = (labels, res["n_trees"])
-    ari = adjusted_rand(out[CARD][0], out["cpu"][0])
-    log(f"kernel_size 5 small plot: n_trees cuda {out[CARD][1]} cpu "
-        f"{out['cpu'][1]}, ARI {ari:.6f}; launches on the card "
-        f"{json.dumps(launches)}")
-    if ari < 0.999 or out[CARD][1] != out["cpu"][1]:
-        raise AssertionError("kernel_size 5: card and CPU pipelines disagree")
-    if (launches["subm_conv"] == 0 or launches["subm_conv_wgmma"]
-            or launches["rulebook"]):
-        raise AssertionError(f"kernel_size 5 launches {launches}")
-    k5_conv_rows(rec, launches, lib_rows)
-    rec = GradRecorder()
     _cuda.set_recorder(rec)
-    (loss, _, _), step_launches = one_step(
+    (loss, _, _), launches = one_step(
         lambda m, o, s: make_train_step(
-            m, o, s, batch_size=1, compute_dtype=torch.float32,
+            m, o, s, batch_size=1, compute_dtype=dtype,
             grad_norm_clip=True, device=CARD),
         collate_padded([step_sample(tmp)]), CARD,
         dict(STEP_CFG, **K5_CFG))
     _cuda.set_recorder(None)
-    log(f"  kernel_size 5 training step on the card: loss {loss:.5f}, "
-        f"launches {json.dumps(step_launches)}")
-    if (step_launches["subm_conv_dw"] == 0 or step_launches[
-            "subm_conv_dw_wgmma"] or not torch.isfinite(torch.tensor(loss))):
+    if not torch.isfinite(torch.tensor(loss)):
+        raise AssertionError(f"kernel_size 5 {dtype} step: loss {loss}")
+    return loss, launches
+
+
+def kernel_size5_check(tmp, lib_rows):
+    """Phase 5b: a kernel_size 5 model (2 levels, channels 32, seed-0
+    weights) on the small plot.  float32, card against CPU as phase 5 holds
+    them; the card run's counts, zeroed just before it, must show the 3xTF32
+    conv with K = 125 and no other conv kernel; its shapes make a
+    ``subm_conv_tf32`` row.  One float32 training step, counts zeroed just
+    before it: the 3xTF32 dW must launch (a ``subm_conv_dw_tf32`` row).
+    Then bf16, the path the SIMT kernels keep: the same plot and one step
+    on the card, counts zeroed just before each: the SIMT conv and dW must
+    launch, and their shapes make the SIMT kernels' rows."""
+    import torch
+
+    t0 = time.time()
+    problem = "kernel_size 5 (phase 5b)"
+    rec = Recorder()
+    card = k5_small_plot(tmp, CARD, False, rec)
+    cpu = k5_small_plot(tmp, "cpu", False)
+    launches = card[2]
+    ari = adjusted_rand(card[0], cpu[0])
+    log(f"kernel_size 5 small plot, float32: n_trees cuda {card[1]} cpu "
+        f"{cpu[1]}, ARI {ari:.6f}; launches on the card "
+        f"{json.dumps(launches)}")
+    if ari < 0.999 or card[1] != cpu[1]:
+        raise AssertionError("kernel_size 5: card and CPU pipelines disagree")
+    if (launches["subm_conv_tf32"] == 0 or launches["subm_conv_wgmma"]
+            or launches["subm_conv"] or launches["rulebook"]):
+        raise AssertionError(f"kernel_size 5 launches {launches}")
+    tf32_conv_rows(rec, launches, lib_rows, problem)
+    rec = GradRecorder()
+    loss, step_launches = k5_step(tmp, torch.float32, rec)
+    log(f"  kernel_size 5 float32 training step on the card: loss "
+        f"{loss:.5f}, launches {json.dumps(step_launches)}")
+    if (step_launches["subm_conv_dw_tf32"] == 0
+            or step_launches["subm_conv_dw_wgmma"]
+            or step_launches["subm_conv_dw"]):
         raise AssertionError(f"kernel_size 5 step launches {step_launches}")
-    k5_dw_rows(rec, step_launches, lib_rows)
+    tf32_dw_rows(rec, step_launches, lib_rows, problem, 1)
+    # bf16: K != 27 keeps the SIMT kernels
+    problem = "kernel_size 5, bf16 (phase 5b)"
+    rec = Recorder()
+    _, n_trees, launches, _ = k5_small_plot(tmp, CARD, True, rec)
+    log(f"kernel_size 5 small plot, bf16, on the card: n_trees {n_trees}, "
+        f"launches {json.dumps(launches)}")
+    if (launches["subm_conv"] == 0 or launches["subm_conv_wgmma"]
+            or launches["subm_conv_tf32"] or launches["rulebook"]):
+        raise AssertionError(f"kernel_size 5 bf16 launches {launches}")
+    simt_rows(rec, launches, lib_rows, problem)
+    rec = GradRecorder()
+    loss, step_launches = k5_step(tmp, torch.bfloat16, rec)
+    log(f"  kernel_size 5 bf16 training step on the card: loss {loss:.5f}, "
+        f"launches {json.dumps(step_launches)}")
+    if (step_launches["subm_conv_dw"] == 0
+            or step_launches["subm_conv_dw_wgmma"]
+            or step_launches["subm_conv_dw_tf32"]):
+        raise AssertionError(f"kernel_size 5 bf16 step launches "
+                             f"{step_launches}")
+    simt_rows(rec, step_launches, lib_rows, problem, n_steps=1)
     log(f"  phase 5b: {time.time() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def simt_float32():
+    """Within the block, float32 convs take the SIMT kernel, unpadded, as
+    they did before the 3xTF32 route (``ops/subm_conv.py``'s routing
+    functions swapped in-process; bf16 keeps its routes)."""
+    import torch
+
+    from treelearn_tpu_torch.ops import subm_conv as sc
+
+    plan, pad = sc.conv_plan, sc.tensor_core_pad
+
+    def conv_plan(cin, cout, v, dtype=torch.bfloat16,
+                  n_offsets=sc.N_OFFSETS):
+        if dtype == torch.float32:
+            return sc.ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
+        return plan(cin, cout, v, dtype, n_offsets)
+
+    def tensor_core_pad(cin, cout, v, dtype, n_offsets=sc.N_OFFSETS):
+        if dtype == torch.float32:
+            return 0
+        return pad(cin, cout, v, dtype, n_offsets)
+
+    sc.conv_plan, sc.tensor_core_pad = conv_plan, tensor_core_pad
+    try:
+        yield
+    finally:
+        sc.conv_plan, sc.tensor_core_pad = plan, pad
+
+
+def float32_phase(tmp, path, bf16_plot, bf16_step_s, lib_rows):
+    """Phase 8b: the float32 route at full width (channels 32, 7 levels,
+    ``fp16: False``).  (a) The plot, counts zeroed just before: the
+    rulebook, the 3xTF32 conv, verticality and found bits must launch, no
+    other conv; its conv shapes make the ``subm_conv_tf32`` row (problem
+    "plot, float32").  (b) The same run warm, then with the SIMT route
+    forced in-process: the same partition (ARI >= 0.999) and tree count;
+    wall time and the forward's CUDA-event ms of each beside the bf16
+    plot's (``bf16_plot``: wall s, forward ms).  (c) ``TRAIN_STEPS`` float32
+    steps of ``train_synthetic_checkpoint`` as phase 6 runs them, counts
+    zeroed just before: the rulebook and both 3xTF32 kernels must launch,
+    every loss be finite and the last 5 below the first 5; the median step
+    beside the bf16 one (``bf16_step_s``); its dW shapes make the
+    ``subm_conv_dw_tf32`` row, its dx shapes the row's ``dx_*`` fields."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.config import load_yaml_file
+    from treelearn_tpu_torch.io.pointcloud import load_data
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.train.selftrain import (
+        BENCH_RECIPE, train_synthetic_checkpoint)
+
+    t0 = time.time()
+    problem = "plot, float32 (phase 8b)"
+    rec = Recorder()
+    _cuda.set_recorder(rec)
+    cold = run_plot(path, fp16=False)
+    _cuda.set_recorder(None)
+    log_plot("float32 plot (cold, recorder installed)", *cold)
+    launches = cold[2]
+    zero = [k for k in ("rulebook", "subm_conv_tf32", "vert", "cc")
+            if launches[k] == 0]
+    if zero or launches["subm_conv"] or launches["subm_conv_wgmma"]:
+        raise AssertionError(f"float32 plot launches {launches}")
+    row = tf32_conv_rows(rec, launches, lib_rows, problem)
+    del rec
+    runs = {}
+    for what in ("3xTF32", "SIMT"):
+        if what == "SIMT":
+            with simt_float32():
+                res, wall, counts, fwd = run_plot(path, fp16=False)
+            if counts["subm_conv"] == 0 or counts["subm_conv_tf32"]:
+                raise AssertionError(f"SIMT-forced plot launches {counts}")
+        else:
+            res, wall, counts, fwd = run_plot(path, fp16=False)
+        labels = load_data(res["output_path"])[:, 3]
+        runs[what] = (labels, res["n_trees"], wall,
+                      sum(fwd.device_ms()), sum(fwd.host_s))
+        log_plot(f"float32 plot (warm, {what} convs)", res, wall, counts,
+                 fwd)
+    ari = adjusted_rand(runs["3xTF32"][0], runs["SIMT"][0])
+    log(f"float32 plot, 3xTF32 vs SIMT convs: ARI {ari:.6f}, n_trees "
+        f"{runs['3xTF32'][1]} / {runs['SIMT'][1]}")
+    if ari < 0.999 or runs["3xTF32"][1] != runs["SIMT"][1]:
+        raise AssertionError("the 3xTF32 and SIMT float32 plots disagree")
+    log(f"plot warm wall / forward (CUDA events): float32 3xTF32 "
+        f"{runs['3xTF32'][2]:.2f} s / {runs['3xTF32'][3]:.2f} ms, float32 "
+        f"SIMT {runs['SIMT'][2]:.2f} s / {runs['SIMT'][3]:.2f} ms, bf16 "
+        f"{bf16_plot[0]:.2f} s / {bf16_plot[1]:.2f} ms")
+    row.update(plot_warm_s=runs["3xTF32"][2],
+               plot_forward_ms=runs["3xTF32"][3],
+               plot_simt_warm_s=runs["SIMT"][2],
+               plot_simt_forward_ms=runs["SIMT"][3],
+               plot_bf16_warm_s=bf16_plot[0],
+               plot_bf16_forward_ms=bf16_plot[1])
+    # (c) float32 training
+    model_cfg = dict(load_yaml_file(osp.join(
+        REPO, "configs", "_modular", "model.yaml"))["model"])
+    rec = GradRecorder()
+    _cuda.set_recorder(rec)
+    _cuda.reset_launches()
+    _, info = train_synthetic_checkpoint(
+        model_cfg, cache_dir=osp.join(tmp, "selftrain_f32"),
+        steps=TRAIN_STEPS, lr=BENCH_RECIPE["lr"], n_crops=4,
+        crop_extent=BENCH_RECIPE["crop_extent"], ppt=BENCH_RECIPE["ppt"],
+        hard_frac=BENCH_RECIPE["hard_frac"], batch_size=1, log_every=5,
+        logger=lambda m: log("  " + m), return_info=True, device=CARD,
+        compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    train_launches = dict(_cuda.LAUNCHES)
+    _cuda.set_recorder(None)
+    losses = np.asarray(info["losses"])
+    step_s = np.asarray(info["step_seconds"])
+    median = float(np.median(step_s[1:]))
+    log(f"float32 train: {len(losses)} steps, first step {step_s[0]:.4f} s, "
+        f"median of steps 2..{len(step_s)} {median:.4f} s (bf16, phase 6: "
+        f"{bf16_step_s:.4f} s)")
+    log(f"  losses {[round(float(x), 3) for x in losses]}")
+    log(f"  launches {json.dumps(train_launches)}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"float32 training losses {losses}")
+    if not losses[-5:].mean() < losses[:5].mean():
+        raise AssertionError(f"float32 loss did not fall: first 5 mean "
+                             f"{losses[:5].mean()}, last 5 mean "
+                             f"{losses[-5:].mean()}")
+    zero = [k for k in ("rulebook", "subm_conv_tf32", "subm_conv_dw_tf32")
+            if train_launches[k] == 0]
+    if zero or train_launches["subm_conv_dw"] or train_launches[
+            "subm_conv_dw_wgmma"]:
+        raise AssertionError(f"float32 training launches {train_launches}")
+    n_steps = len(losses)
+    dw_row = tf32_dw_rows(rec, train_launches, lib_rows,
+                          "training, float32 (phase 8b)", n_steps)
+    dw_row.update(train_median_step_s=median,
+                  train_bf16_median_step_s=bf16_step_s)
+    tf32_dx_fields(rec, row, n_steps)
+    row["train_launches_per_step"] = train_launches["subm_conv_tf32"] / n_steps
+    log(f"  phase 8b: {time.time() - t0:.1f} s")
 
 
 def profile_phase(trace_dir):
@@ -2271,6 +2674,7 @@ def main():
                          "(default: the run's temporary directory)")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -2348,6 +2752,7 @@ def main():
             raise AssertionError(f"warm run: kernels not launched {zero}, "
                                  f"{warm[0]['n_trees']} trees")
         cold_warm(cold, warm)
+        bf16_plot = (warm[1], sum(warm[3].device_ms()))
         del warm
 
         # 3b. the banded k-NN route on the main path's own problem
@@ -2388,9 +2793,10 @@ def main():
         check_knn(knn_rec, rows, knn_launches)
         del rec, knn_rec
 
-        # 5. end-to-end agreement on a small plot; the float32 path's counts
-        small_launches = small_plot_check(tmp)
-        # 5b. kernel size 5: the SIMT conv and dW with K = 125
+        # 5. end-to-end agreement on a small plot, float32
+        small_plot_check(tmp)
+        # 5b. kernel size 5: the 3xTF32 conv and dW with K = 125 (float32),
+        # the SIMT ones (bf16)
         kernel_size5_check(tmp, rows)
 
         # 6. training at full width; 7. its backward kernels
@@ -2398,17 +2804,12 @@ def main():
         check_grads(grad_rec, rows, train_launches, len(info["losses"]))
         del grad_rec
 
-        # 8. one training step, card against CPU; its counts
-        step_launches = train_step_check(tmp)
-        # the SIMT kernels' paths are the float32 ones since the bf16 input
-        # conv is padded onto the tensor cores
-        for r in rows:
-            if "problem" in r:
-                continue
-            if r["name"] == "subm_conv":
-                r["launches"] = small_launches["subm_conv"]
-            elif r["name"] == "subm_conv_dw":
-                r["launches"] = step_launches["subm_conv_dw"]
+        # 8. one float32 training step, card against CPU
+        train_step_check(tmp)
+        # 8b. the float32 route at full width: the plot against the SIMT
+        # route, 20 training steps, the 3xTF32 kernels' rows
+        float32_phase(tmp, path, bf16_plot,
+                      float(np.median(info["step_seconds"][1:])), rows)
 
         # 9. the data tools on the plot: kernel 4 over every voxel
         dg_launches, vert_whole, tiles_dir, crops_dir = datagen_phase(

@@ -505,12 +505,14 @@ def test_knn_classify_banded_route_on_card(cuda, monkeypatch):
 def test_subm_conv_dw_kernel_matches_plain(cuda, dtype, cin, cout):
     """f32: rtol 1e-4 of max |dW| (summation order); bf16 inputs: 1e-3 of
     max |dW| (float32 sums of the same bf16 products, in another order).
-    Two launches give the same bits (no atomics).  float32 takes the SIMT
-    kernel, bf16 at these widths the tensor-core one."""
+    Two launches give the same bits (no atomics).  float32 takes the 3xTF32
+    kernel (the 4 -> 32 input conv's x padded to 8 channels), bf16 at these
+    widths the bf16 tensor-core one."""
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.rulebook import subm_rulebook
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
-    from treelearn_tpu_torch.ops.subm_conv import dw_plan, subm_conv_dw
+    from treelearn_tpu_torch.ops.subm_conv import (dw_plan, subm_conv_dw,
+                                                   tensor_core_pad)
 
     g_ = _grid(cuda, seed=2)
     rule = subm_rulebook(g_)
@@ -518,9 +520,10 @@ def test_subm_conv_dw_kernel_matches_plain(cuda, dtype, cin, cout):
     v = g_.n_active
     x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
     g = torch.randn(v, cout, generator=gen).to(cuda, dtype)
-    name = ("subm_conv_dw_wgmma" if dw_plan(cin, cout, v, dtype).route
-            == "wgmma" else "subm_conv_dw")
-    assert (name == "subm_conv_dw") == (dtype == torch.float32)
+    pad = tensor_core_pad(cin, cout, v, dtype)
+    route = dw_plan(cin + pad, cout, v, dtype).route
+    assert route == ("tf32x3" if dtype == torch.float32 else "wgmma")
+    name = {"tf32x3": "subm_conv_dw_tf32", "wgmma": "subm_conv_dw_wgmma"}[route]
     before = _cuda.LAUNCHES[name]
     got = subm_conv_dw(x, g, rule)
     again = subm_conv_dw(x, g, rule)
@@ -707,14 +710,14 @@ def test_hdbscan_cluster_card_equals_cpu(cuda, monkeypatch):
     (torch.bfloat16, 96, 96)])
 def test_simt_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
     """The SIMT conv, its dx and the SIMT dW at K = 27 and K = 125 (kernel
-    size 5, the route every K != 27 takes in both dtypes) against their
+    size 5, the route every bf16 K != 27 takes) against their
     plain versions: the conv f32 rtol 1e-4 / bf16 2e-2 of max |out|, dW
     1e-4 / 1e-3 of max |dW|; two dW launches give the same bits."""
     from treelearn_tpu_torch.model.network import level_rule
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv_dx,
+    from treelearn_tpu_torch.ops.subm_conv import (mirrored,
                                                    subm_conv_dw_simt,
                                                    subm_conv_simt)
 
@@ -729,8 +732,7 @@ def test_simt_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
     go = torch.randn(v, cout, generator=gen).to(cuda, dtype)
     before = dict(_cuda.LAUNCHES)
     out = subm_conv_simt(x, w, rule)
-    dx = subm_conv_dx(go, w, rule) if k != 27 else subm_conv_simt(
-        go, w, rule, mirror=True)
+    dx = subm_conv_simt(go, w, rule, mirror=True)
     dw = subm_conv_dw_simt(x, go, rule)
     again = subm_conv_dw_simt(x, go, rule)
     torch.cuda.synchronize()
@@ -781,3 +783,171 @@ def test_kernel_size_5_routes_and_counts(cuda):
     assert float((out - want).abs().max()) <= 2e-2 * float(want.abs().max())
     want = plain_dw(x, go, rule)
     assert float((dw - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# ---- the 3xTF32 float32 route (csrc/subm_conv_tf32.cu,
+# csrc/subm_conv_dw_tf32.cu): every tolerance is the SIMT rows' float32 one
+
+
+def _f32_case(gen, v, cin, cout, k=27, present=0.4):
+    v_in = v + 5
+    x = torch.randn(v_in, cin, generator=gen)
+    w = torch.randn(k, cin, cout, generator=gen) * 0.1
+    rule = torch.randint(0, v_in, (k, v), generator=gen, dtype=torch.int32)
+    rule[torch.rand(k, v, generator=gen) > present] = -1
+    return x, w, rule
+
+
+@pytest.mark.parametrize("v", [1, 63, 136, 1000, 8300, 70000])
+@pytest.mark.parametrize("cin,cout", [
+    (8, 8), (8, 32), (16, 24), (32, 32), (64, 32), (96, 96), (224, 224),
+    (384, 192), (192, 384)])
+def test_subm_conv_tf32_matches_plain(cuda, cin, cout, v):
+    """The 3xTF32 conv against the plain float32 conv: rtol 1e-4, atol 1e-4
+    of max |out| (float32 sums in another order; each product within
+    2^-21 of the float32 one).  V covers a lone row, ragged tiles, the
+    32-channel blocks of small levels and whole-Cout blocks; slots of 8, 16
+    and 32 channels; n_live < V zeroes the tail; two launches give the same
+    bits and no other conv kernel launches."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.subm_conv import conv_plan, subm_conv
+
+    assert conv_plan(cin, cout, v, torch.float32).route == "tf32x3"
+    gen = torch.Generator(device="cpu").manual_seed(cin * 7 + cout + v)
+    x, w, rule = (t.to(cuda) for t in _f32_case(gen, v, cin, cout))
+    before = dict(_cuda.LAUNCHES)
+    got = subm_conv(x, w, rule)
+    again = subm_conv(x, w, rule)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["subm_conv_tf32"] == before["subm_conv_tf32"] + 2
+    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"]
+    assert torch.equal(got, again)
+    want = plain(x, w, rule)
+    scale = float(want.abs().max().clamp(min=1e-6))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    n_live = v // 2
+    part = subm_conv(x, w, rule, n_live=n_live)
+    assert (part[n_live:] == 0).all()
+    torch.testing.assert_close(part[:n_live], want[:n_live], rtol=1e-4,
+                               atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("cin,cout,bn,sk", [
+    (8, 32, 32, 8), (16, 24, 24, 16), (64, 32, 32, 32), (224, 224, 112, 32),
+    (224, 224, 32, 32), (192, 384, 128, 32)])
+def test_pack_weight_tf32_kernel_matches_plain(cuda, cin, cout, bn, sk):
+    """The tf32 pack kernel writes the torch pack's images, straight and
+    mirrored, bit for bit (cvt.rna.tf32.f32 is the bit rounding of
+    ``tf32_split``)."""
+    from treelearn_tpu_torch.ops.subm_conv import mirrored, pack_weight_tf32
+
+    gen = torch.Generator(device="cpu").manual_seed(cin + cout)
+    w = torch.randn(27, cin, cout, generator=gen)
+    assert torch.equal(pack_weight_tf32(w.to(cuda), bn, sk).cpu(),
+                       pack_weight_tf32(w, bn, sk))
+    bn_m = bn if cin % bn == 0 else 8
+    sk_m = 32 if cout % 32 == 0 else 8
+    assert torch.equal(pack_weight_tf32(w.to(cuda), bn_m, sk_m,
+                                        mirror=True).cpu(),
+                       pack_weight_tf32(mirrored(w), bn_m, sk_m))
+
+
+@pytest.mark.parametrize("v", [1, 17, 63, 1000, 58000])
+@pytest.mark.parametrize("cin,cout,k", [
+    (8, 32, 27), (16, 24, 27), (32, 32, 27), (64, 32, 27), (224, 224, 27),
+    (448, 224, 27), (192, 384, 27), (32, 64, 125), (8, 32, 125)])
+def test_subm_conv_dw_tf32_matches_plain(cuda, cin, cout, k, v):
+    """The 3xTF32 dW against the plain float32 dW: 1e-4 of max |dW|.  The
+    M blocks straddle 8 offsets at Cin 8 and split one at Cin >= 64, the
+    last ragged; V covers a lone row, ragged slots and several chunks;
+    two launches give the same bits."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
+    from treelearn_tpu_torch.ops.subm_conv import dw_plan, subm_conv_dw
+
+    assert dw_plan(cin, cout, v, torch.float32, k).route == "tf32x3"
+    gen = torch.Generator(device="cpu").manual_seed(cin * 7 + cout + v + k)
+    x, _, rule = _f32_case(gen, v, cin, cout, k)
+    x = x[:v].contiguous().to(cuda)
+    rule = torch.where(rule >= v, -1, rule).to(cuda)
+    g = torch.randn(v, cout, generator=gen).to(cuda)
+    before = dict(_cuda.LAUNCHES)
+    got = subm_conv_dw(x, g, rule)
+    again = subm_conv_dw(x, g, rule)
+    torch.cuda.synchronize()
+    assert (_cuda.LAUNCHES["subm_conv_dw_tf32"]
+            == before["subm_conv_dw_tf32"] + 2)
+    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"]
+    assert torch.equal(got, again)
+    want = plain(x, g, rule)
+    assert got.shape == (k, cin, cout)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max().clamp(min=1e-12))
+
+
+@pytest.mark.parametrize("v", [136, 8300])
+def test_subm_conv_tf32_sparse_rules(cuda, v):
+    """An all -1 rule gives zeros from both 3xTF32 kernels; a rule with two
+    offsets present and one lone entry of a third matches the plain
+    versions, the absent offsets' dW slices exactly zero."""
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv, subm_conv_dw
+
+    gen = torch.Generator(device="cpu").manual_seed(v)
+    x = torch.randn(v, 64, generator=gen).to(cuda)
+    w = (torch.randn(27, 64, 96, generator=gen) * 0.1).to(cuda)
+    g = torch.randn(v, 96, generator=gen).to(cuda)
+    rule = torch.full((27, v), -1, dtype=torch.int32)
+    assert (subm_conv(x, w, rule.to(cuda)) == 0).all()
+    assert (subm_conv_dw(x, g, rule.to(cuda)) == 0).all()
+    rule[[3, 13]] = _random_rule(gen, v, v, 0.7)[[3, 13]]
+    rule[26, v - 1] = 0
+    rule = rule.to(cuda)
+    want = plain(x, w, rule)
+    torch.testing.assert_close(subm_conv(x, w, rule), want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    got, want = subm_conv_dw(x, g, rule), plain_dw(x, g, rule)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert (got[[0, 1, 2, 4, 12, 14, 25]] == 0).all()
+
+
+@pytest.mark.parametrize("k_size,cin,cout", [(3, 4, 32), (3, 32, 64),
+                                             (3, 64, 32), (5, 32, 64),
+                                             (5, 4, 32)])
+def test_subm_conv_fn_float32_grads_through_tf32(cuda, k_size, cin, cout):
+    """float32 SubmConvFn on a submanifold rule: forward, dx (the conv with
+    the mirrored weights) and dW through the 3xTF32 kernels (the 4 -> 32
+    input conv padded to 8, its dx of 4 channels on the SIMT kernel),
+    against autograd through the plain conv: 1e-4 of each one's max."""
+    from treelearn_tpu_torch.model.network import level_rule
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.subm_conv import SubmConvFn
+
+    g_ = _grid(cuda, seed=6, n=3000)
+    rule = level_rule(g_, k_size)
+    gen = torch.Generator(device="cpu").manual_seed(cin + cout + k_size)
+    v = g_.n_active
+    x = torch.randn(v, cin, generator=gen).to(cuda)
+    w = (torch.randn(k_size ** 3, cin, cout, generator=gen) * 0.1).to(cuda)
+    cot = torch.randn(v, cout, generator=gen).to(cuda)
+    before = dict(_cuda.LAUNCHES)
+    res = []
+    for i, fn in enumerate((SubmConvFn.apply, plain)):
+        xx = x.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        out = fn(xx, ww, rule)
+        (out * cot).sum().backward()
+        res.append((out, xx.grad, ww.grad))
+        if i == 0:
+            torch.cuda.synchronize()
+            launched = {n: _cuda.LAUNCHES[n] - before[n] for n in before}
+    assert launched["subm_conv_tf32"] == 1 + (cin % 8 == 0)
+    assert launched["subm_conv"] == (cin % 8 != 0)
+    assert launched["subm_conv_dw_tf32"] == 1
+    assert launched["subm_conv_dw"] == 0
+    for got, want in zip(*res):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())

@@ -145,22 +145,27 @@ def test_conv_fn_k125_grads_match_plain_autograd():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k125_routes_to_simt(dtype):
-    """K != 27 takes the SIMT conv and dW in both dtypes, unpadded; K = 27
-    keeps its routes."""
+    """K != 27 takes the SIMT conv and dW in bf16, unpadded; in float32 the
+    3xTF32 kernels (their offset count is a launch argument), the 4 -> 32
+    input conv padded to 8 channels; K = 27 keeps its routes."""
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_chunks,
                                                    dw_plan, tensor_core_pad)
 
+    f32 = dtype == torch.float32
     for cin, cout, v in ((4, 32, 420575), (32, 32, 420575), (64, 96, 9961)):
-        assert conv_plan(cin, cout, v, dtype, 125).route == "simt"
-        assert dw_plan(cin, cout, v, dtype, 125).route == "simt"
-        assert tensor_core_pad(cin, cout, v, dtype, 125) == 0
+        pad = tensor_core_pad(cin, cout, v, dtype, 125)
+        assert pad == (4 if f32 and cin == 4 else 0)
+        route = "tf32x3" if f32 else "simt"
+        assert conv_plan(cin + pad, cout, v, dtype, 125).route == route
+        assert dw_plan(cin + pad, cout, v, dtype, 125).route == route
         assert conv_plan(cin, cout, v, dtype, 27) == conv_plan(cin, cout, v,
                                                                 dtype)
         assert dw_plan(cin, cout, v, dtype, 27) == dw_plan(cin, cout, v,
                                                             dtype)
-        n = dw_plan(cin, cout, v, dtype, 125).n_chunks
-        assert n == dw_chunks(v, cin, cout, 125)
-        assert n * 125 * cin * cout * 4 <= 64 << 20 or n == 1
+        n = dw_plan(cin + pad, cout, v, dtype, 125).n_chunks
+        if not f32:
+            assert n == dw_chunks(v, cin, cout, 125)
+        assert n * 125 * (cin + pad) * cout * 4 <= 64 << 20 or n == 1
     assert conv_plan(32, 32, 420575, torch.bfloat16).route == "wgmma"
     assert tensor_core_pad(4, 32, 420575, torch.bfloat16) == 28
 

@@ -180,12 +180,17 @@ def test_dw_plan_fits_the_card_and_covers_the_rows(cin, cout, v):
     (4, 32, torch.bfloat16), (4, 32, torch.float32),
     (48, 32, torch.bfloat16), (32, 40, torch.bfloat16)])
 def test_dw_plan_routes_float32_and_odd_widths_to_simt(cin, cout, dtype):
+    """Odd widths stay on the SIMT dW kernel in both dtypes; float32 widths
+    in multiples of 8 take the 3xTF32 route since it exists.  Either way
+    the chunks cover every row once."""
     from treelearn_tpu_torch.ops.subm_conv import dw_chunks, dw_plan
 
+    tf32 = dtype == torch.float32 and cin % 8 == 0 and cout % 8 == 0
     for v in DW_VS:
         plan = dw_plan(cin, cout, v, dtype)
-        assert plan.route == "simt"
-        assert plan.n_chunks == dw_chunks(v, cin, cout)
+        assert plan.route == ("tf32x3" if tf32 else "simt")
+        if not tf32:
+            assert plan.n_chunks == dw_chunks(v, cin, cout)
         assert plan.n_chunks * plan.rows_per_chunk >= v
         assert (plan.n_chunks - 1) * plan.rows_per_chunk < v
 

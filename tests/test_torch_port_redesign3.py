@@ -417,19 +417,21 @@ def test_cc_labels_match_pallas_interpret(kind, monkeypatch):
 
 @pytest.mark.parametrize("cin,cout,v,dtype,pad", [
     (4, 32, 420575, torch.bfloat16, 28), (4, 32, 57993, torch.bfloat16, 28),
-    (4, 32, 100, torch.bfloat16, 0), (4, 32, 420575, torch.float32, 0),
+    (4, 32, 100, torch.bfloat16, 0), (4, 32, 420575, torch.float32, 4),
     (32, 32, 420575, torch.bfloat16, 0), (4, 24, 420575, torch.bfloat16, 0),
     (16, 64, 100000, torch.bfloat16, 16), (48, 32, 100000, torch.bfloat16, 0)])
 def test_tensor_core_pad_routes(cin, cout, v, dtype, pad):
-    """Only a bf16 conv narrower than one K step, over enough rows, with a
-    tensor-core Cout is padded; the padded shape takes the wgmma plans."""
+    """Only a conv narrower than one K step with a tensor-core Cout is
+    padded: in bf16 over enough rows, to 32 channels, onto the wgmma plans;
+    in float32 to 8 channels, onto the 3xTF32 plans."""
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_plan,
                                                    tensor_core_pad)
 
     assert tensor_core_pad(cin, cout, v, dtype) == pad
     if pad:
-        assert conv_plan(cin + pad, cout, v, dtype).route == "wgmma"
-        assert dw_plan(cin + pad, cout, v, dtype).route == "wgmma"
+        route = "tf32x3" if dtype == torch.float32 else "wgmma"
+        assert conv_plan(cin + pad, cout, v, dtype).route == route
+        assert dw_plan(cin + pad, cout, v, dtype).route == route
         assert conv_plan(cin, cout, v, dtype).route == "simt"
 
 

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (subm_conv_wgmma.cu, subm_conv_dw_wgmma.cu): asynchronous copies into
-// shared memory, mbarriers, the proxy fence and wgmma.mma_async for bf16
-// operands that both lie in shared memory.  Everything is inline PTX behind
-// a small function; sm_90a only.
+// (subm_conv_wgmma.cu, subm_conv_dw_wgmma.cu, subm_conv_tf32.cu,
+// subm_conv_dw_tf32.cu): asynchronous copies into shared memory, mbarriers,
+// the proxy fence, wgmma.mma_async for bf16 operands that both lie in shared
+// memory and for TF32 with A in registers, and the 3xTF32 split.
+// Everything is inline PTX behind a small function; sm_90a only.
 
 #pragma once
 
@@ -142,5 +143,124 @@ DEFINE_WGMMA(160, 80, 81, 82, 83)
 DEFINE_WGMMA(192, 96, 97, 98, 99)
 DEFINE_WGMMA(224, 112, 113, 114, 115)
 DEFINE_WGMMA(256, 128, 129, 130, 131)
+
+// ---- TF32 (the 3xTF32 float32 kernels subm_conv_tf32.cu,
+// subm_conv_dw_tf32.cu)
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo + O(2^-22 |x|): the split of the 3xTF32 product
+// a b ~ hi(a) hi(b) + hi(a) lo(b) + lo(a) hi(b)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+// keeps a register the compiler would otherwise think dead (an operand of
+// an asynchronous wgmma) alive and in place up to this point
+__device__ __forceinline__ void reg_fence(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// Shared-memory descriptor of a K-major TF32 tile whose rows are 8 values
+// (32 bytes) in the 32-byte swizzle: the 16-byte chunk c of row n lies at
+// n * 32 + ((c ^ ((n >> 2) & 1)) << 4), 8-row groups 256 bytes apart, tile
+// 256-byte aligned.  One such tile is the B operand of one k8 step.
+__device__ __forceinline__ uint64_t tf32_desc(uint32_t addr) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)(256 >> 4) << 32;
+  d |= (uint64_t)3 << 62;
+  return d;
+}
+
+// wgmma.mma_async m64nNk8, tf32 x tf32 -> float32, A from registers (thread
+// t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) at columns
+// t % 4 (+ 4): a[0] = (r, c), a[1] = (r + 8, c), a[2] = (r, c + 4),
+// a[3] = (r + 8, c + 4)), B from shared memory K-major; D += A B with the
+// accumulator layout of Wgmma above.
+#define REGS_8 "%0, %1, %2, %3"
+#define REGS_16 REGS_8 ", %4, %5, %6, %7"
+#define REGS_24 REGS_16 ", %8, %9, %10, %11"
+#define REGS_40 REGS_32 ", %16, %17, %18, %19"
+#define REGS_48 REGS_40 ", %20, %21, %22, %23"
+#define REGS_56 REGS_48 ", %24, %25, %26, %27"
+#define REGS_80 REGS_64 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define REGS_112 REGS_96 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define ACCS_8 ACC4(0)
+#define ACCS_16 ACCS_8, ACC4(4)
+#define ACCS_24 ACCS_16, ACC4(8)
+#define ACCS_40 ACCS_32, ACC4(16)
+#define ACCS_48 ACCS_40, ACC4(20)
+#define ACCS_56 ACCS_48, ACC4(24)
+#define ACCS_80 ACCS_64, ACC4(32), ACC4(36)
+#define ACCS_112 ACCS_96, ACC4(48), ACC4(52)
+
+template <int N>
+struct WgmmaTf32;
+// A0: operand number of a[0] (N / 2); the descriptor and the scale-d flag
+// follow a[3]
+#define DEFINE_WGMMA_TF32(N, A0, A1, A2, A3, DB, P)                         \
+  template <>                                                               \
+  struct WgmmaTf32<N> {                                                     \
+    static __device__ __forceinline__ void mma(float (&d)[N / 2],           \
+                                               const uint32_t (&a)[4],      \
+                                               uint64_t b, int scale_d) {   \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                  \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 "        \
+          "{" REGS_##N "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB \
+          ", p, 1, 1;\n}\n"                                                 \
+          : ACCS_##N                                                        \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),             \
+            "r"(scale_d));                                                  \
+    }                                                                       \
+  };
+DEFINE_WGMMA_TF32(8, 4, 5, 6, 7, 8, 9)
+DEFINE_WGMMA_TF32(16, 8, 9, 10, 11, 12, 13)
+DEFINE_WGMMA_TF32(24, 12, 13, 14, 15, 16, 17)
+DEFINE_WGMMA_TF32(32, 16, 17, 18, 19, 20, 21)
+DEFINE_WGMMA_TF32(40, 20, 21, 22, 23, 24, 25)
+DEFINE_WGMMA_TF32(48, 24, 25, 26, 27, 28, 29)
+DEFINE_WGMMA_TF32(56, 28, 29, 30, 31, 32, 33)
+DEFINE_WGMMA_TF32(64, 32, 33, 34, 35, 36, 37)
+DEFINE_WGMMA_TF32(80, 40, 41, 42, 43, 44, 45)
+DEFINE_WGMMA_TF32(96, 48, 49, 50, 51, 52, 53)
+DEFINE_WGMMA_TF32(112, 56, 57, 58, 59, 60, 61)
+DEFINE_WGMMA_TF32(128, 64, 65, 66, 67, 68, 69)
+
+// The three products of one k8 step, small terms first: D = (first ? 0 :
+// D) + lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B).  The tensor cores add into
+// D rounding toward zero, which over thousands of k8 steps biases a float32
+// sum by ~1e-4 of its size; the kernels therefore start D afresh each ring
+// slot (`first` on its first step) and add it into a second float32 total
+// with round-to-nearest FADDs (tf32_flush).
+template <int N>
+__device__ __forceinline__ void mma_tf32x3(float (&d)[N / 2],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint64_t bh, uint64_t bl,
+                                           bool first) {
+  WgmmaTf32<N>::mma(d, al, bh, first ? 0 : 1);
+  WgmmaTf32<N>::mma(d, ah, bl, 1);
+  WgmmaTf32<N>::mma(d, ah, bh, 1);
+}
+// total += d once the slot's products have retired (after wgmma_wait)
+template <int N>
+__device__ __forceinline__ void tf32_flush(float (&total)[N / 2],
+                                           float (&d)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    reg_fence(d[i]);
+    total[i] += d[i];
+  }
+}
 
 }  // namespace

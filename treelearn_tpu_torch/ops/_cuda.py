@@ -28,15 +28,15 @@ _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC = osp.join(_PKG, "csrc")
 BUILD_ROOT = osp.join(_PKG, "_build")
 SOURCES = ("rulebook.cu", "subm_conv.cu", "subm_conv_wgmma.cu",
-           "subm_conv_dw.cu", "subm_conv_dw_wgmma.cu", "vert.cu", "cc.cu",
-           "knn.cu")
+           "subm_conv_tf32.cu", "subm_conv_dw.cu", "subm_conv_dw_wgmma.cu",
+           "subm_conv_dw_tf32.cu", "vert.cu", "cc.cu", "knn.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rulebook": 0, "subm_conv": 0, "subm_conv_wgmma": 0,
-            "subm_conv_dw": 0, "subm_conv_dw_wgmma": 0, "vert": 0, "cc": 0,
-            "knn": 0}
+            "subm_conv_tf32": 0, "subm_conv_dw": 0, "subm_conv_dw_wgmma": 0,
+            "subm_conv_dw_tf32": 0, "vert": 0, "cc": 0, "knn": 0}
 
 # optional observer of kernel inputs: recorder(name, args_dict)
 _RECORDER = None
@@ -62,6 +62,16 @@ _SIGNATURES = {
     # producers, smem_bytes, stream
     "tl_subm_conv_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    # w, wpack, cin, cout, bn, sk, n_offsets, mirror, stream
+    "tl_pack_weight_tf32": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # feats, wpack, rule, out, v_out, n_live, cin, cout, n_offsets, bn, sk,
+    # stages, smem_bytes, stream
+    "tl_subm_conv_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
+    # x, g, rule, partial, dw, v, cin, cout, n_offsets, bn, stages, n_chunks,
+    # rows_per_chunk, smem_bytes, stream
+    "tl_subm_conv_dw_tf32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
     # x, g, rule, partial, dw, v, cin, cout, n_offsets, n_chunks, stream
     "tl_subm_conv_dw_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tl_subm_conv_dw_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

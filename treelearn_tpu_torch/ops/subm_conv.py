@@ -5,35 +5,46 @@ Replaces the Pallas kernel ``subm_conv_banded`` (``_subm_kernel`` +
 ``_gather_bands``, treelearn_tpu/ops/pallas_conv.py:355,304,181).  The TPU
 kernel reaches its neighbors through banded DMA windows of the sorted
 features and one-hot MXU selects, with a span-overflow fallback; a GPU
-gathers rows cheaply, so both CUDA kernels are plain gather-GEMMs over the
-(27, V) rule from ops/rulebook.py, output-stationary with float32 sums in
+gathers rows cheaply, so the CUDA kernels are plain gather-GEMMs over the
+(K, V) rule from ops/rulebook.py, output-stationary with float32 sums in
 registers.  No windows, so nothing can overflow.
 
 * csrc/subm_conv_wgmma.cu, the bf16 route: a block owns 64 or 128 output
   voxels x up to 256 output channels and multiplies on the tensor cores
   (``wgmma``), gathered rows and packed weight tiles arriving through a
   ``cp.async`` ring (:func:`conv_plan`, :func:`pack_weight`).
-* csrc/subm_conv.cu, the float32 / odd-width route: 64 voxels x 64 channels
-  per block on the float32 SIMT units.
-* A bf16 conv with fewer than 32 input channels (the 4 -> 32 input conv)
-  is zero-padded to 32 and takes the bf16 route, as is its weight gradient,
-  wherever that is faster with the pad counted (:func:`tensor_core_pad`).
-* A conv of another kernel size than 3 (K = k^3 offsets, any odd k, as the
-  JAX package's rulebook conv takes) goes to the SIMT kernel in both
-  dtypes, as does its weight gradient: the tensor-core sources are built
-  for ``N_OFFSETS`` = 27 (their ring and rule tiles are sized by it).
+* csrc/subm_conv_tf32.cu, the float32 route (``"tf32x3"``): the same
+  gather-GEMM on the tensor cores in TF32, each product taken as three
+  (``hi(a) hi(b) + hi(a) lo(b) + lo(a) hi(b)``, :func:`tf32_split`), which
+  keeps float32 accuracy; widths in multiples of 8, any offset count
+  (:func:`conv_plan_tf32`, :func:`pack_weight_tf32`).
+* csrc/subm_conv.cu, what is left (bf16 at kernel sizes other than 3,
+  widths that are no multiple of 8 in float32 or 32 in bf16): 64 voxels x
+  64 channels per block on the float32 SIMT units.
+* A conv narrower than one K step (the 4 -> 32 input conv) is zero-padded
+  to it and takes the tensor-core route of its dtype, as is its weight
+  gradient: to 32 channels in bf16 wherever that is faster with the pad
+  counted, to 8 in float32 always (:func:`tensor_core_pad`).
+* A bf16 conv of another kernel size than 3 (K = k^3 offsets, any odd k,
+  as the JAX package's rulebook conv takes) goes to the SIMT kernel, as
+  does its weight gradient: the bf16 tensor-core sources are built for
+  ``N_OFFSETS`` = 27.  The float32 ones take the offset count as an
+  argument.
 
 Kernel 3 replaces ``rule_conv_dw_banded`` (``_dw_kernel``,
-pallas_conv.py:438,415): both routes sum per-chunk partial weight gradients
-and add the chunks in order in a second pass, so dW is deterministic (see
-the sources for why not atomics).
+pallas_conv.py:438,415): every route sums per-chunk partial weight
+gradients and adds the chunks in order in a second pass, so dW is
+deterministic (see the sources for why not atomics).
 
 * csrc/subm_conv_dw_wgmma.cu, the bf16 route: ``dW[k] = X_k^T G`` on the
   tensor cores with the voxel rows as the reduction dimension, both
   operands MN-major straight from row-major rows in shared memory
   (:func:`dw_plan`).
-* csrc/subm_conv_dw.cu, the float32 / odd-width route: 64 x 64 channel
-  tiles on the float32 SIMT units.
+* csrc/subm_conv_dw_tf32.cu, the float32 route: the same product in
+  3xTF32, X_k^T from registers and G transposed into K-major hi and lo
+  images by the consumers (:func:`dw_plan_tf32`).
+* csrc/subm_conv_dw.cu, what is left: 64 x 64 channel tiles on the float32
+  SIMT units.
 
 :class:`SubmConvFn` is the counterpart of ``rule_conv_ad``
 (pallas_conv.py:588-649): forward kernel 2; backward dx = kernel 2 on the
@@ -42,13 +53,14 @@ rule (a submanifold rule is its own transpose under offset mirroring, and
 ``kernel_offsets`` is ordered so that ``flip(0)`` mirrors); dW = kernel 3.
 
 Bound on the card: operations by the count (2 x Cin x Cout FLOPs per rule
-entry, against Cin + Cout values moved per voxel), but at 32..224 channels
-the tensor cores finish that in microseconds, and what the bf16 route pays
-for is the gather of feature rows through L2 (levels 0-1) and the length of
-one block's K loop (the deepest levels).  The weight gradient is bound the
-same way: its products take microseconds on the tensor cores, a launch pays
-for the 16-byte copies of the gathered rows and of g (once per offset and
-input slice) and, below a few thousand rows, for the launch and the Python
+entry, against Cin + Cout values moved per voxel; three TF32 products each
+on the float32 route), but at 32..224 channels the tensor cores finish that
+in microseconds, and what the tensor-core routes pay for is the gather of
+feature rows through L2 (levels 0-1) and the length of one block's K loop
+(the deepest levels).  The weight gradient is bound the same way: its
+products take microseconds on the tensor cores, a launch pays for the
+16-byte copies of the gathered rows and of g (once per offset and input
+slice) and, below a few thousand rows, for the launch and the Python
 wrapper around it.
 """
 
@@ -74,17 +86,24 @@ ONE_WAVE_BLOCKS = 132  # a grid up to one block per SM: 8 producer warps
 WIDE_ROWS_V = 65536   # from here on a 32-channel conv takes 128-row blocks
 PAD_MIN_V = 32768     # from here on a narrow bf16 input is padded to BK
 N_OFFSETS = 27        # offsets of a kernel_size 3 conv: the only count the
-                      # tensor-core kernels take
+                      # bf16 tensor-core kernels take
+TF32_K = 8            # channels of one k8 step: float32 widths must be
+                      # multiples of it for the 3xTF32 route
+TF32_BN = (8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128)  # its block
+                      # widths: two float32 register sets (the slot's
+                      # products, the running sum) cap them at 128
+TF32_STAGES = 3       # ring depth of both 3xTF32 kernels
+TF32_MAX_OFFSETS = 343  # kernel_size 7: the largest rule tile it takes
 
 
 class ConvPlan(NamedTuple):
     """What the launcher of kernel 2 uses for one shape."""
 
-    route: str        # "wgmma" or "simt"
+    route: str        # "wgmma", "tf32x3" or "simt"
     bm: int           # output voxels per block
     bn: int           # output channels per block
     n_splits: int     # blocks along Cout (n_splits * bn == cout)
-    bk: int           # input channels per K step
+    bk: int           # input channels per K step (tf32x3: per ring slot)
     stages: int       # ring depth
     producers: int    # threads of a block that start the copies
     smem_bytes: int   # dynamic shared memory per block
@@ -97,14 +116,60 @@ def plan_smem_bytes(bm: int, bn: int, stages: int) -> int:
     return 1024 + stages * (bm + bn) * BK * 2 + 128 + 27 * bm * 4 + 256
 
 
+def tf32_bn(cout: int) -> int:
+    """Block width of the 3xTF32 kernels for ``cout`` output channels: the
+    whole Cout where :data:`TF32_BN` has it, else its largest even share
+    there (224 -> 112, 384 -> 128, 136 -> 8)."""
+    n = 1
+    while cout % n or cout // n not in TF32_BN:
+        n += 1
+    return cout // n
+
+
+def plan_smem_bytes_tf32(bn: int, sk: int, stages: int,
+                         n_offsets: int) -> int:
+    """Dynamic shared memory of a 3xTF32 conv block: alignment slack, the
+    ring of A tiles (64 rows x ``sk`` float32) and hi and lo B images
+    (2 x ``bn`` x ``sk`` float32), the mbarriers, the block's ``n_offsets``
+    x 64 rule entries and its offset lists."""
+    return (1024 + stages * (64 * sk + 2 * bn * sk) * 4 + 128
+            + 4 * (64 * n_offsets + 2 * n_offsets + 1))
+
+
+def conv_plan_tf32(cin: int, cout: int, v: int,
+                   n_offsets: int = N_OFFSETS) -> ConvPlan:
+    """The 3xTF32 plan of a float32 conv (``cin``, ``cout`` multiples of 8).
+    A block owns 64 output voxels and :func:`tf32_bn` output channels; on a
+    level with fewer than ``SMALL_V_TILES`` row tiles a Cout in multiples
+    of 32 is split into 32-channel blocks to fill the card, as the bf16
+    plan does.  A ring slot holds the widest slice of 32, 16 or 8 input
+    channels that divides Cin (4, 2 or 1 k8 steps); ``TF32_STAGES`` slots,
+    fewer (then narrower slices) where the rule tile of many offsets would
+    not fit ``SMEM_LIMIT``."""
+    bn = tf32_bn(cout)
+    if -(-v // 64) < SMALL_V_TILES and cout % 32 == 0:
+        bn = 32
+    sk = 32 if cin % 32 == 0 else (16 if cin % 16 == 0 else 8)
+    stages = TF32_STAGES
+    while plan_smem_bytes_tf32(bn, sk, stages, n_offsets) > SMEM_LIMIT:
+        if stages > 2:
+            stages -= 1
+        else:
+            sk //= 2
+    return ConvPlan("tf32x3", 64, bn, cout // bn, sk, stages, 128,
+                    plan_smem_bytes_tf32(bn, sk, stages, n_offsets))
+
+
 def conv_plan(cin: int, cout: int, v: int,
               dtype: torch.dtype = torch.bfloat16,
               n_offsets: int = N_OFFSETS) -> ConvPlan:
     """Static routing and tiling of kernel 2, from the shape alone.
 
     bf16 with ``cin`` and ``cout`` multiples of 32 and 27 offsets -> the
-    wgmma kernel; float32, the 4 -> 32 input conv, other odd widths and
-    kernel sizes other than 3 (``n_offsets`` != 27) -> the SIMT kernel.
+    wgmma kernel; float32 with ``cin`` and ``cout`` multiples of 8, any
+    offset count -> the 3xTF32 kernel (:func:`conv_plan_tf32`); the
+    unpadded 4 -> 32 input conv, other odd widths and bf16 kernel sizes
+    other than 3 (``n_offsets`` != 27) -> the SIMT kernel.
 
     The wgmma kernel gives a block 64 output voxels (one consumer warpgroup
     beside the producer warpgroup) and the whole Cout, or the largest even
@@ -118,6 +183,10 @@ def conv_plan(cin: int, cout: int, v: int,
     length is one block's K loop, gives each block 8 producer warps instead
     of 4 (larger grids lose more by the lower occupancy than they gain).
     """
+    if (dtype == torch.float32 and cin > 0 and cout > 0
+            and not cin % TF32_K and not cout % TF32_K
+            and n_offsets <= TF32_MAX_OFFSETS):
+        return conv_plan_tf32(cin, cout, v, n_offsets)
     if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS or cin == 0
             or cout == 0 or cin % BK or cout % 32):
         return ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
@@ -138,15 +207,24 @@ def conv_plan(cin: int, cout: int, v: int,
 
 def tensor_core_pad(cin: int, cout: int, v: int, dtype: torch.dtype,
                     n_offsets: int = N_OFFSETS) -> int:
-    """Zero input channels to append so that a bf16 conv narrower than one K
+    """Zero input channels to append so that a conv narrower than one K
     step (the 4 -> 32 input conv), or its weight gradient, takes the
-    tensor-core route: ``32 - cin``, or 0 where the shape stays on the SIMT
+    tensor-core route of its dtype, or 0 where the shape stays on the SIMT
     kernels.  Zeros add exactly, so the result differs from the unpadded
-    conv's by the order of its float32 sums only.  Below ``PAD_MIN_V`` rows
-    both routes cost a launch and the pad is two more: measured on the H100
-    by chip_smoke.py (a clear gain from 65,536 rows up, a draw at 16,384, a
-    loss below; see PERF.md).  Other kernel sizes than 3 stay on the SIMT
+    conv's by the order of its float32 sums only.
+
+    float32: ``8 - cin`` at any size and offset count where Cout is a
+    multiple of 8 (the SIMT kernel's float32 rate is 7x below the 3xTF32
+    one).  bf16: ``32 - cin`` from ``PAD_MIN_V`` rows up, at 27 offsets:
+    below it both routes cost a launch and the pad is two more, measured on
+    the H100 by chip_smoke.py (a clear gain from 65,536 rows up, a draw at
+    16,384, a loss below; see PERF.md); other kernel sizes stay on the SIMT
     kernels unpadded."""
+    if dtype == torch.float32:
+        if (0 < cin < TF32_K and cout > 0 and not cout % TF32_K
+                and n_offsets <= TF32_MAX_OFFSETS):
+            return TF32_K - cin
+        return 0
     if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS
             or not 0 < cin < BK or cout == 0 or cout % 32 or v < PAD_MIN_V):
         return 0
@@ -209,6 +287,68 @@ def _pack_cuda(weight, cin, cout, bn, mirror, stream):
     return packed
 
 
+def tf32_split(x: torch.Tensor):
+    """float32 ``x`` -> (hi, lo) float32: ``hi`` is x rounded to TF32 (10
+    mantissa bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``),
+    ``lo`` the same rounding of ``x - hi`` (exact in float32), so
+    ``hi + lo = x`` within 2^-22 |x| (2^-137 where ``lo`` falls below the
+    normal range).  The bit operations of the 3xTF32 kernels, on the host."""
+    x = x.float().contiguous()
+
+    def rna(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def pack_weight_tf32(weight: torch.Tensor, bn: int, sk: int,
+                     mirror: bool = False) -> torch.Tensor:
+    """(K, Cin, Cout) float32 -> the B images of the 3xTF32 conv kernel,
+    (K, Cout / bn, Cin / sk, 2, sk / 8, bn, 8): for offset k, column split
+    j, slice s of ``sk`` input channels and image h (0: hi, 1: lo of
+    :func:`tf32_split`) one tile per k8 step of ``bn`` rows (output
+    channels) x 8 input channels, K-major, 32 bytes a row, in the 32-byte
+    swizzle: the 16-byte chunk c of row n lies at chunk position
+    ``c ^ ((n >> 2) & 1)``.  The kernel copies a slice's images linearly.
+
+    With ``mirror`` the images are those of :func:`mirrored` ``(weight)``.
+    CPU tensors are packed with torch ops (the plain version); CUDA tensors
+    by the pack kernel of csrc/subm_conv_tf32.cu."""
+    if weight.is_cuda:
+        _cuda.require(weight, "pack_weight_tf32 weight", torch.float32, 3)
+        k, cin, cout = weight.shape
+        if mirror:
+            cin, cout = cout, cin
+        return _pack_tf32_cuda(weight, cin, cout, bn, sk, k, mirror,
+                               _cuda.stream_ptr(weight))
+    w = mirrored(weight) if mirror else weight
+    k, cin, cout = w.shape
+    hi, lo = tf32_split(w)
+    t = torch.stack([hi, lo]).view(2, k, cin // sk, sk // 8, 2, 4,
+                                   cout // bn, bn)
+    # -> (k, split, slice, image, k8 step, n, chunk, 4)
+    t = t.permute(1, 6, 2, 0, 3, 7, 4, 5)
+    swap = ((torch.arange(bn) >> 2) & 1).bool().view(bn, 1, 1)
+    t = torch.where(swap, t.flip(-2), t)
+    return t.reshape(k, cout // bn, cin // sk, 2, sk // 8, bn, 8).contiguous()
+
+
+def _pack_tf32_cuda(weight, cin, cout, bn, sk, n_offsets, mirror, stream):
+    """The tf32 pack kernel on a float32 CUDA weight; (cin, cout) are the
+    conv's, i.e. swapped against ``weight``'s with ``mirror``."""
+    if cin % sk or cout % bn or bn % TF32_K:
+        raise ValueError(f"pack_weight_tf32: weight {tuple(weight.shape)}, "
+                         f"bn {bn}, sk {sk}")
+    packed = torch.empty((n_offsets, cout // bn, cin // sk, 2, sk // 8, bn,
+                          8), dtype=torch.float32, device=weight.device)
+    code = _cuda.library().tl_pack_weight_tf32(
+        weight.data_ptr(), packed.data_ptr(), cin, cout, bn, sk, n_offsets,
+        int(mirror), stream)
+    _cuda.check(code, "tl_pack_weight_tf32")
+    return packed
+
+
 def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
     """The CUDA routes of :func:`subm_conv`; with ``mirror`` the conv with
     ``mirrored(weight)``."""
@@ -237,6 +377,16 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
     plan = conv_plan(cin, cout, v_out, feats.dtype, k)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(feats)
+    if plan.route == "tf32x3" and not force_simt:
+        wpack = _pack_tf32_cuda(w, cin, cout, plan.bn, plan.bk, k, mirror,
+                                stream)
+        code = lib.tl_subm_conv_tf32(
+            feats.data_ptr(), wpack.data_ptr(), rule.data_ptr(),
+            out.data_ptr(), v_out, n_live, cin, cout, k, plan.bn, plan.bk,
+            plan.stages, plan.smem_bytes, stream)
+        _cuda.check(code, "tl_subm_conv_tf32")
+        _cuda.LAUNCHES["subm_conv_tf32"] += 1
+        return out
     if plan.route == "simt" or force_simt:
         if mirror:
             w = mirrored(w)
@@ -264,14 +414,17 @@ def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
     ``n_live`` (default V_out) are zero.  K = k^3 for kernel size k: 27 on
     every shipped config.
 
-    Routing, by device and shape only (:func:`conv_plan`):
+    Routing, by device, dtype and shape only (:func:`conv_plan`):
 
     * CPU tensors -> the plain version (ops/sparse.py:subm_conv);
-    * CUDA, bf16, Cin and Cout multiples of 32 -> csrc/subm_conv_wgmma.cu
-      (counted as ``subm_conv_wgmma``); so is the 4 -> 32 input conv over
-      ``PAD_MIN_V`` voxels or more, zero-padded to 32 input channels
-      (:func:`tensor_core_pad`);
-    * CUDA, float32, any other width, or K != 27 -> csrc/subm_conv.cu
+    * CUDA, bf16, Cin and Cout multiples of 32, K = 27 ->
+      csrc/subm_conv_wgmma.cu (counted as ``subm_conv_wgmma``); so is the
+      4 -> 32 input conv over ``PAD_MIN_V`` voxels or more, zero-padded to
+      32 input channels (:func:`tensor_core_pad`);
+    * CUDA, float32, Cin and Cout multiples of 8, any K ->
+      csrc/subm_conv_tf32.cu (counted as ``subm_conv_tf32``); so is the
+      float32 4 -> 32 input conv, zero-padded to 8 input channels;
+    * CUDA, any other width, or bf16 with K != 27 -> csrc/subm_conv.cu
       (counted as ``subm_conv``).
 
     A kernel that fails to build or launch raises; no route gives way to
@@ -287,8 +440,8 @@ def subm_conv_dx(grad: torch.Tensor, weight: torch.Tensor,
     """Input gradient of :func:`subm_conv`: grad (V, Cout) and the forward
     weight (K, Cin, Cout) -> (V, Cin), the conv of ``grad`` with
     :func:`mirrored` ``(weight)`` over the same rule, routed as
-    :func:`subm_conv` routes a conv of that shape.  On the tensor-core route
-    the mirrored tiles are packed straight from ``weight``."""
+    :func:`subm_conv` routes a conv of that shape.  On the tensor-core
+    routes the mirrored tiles are packed straight from ``weight``."""
     if not grad.is_cuda:
         return subm_conv_plain(grad, mirrored(weight), rule)
     return _conv_cuda(grad, weight, rule, None, mirror=True)
@@ -298,9 +451,9 @@ def subm_conv_simt(feats: torch.Tensor, weight: torch.Tensor,
                    rule: torch.Tensor, n_live=None,
                    mirror: bool = False) -> torch.Tensor:
     """:func:`subm_conv` (with ``mirror``: :func:`subm_conv_dx`) through
-    csrc/subm_conv.cu whatever the shape: the yardstick the bf16 route is
-    timed against on the card (chip_smoke.py, the card tests).  Nothing in
-    the package calls it."""
+    csrc/subm_conv.cu whatever the shape: the yardstick the tensor-core
+    routes are timed against on the card (chip_smoke.py, the card tests).
+    Nothing in the package calls it."""
     return _conv_cuda(feats, weight, rule, n_live, force_simt=True,
                       mirror=mirror)
 
@@ -317,7 +470,7 @@ DW_WGMMA_PRODUCERS = 128      # producer threads; a ring slot holds a quarter
 class DwPlan(NamedTuple):
     """What the launcher of kernel 3 uses for one shape."""
 
-    route: str           # "wgmma" or "simt"
+    route: str           # "wgmma", "tf32x3" or "simt"
     bn: int              # output channels per block
     n_splits: int        # blocks along Cout (n_splits * bn >= cout)
     producers: int       # wgmma: producer threads, 4 per row of a ring slot
@@ -374,14 +527,57 @@ def dw_plan_wgmma(cin: int, cout: int, v: int,
     rows = producers // 4
     while stages > 2 and dw_smem_bytes(bn, producers, stages) > SMEM_LIMIT:
         stages -= 1
-    per_chunk = -(-(27 * (cin // 32)) // 2) * n
-    by_mem = max(1, DW_PARTIAL_BYTES // (27 * cin * cout * 4))
+    n_chunks, rows_per_chunk = _cut_chunks(
+        v, -(-(27 * (cin // 32)) // 2) * n, 27 * cin * cout, rows,
+        target_blocks)
+    return DwPlan("wgmma", bn, n, producers, stages, n_chunks,
+                  rows_per_chunk, dw_smem_bytes(bn, producers, stages))
+
+
+def _cut_chunks(v: int, per_chunk: int, dw_size: int, rows: int,
+                target_blocks: int = DW_WGMMA_BLOCKS):
+    """(n_chunks, rows_per_chunk) of a tensor-core dW plan whose grid has
+    ``per_chunk`` blocks a chunk: about ``target_blocks`` blocks, no chunk
+    shorter than ``DW_WGMMA_MIN_ROWS`` rows, the partials (``dw_size``
+    float32 a chunk) under ``DW_PARTIAL_BYTES``, chunks of whole ring slots
+    of ``rows`` rows."""
+    by_mem = max(1, DW_PARTIAL_BYTES // (dw_size * 4))
     want = max(1, min(-(-target_blocks // per_chunk),
                       v // DW_WGMMA_MIN_ROWS, by_mem))
     rows_per_chunk = -(-(-(-max(v, 1) // want)) // rows) * rows
-    n_chunks = -(-max(v, 1) // rows_per_chunk)
-    return DwPlan("wgmma", bn, n, producers, stages, n_chunks,
-                  rows_per_chunk, dw_smem_bytes(bn, producers, stages))
+    return -(-max(v, 1) // rows_per_chunk), rows_per_chunk
+
+
+DW_TF32_ROWS = 32      # rows of a ring slot of the 3xTF32 dW kernel
+
+
+def dw_smem_bytes_tf32(bn: int, stages: int) -> int:
+    """Dynamic shared memory of a 3xTF32 dW block: alignment slack, the hi
+    and lo images of a slot's g rows (2 x ``bn`` x ``DW_TF32_ROWS``
+    float32), the ring of x slabs (``DW_TF32_ROWS`` x 64 float32) and g rows
+    (``DW_TF32_ROWS`` x ``bn``), the mbarriers."""
+    rows = DW_TF32_ROWS
+    return 1024 + 2 * rows * bn * 4 + stages * rows * (64 + bn) * 4 + 128
+
+
+def dw_plan_tf32(cin: int, cout: int, v: int,
+                 n_offsets: int = N_OFFSETS) -> DwPlan:
+    """The 3xTF32 plan of a float32 weight gradient (``cin``, ``cout``
+    multiples of 8).  A block sums 64 rows of dW's flattened (offset,
+    input channel) axis (8 groups of 8 channels) against :func:`tf32_bn`
+    output channels over one row chunk; chunks are cut as for the bf16
+    route (:func:`_cut_chunks`), in whole ring slots of ``DW_TF32_ROWS``
+    rows."""
+    bn = tf32_bn(cout)
+    stages = TF32_STAGES
+    while stages > 2 and dw_smem_bytes_tf32(bn, stages) > SMEM_LIMIT:
+        stages -= 1
+    n = cout // bn
+    n_chunks, rows_per_chunk = _cut_chunks(
+        v, -(-(n_offsets * cin) // 64) * n, n_offsets * cin * cout,
+        DW_TF32_ROWS)
+    return DwPlan("tf32x3", bn, n, 128, stages, n_chunks, rows_per_chunk,
+                  dw_smem_bytes_tf32(bn, stages))
 
 
 @functools.lru_cache(maxsize=None)
@@ -391,9 +587,14 @@ def dw_plan(cin: int, cout: int, v: int,
     """Static routing and tiling of kernel 3, from the shape alone.
 
     bf16 with ``cin`` and ``cout`` multiples of 32 and 27 offsets -> the
-    wgmma kernel (csrc/subm_conv_dw_wgmma.cu); float32, the 4 -> 32 input
-    conv, other odd widths and kernel sizes other than 3 -> the SIMT kernel
-    (csrc/subm_conv_dw.cu)."""
+    wgmma kernel (csrc/subm_conv_dw_wgmma.cu); float32 with ``cin`` and
+    ``cout`` multiples of 8, any offset count -> the 3xTF32 kernel
+    (csrc/subm_conv_dw_tf32.cu, :func:`dw_plan_tf32`); the unpadded 4 -> 32
+    input conv, other odd widths and bf16 kernel sizes other than 3 -> the
+    SIMT kernel (csrc/subm_conv_dw.cu)."""
+    if (dtype == torch.float32 and cin > 0 and cout > 0
+            and not cin % TF32_K and not cout % TF32_K):
+        return dw_plan_tf32(cin, cout, v, n_offsets)
     if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS or cin == 0
             or cout == 0 or cin % 32 or cout % 32):
         return _dw_plan_simt(cin, cout, v, n_offsets)
@@ -419,7 +620,7 @@ def _dw_cuda(x, g, rule, force_simt=False):
         pad = tensor_core_pad(cin, cout, v, x.dtype, k)
         if pad:    # dW of the padded conv; its first cin rows are the answer
             return _dw_launch(F.pad(x, (0, pad)), g, rule, dw_plan(
-                cin + pad, cout, v, x.dtype))[:, :cin].contiguous()
+                cin + pad, cout, v, x.dtype, k))[:, :cin].contiguous()
     return _dw_launch(x, g, rule, _dw_plan_simt(cin, cout, v, k) if force_simt
                       else dw_plan(cin, cout, v, x.dtype, k))
 
@@ -446,6 +647,14 @@ def _dw_launch(x, g, rule, plan):
     # one chunk writes dW itself: no partials
     partial = dw if plan.n_chunks == 1 else torch.empty(
         (plan.n_chunks, k, cin, cout), dtype=torch.float32, device=x.device)
+    if plan.route == "tf32x3":
+        code = lib.tl_subm_conv_dw_tf32(
+            x.data_ptr(), g.data_ptr(), rule.data_ptr(), partial.data_ptr(),
+            dw.data_ptr(), v, cin, cout, k, plan.bn, plan.stages,
+            plan.n_chunks, plan.rows_per_chunk, plan.smem_bytes, stream)
+        _cuda.check(code, "tl_subm_conv_dw_tf32")
+        _cuda.LAUNCHES["subm_conv_dw_tf32"] += 1
+        return dw
     code = lib.tl_subm_conv_dw_wgmma(
         x.data_ptr(), g.data_ptr(), rule.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), v, cin, cout, plan.bn, plan.producers, plan.stages,
@@ -463,12 +672,15 @@ def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
     Routing, by device, dtype and shape only (:func:`dw_plan`):
 
     * CPU tensors -> the plain version (ops/sparse.py:subm_conv_dw);
-    * CUDA, bf16, Cin and Cout multiples of 32 ->
+    * CUDA, bf16, Cin and Cout multiples of 32, K = 27 ->
       csrc/subm_conv_dw_wgmma.cu (counted as ``subm_conv_dw_wgmma``); so is
       the 4 -> 32 input conv's over ``PAD_MIN_V`` rows or more, x zero-padded
       to 32 channels and dW cut back to its 4 rows
       (:func:`tensor_core_pad`);
-    * CUDA, float32, any other width, or K != 27 -> csrc/subm_conv_dw.cu
+    * CUDA, float32, Cin and Cout multiples of 8, any K ->
+      csrc/subm_conv_dw_tf32.cu (counted as ``subm_conv_dw_tf32``); so is
+      the float32 4 -> 32 input conv's, x zero-padded to 8 channels;
+    * CUDA, any other width, or bf16 with K != 27 -> csrc/subm_conv_dw.cu
       (counted as ``subm_conv_dw``).
 
     A kernel that fails to build or launch raises; no route gives way to
@@ -481,7 +693,7 @@ def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
 def subm_conv_dw_simt(x: torch.Tensor, g: torch.Tensor,
                       rule: torch.Tensor) -> torch.Tensor:
     """:func:`subm_conv_dw` through csrc/subm_conv_dw.cu whatever the shape:
-    the yardstick the bf16 route is timed against on the card
+    the yardstick the tensor-core routes are timed against on the card
     (chip_smoke.py, the card tests).  Nothing in the package calls it."""
     return _dw_cuda(x, g, rule, force_simt=True)
 
@@ -497,6 +709,51 @@ def dw_chunked_plain(x: torch.Tensor, g: torch.Tensor, rule: torch.Tensor,
         hi = min(x.shape[0], lo + plan.rows_per_chunk)
         if hi > lo:
             dw += subm_conv_dw_plain(x, g[lo:hi], rule[:, lo:hi])
+    return dw
+
+
+def subm_conv_tf32x3_plain(feats: torch.Tensor, weight: torch.Tensor,
+                           rule: torch.Tensor, n_live=None) -> torch.Tensor:
+    """The arithmetic of csrc/subm_conv_tf32.cu in PyTorch: float32 feats
+    and weights split into hi and lo (:func:`tf32_split`), each offset's
+    product taken as lo(x) hi(W) + hi(x) lo(W) + hi(x) hi(W) (products of
+    TF32 values are exact in float32), all sums in float32.  The twin the
+    CPU tests hold the kernel's numerics with; no path runs it."""
+    v_out, cout = rule.shape[1], weight.shape[2]
+    xh, xl = tf32_split(feats)
+    wh, wl = tf32_split(weight)
+    acc = torch.zeros((v_out, cout), dtype=torch.float32, device=feats.device)
+    for k in range(rule.shape[0]):
+        idx = rule[k].long()
+        rows = torch.nonzero(idx >= 0).squeeze(1)
+        if rows.numel():
+            ah, al = xh[idx[rows]], xl[idx[rows]]
+            part = al @ wh[k]
+            part = part + ah @ wl[k]
+            part = part + ah @ wh[k]
+            acc.index_add_(0, rows, part)
+    if n_live is not None and n_live < v_out:
+        acc[n_live:] = 0
+    return acc
+
+
+def subm_conv_dw_tf32x3_plain(x: torch.Tensor, g: torch.Tensor,
+                              rule: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of csrc/subm_conv_dw_tf32.cu in PyTorch: both x and g
+    split into hi and lo, ``dW[k] = lo(X_k)^T hi(G) + hi(X_k)^T lo(G) +
+    hi(X_k)^T hi(G)``, float32 sums.  For the CPU tests only."""
+    k_off, cin, cout = rule.shape[0], x.shape[1], g.shape[1]
+    xh, xl = tf32_split(x)
+    gh, gl = tf32_split(g)
+    dw = torch.zeros((k_off, cin, cout), dtype=torch.float32, device=x.device)
+    for k in range(k_off):
+        idx = rule[k].long()
+        rows = torch.nonzero(idx >= 0).squeeze(1)
+        if rows.numel():
+            ah, al = xh[idx[rows]].t(), xl[idx[rows]].t()
+            part = al @ gh[rows]
+            part = part + ah @ gl[rows]
+            dw[k] = part + ah @ gh[rows]
     return dw
 
 
