@@ -16,8 +16,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              counts are zeroed just before and read just after, and every
              kernel of the path must have launched (the rulebook, the
              tensor-core conv, verticality, found bits; the 3xTF32 kernels'
-             path is the float32 one of phases 5, 5b, 8 and 8b, the SIMT
-             kernels' the bf16 kernel_size 5 one of 5b); the wrappers'
+             path is the float32 one of phases 5, 5b, 8 and 8b; no shipped
+             path reaches the SIMT kernels, which stay as the yardstick
+             every tensor-core route is raced against); the wrappers'
              inputs are recorded (first call of each shape) for phase 4;
              CUDA events around each model forward give the card's
              milliseconds beside the inference stage's host seconds; its
@@ -106,12 +107,30 @@ Phases (any failure exits nonzero; nothing is swallowed):
              in turns; then one float32 training step of that model on
              phase 8's crop, counts zeroed just before it: the 3xTF32 dW
              must launch, each of its shapes held likewise (1e-4 of max
-             |dW|); then the same plot and step in bf16 on the card, the
-             path the SIMT kernels keep (K != 27), counts zeroed just before
-             each: the SIMT conv and dW must launch, each shape held to the
-             plain version (2e-2 of max |out|, 1e-3 of max |dW|); the
+             |dW|); then the same plot and step in bf16 on the card, counts
+             zeroed just before each: the bf16 tensor-core conv and dW must
+             launch at K = 125 and no SIMT, rulebook or 3xTF32 kernel; each
+             conv, dx and dW shape held to the plain version (2e-2 of max
+             |out|, 1e-3 of max |dW|), its repeat launch bit-equal, raced
+             against the SIMT kernel (none more than 1.1x slower, the
+             totals lower); the totals printed beside the 3xTF32 ones; the
              ``kernel_size 5`` rows of the ``kernels`` line (``problem``),
              timed per run and per step;
+5c. narrow:  bf16 widths that are no multiple of 32: phase 3's plot with a
+             ``channels: 16`` model (levels 16..112, seed-0 weights), counts
+             zeroed just before: the rulebook and the bf16 tensor-core conv
+             must launch and no SIMT conv; the same plot with the SIMT route
+             forced in-process (every conv, and the widths it took before):
+             the same tree count and ARI >= 0.999, or at least the ARI of
+             the shipped channels 32 model between its tensor-core and SIMT
+             routes where bf16 summation order moves that one further; each
+             conv shape held and raced as in 5b, its outputs off the
+             once-rounded exact sum counted for both routes, at Cin = 16
+             (mod 32) also the design that zero-pads to full 32-channel
+             slices in the call; then 3 bf16 training steps of that model on
+             phase 6's crops: dx and dW on the tensor cores, no SIMT launch,
+             each shape held and raced as in phase 7; the ``channels 16``
+             rows of the ``kernels`` line;
 6. train:    ``train_synthetic_checkpoint`` at full width (configs/_modular/
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
@@ -502,8 +521,9 @@ def held(what, got, want, limit):
 def pad_sweep(feats, weight, rule, g=None):
     """The 4 -> 32 input conv (with ``g`` its weight gradient) in bf16 on
     the SIMT kernel and zero-padded onto the tensor-core route, the pad's
-    own time counted, over the first v rows of the recorded shape: what
-    ``ops/subm_conv.py:PAD_MIN_V`` rests on, the SIMT kernel held to the
+    own time counted, over the first v rows of the recorded shape: the
+    measurement behind padding it at any row count
+    (``ops/subm_conv.py:tensor_core_pad``), the SIMT kernel held to the
     plain version at each size (bf16 gates).  Measurement only."""
     import torch
     import torch.nn.functional as F
@@ -1590,65 +1610,296 @@ def tf32_dx_fields(rec, row, n_steps):
     row.update(dx)
 
 
-def simt_rows(rec, launches, lib_rows, problem, n_steps=None):
-    """The SIMT kernels' rows on the path that still takes them (bf16 at
-    kernel size 5): each recorded conv (or, with ``n_steps``, dW) shape on
-    the route its shape takes, which must be SIMT, held to the plain
-    version (bf16 gates: 2e-2 of max |out|, 1e-3 of max |dW|) and timed;
-    ms per run or per step."""
+def rounded_sum(feats, weight, rule):
+    """The conv's exact value rounded once to feats' dtype: the products
+    summed in float64 (exact for bf16 inputs at these depths), then one
+    rounding; what a route's output is held to when its rounding flips are
+    counted."""
+    import torch
+
+    acc = torch.zeros((rule.shape[1], weight.shape[2]), dtype=torch.float64,
+                      device=feats.device)
+    x, w = feats.double(), weight.double()
+    for k in range(rule.shape[0]):
+        idx = rule[k].long()
+        rows = torch.nonzero(idx >= 0).squeeze(1)
+        acc.index_add_(0, rows, x[idx[rows]] @ w[k])
+    return acc.to(feats.dtype)
+
+
+def bf16_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
+    """The ``subm_conv_wgmma`` row of a bf16 path's recorded conv shapes
+    beside the SIMT kernel: at each, the tensor-core route (repeat launch
+    bit-equal) and the SIMT kernel held to the plain conv (2e-2 of max
+    |out|), the pack kernel to the torch pack exactly, both timed in turns,
+    none more than ``SLOWER_LIMIT`` slower, the total lower; ms per run
+    (weighted by calls over ``n_runs``), per shape in ``per_shape``, with
+    the outputs of each route that differ from the once-rounded exact sum
+    (:func:`rounded_sum`: ``flips``, ``simt_flips``, and how many of the
+    route's are smaller in magnitude, ``flips_smaller``).  Where
+    Cin % 32 is 16 the other design for such a Cin, feats zero-padded to
+    full 32-channel slices in the call (the pad's time counted), is held
+    and timed beside the 16-channel tail slice (``tail_ms``, ``pad_ms``).
+    ``launches``: the path's counts.  Returns the row."""
+    import torch
+    import torch.nn.functional as F
+
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, cout_pad,
+                                                   pack_weight, subm_conv,
+                                                   subm_conv_simt,
+                                                   tensor_core_pad)
+
+    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               tail_ms=0.0, pad_ms=0.0)
+    err, by_ops, shapes = 0.0, 0, []
+    for key in sorted((k for k in rec.inputs if k[0] == "subm_conv"),
+                      key=str):
+        a = rec.inputs[key]
+        feats, weight, rule = a["feats"], a["weight"], a["rule"]
+        k, cin, cout = weight.shape
+        v = rule.shape[1]
+        pad_in = tensor_core_pad(cin, cout, v, feats.dtype, k)
+        pad_out = cout_pad(cout, feats.dtype, k)
+        plan = conv_plan(cin + pad_in, cout + pad_out, v, feats.dtype, k)
+        if feats.dtype != torch.bfloat16 or plan.route != "wgmma":
+            raise AssertionError(f"{problem}: conv {key} took {plan.route}")
+        calls = rec.calls[key] / n_runs
+        got = subm_conv(feats, weight, rule)
+        if not torch.equal(got, subm_conv(feats, weight, rule)):
+            raise AssertionError(f"{problem}: subm_conv_wgmma {key}: two "
+                                 "launches differ")
+        want = plain_conv(feats, weight, rule)
+        what = f"K={k} {cin}->{cout} V={v}"
+        err = max(err, held(f"{problem}: wgmma conv {what}", got, want,
+                            2e-2))
+        simt = subm_conv_simt(feats, weight, rule)
+        held(f"{problem}: SIMT conv {what}", simt, want, 2e-2)
+        exact = rounded_sum(feats, weight, rule)
+        off = got != exact
+        flips = dict(flips=int(off.sum()),
+                     simt_flips=int((simt != exact).sum()),
+                     flips_smaller=int((off & (got.float().abs()
+                                               < exact.float().abs())).sum()))
+        del simt, exact, off
+        wp = F.pad(weight, (0, pad_out, 0, pad_in)).contiguous()
+        if not torch.equal(pack_weight(wp, plan.bn).cpu(),
+                           pack_weight(wp.cpu(), plan.bn)):
+            raise AssertionError(f"{problem}: pack_weight {key} differs")
+        ms, previous = race(lambda: subm_conv(feats, weight, rule),
+                            lambda: subm_conv_simt(feats, weight, rule))
+        plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
+        b, by, flops, _, gathered = conv_bound(feats, weight, rule)
+        by_ops += by == "operations"
+        pads = f" (+{pad_in} / +{pad_out} zero channels)" if (
+            pad_in or pad_out) else ""
+        line = (f"  subm_conv_wgmma bf16 {what}{pads} {plan.bm}x{plan.bn}: "
+                f"err {rel_err(got, want):.1e} of max|out|, kernel {ms:.4f} "
+                f"ms ({flops / ms / 1e9:.1f} TFLOP/s), SIMT kernel "
+                f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+                f"({by}), gathered {gathered / 1e6:.2f} MB, {calls:g} "
+                f"call(s); of {got.numel()} outputs off the rounded exact "
+                f"sum: wgmma {flips['flips']} ({flips['flips_smaller']} "
+                f"smaller), SIMT {flips['simt_flips']}")
+        shape = dict(k=k, v=v, cin=cin, cout=cout, calls=calls, ms=ms,
+                     previous_ms=previous, plain_ms=plain, bound_ms=b,
+                     outputs=got.numel(), **flips)
+        if cin % 32 == 16:
+            w16 = F.pad(weight, (0, 0, 0, 16))
+            held(f"{problem}: padded-design conv {what}",
+                 subm_conv(F.pad(feats, (0, 16)), w16, rule), want, 2e-2)
+            tail, padded = race(
+                lambda: subm_conv(feats, weight, rule),
+                lambda: subm_conv(F.pad(feats, (0, 16)), w16, rule))
+            line += (f"; Cin {cin} as a 16-channel tail slice {tail:.4f} ms, "
+                     f"padded to {cin + 16} in the call {padded:.4f} ms")
+            shape.update(tail_ms=tail, pad_ms=padded)
+            tot["tail_ms"] += tail * calls
+            tot["pad_ms"] += padded * calls
+        log(line)
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(
+                f"{problem}: subm_conv_wgmma {what}: {ms:.4f} ms, the SIMT "
+                f"kernel {previous:.4f}")
+        shapes.append(shape)
+        for col, val in (("ms", ms), ("previous_ms", previous),
+                         ("plain_ms", plain), ("bound_ms", b)):
+            tot[col] += val * calls
+    if not shapes:
+        raise AssertionError(f"{problem}: no conv recorded")
+    log(f"  {problem}: bf16 tensor-core convs {tot['ms']:.4f} ms a run, the "
+        f"SIMT kernel at the same shapes {tot['previous_ms']:.4f} ms"
+        + (f"; the shapes with Cin % 32 = 16: tail slices "
+           f"{tot['tail_ms']:.4f} ms, padded in the call {tot['pad_ms']:.4f}"
+           f" ms" if tot["pad_ms"] else ""))
+    if not tot["ms"] < tot["previous_ms"]:
+        raise AssertionError(f"{problem}: the bf16 tensor-core convs are not "
+                             "faster")
+    if not tot["pad_ms"]:
+        del tot["tail_ms"], tot["pad_ms"]
+    row = dict(name="subm_conv_wgmma", route="cuda",
+               source="treelearn_tpu_torch/csrc/subm_conv_wgmma.cu",
+               replaces="treelearn_tpu/ops/pallas_conv.py:355",
+               problem=problem, launches=launches["subm_conv_wgmma"],
+               max_abs_err=err,
+               bound_by="operations" if by_ops * 2 >= len(shapes)
+               else "bytes", library_ms=None, per_shape=shapes, **tot)
+    lib_rows.append(row)
+    return row
+
+
+def bf16_dw_rows(rec, launches, lib_rows, problem, n_steps):
+    """The ``subm_conv_dw_wgmma`` row of a bf16 training path's recorded dW
+    shapes: the tensor-core kernel (repeat launch bit-equal) and the SIMT
+    kernel each within 1e-3 of max |dW| of the plain dW, timed in turns,
+    none more than ``SLOWER_LIMIT`` slower, the total lower; where Cin % 32
+    is 16 the design that zero-pads x to full slabs in the call (dW's extra
+    rows dropped) held and timed beside the native one; ms per step."""
+    import torch
+    import torch.nn.functional as F
+
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import (cout_pad, dw_plan,
+                                                   subm_conv_dw,
+                                                   subm_conv_dw_simt,
+                                                   tensor_core_pad)
+
+    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               tail_ms=0.0, pad_ms=0.0)
+    err, by_ops, shapes = 0.0, 0, []
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
+        a = rec.inputs[key]
+        x, g, rule = a["x"], a["g"], a["rule"]
+        k, (v, cin), cout = rule.shape[0], x.shape, g.shape[1]
+        pad_in = tensor_core_pad(cin, cout, v, x.dtype, k)
+        pad_out = cout_pad(cout, x.dtype, k)
+        plan = dw_plan(cin + pad_in, cout + pad_out, v, x.dtype, k)
+        if x.dtype != torch.bfloat16 or plan.route != "wgmma":
+            raise AssertionError(f"{problem}: dW {key} took {plan.route}")
+        per_step = rec.calls[key] / n_steps
+        got = subm_conv_dw(x, g, rule)
+        if not torch.equal(got, subm_conv_dw(x, g, rule)):
+            raise AssertionError(f"{problem}: subm_conv_dw_wgmma {key}: two "
+                                 "launches differ")
+        want = plain_dw(x, g, rule)
+        what = f"K={k} {cin}x{cout} V={v}"
+        err = max(err, held(f"{problem}: wgmma dW {what}", got, want, 1e-3))
+        held(f"{problem}: SIMT dW {what}", subm_conv_dw_simt(x, g, rule),
+             want, 1e-3)
+        ms, previous = race(lambda: subm_conv_dw(x, g, rule),
+                            lambda: subm_conv_dw_simt(x, g, rule), rounds=5)
+        plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
+        b, by, flops = dw_bound(x, g, rule)
+        by_ops += by == "operations"
+        line = (f"  subm_conv_dw_wgmma bf16 {what}"
+                f"{f' (+{pad_in} zero channels)' if pad_in else ''}: err "
+                f"{rel_err(got, want):.1e} of max|dW|, kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), SIMT kernel "
+                f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+                f"({by}), {plan.n_chunks} chunk(s) of {plan.rows_per_chunk} "
+                f"rows, {per_step:g} call(s) per step")
+        shape = dict(k=k, v=v, cin=cin, cout=cout, per_step=per_step, ms=ms,
+                     previous_ms=previous, plain_ms=plain, bound_ms=b)
+        if cin % 32 == 16:
+            def padded_dw():
+                return subm_conv_dw(F.pad(x, (0, 16)), g,
+                                    rule)[:, :cin].contiguous()
+
+            held(f"{problem}: padded-design dW {what}", padded_dw(), want,
+                 1e-3)
+            tail, padded = race(lambda: subm_conv_dw(x, g, rule), padded_dw,
+                                rounds=5)
+            line += (f"; Cin {cin} in 8-channel chunks {tail:.4f} ms, padded "
+                     f"to {cin + 16} in the call {padded:.4f} ms")
+            shape.update(tail_ms=tail, pad_ms=padded)
+            tot["tail_ms"] += tail * per_step
+            tot["pad_ms"] += padded * per_step
+        log(line)
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(
+                f"{problem}: subm_conv_dw_wgmma {what}: {ms:.4f} ms, the "
+                f"SIMT kernel {previous:.4f}")
+        shapes.append(shape)
+        for col, val in (("ms", ms), ("previous_ms", previous),
+                         ("plain_ms", plain), ("bound_ms", b)):
+            tot[col] += val * per_step
+    if not shapes:
+        raise AssertionError(f"{problem}: no dW recorded")
+    log(f"  {problem}: bf16 tensor-core dW {tot['ms']:.4f} ms a step, the "
+        f"SIMT kernel at the same shapes {tot['previous_ms']:.4f} ms"
+        + (f"; the shapes with Cin % 32 = 16: native {tot['tail_ms']:.4f} "
+           f"ms, padded in the call {tot['pad_ms']:.4f} ms"
+           if tot["pad_ms"] else ""))
+    if not tot["ms"] < tot["previous_ms"]:
+        raise AssertionError(f"{problem}: the bf16 tensor-core dW is not "
+                             "faster")
+    if not tot["pad_ms"]:
+        del tot["tail_ms"], tot["pad_ms"]
+    row = dict(name="subm_conv_dw_wgmma", route="cuda",
+               source="treelearn_tpu_torch/csrc/subm_conv_dw_wgmma.cu",
+               replaces="treelearn_tpu/ops/pallas_conv.py:438",
+               problem=problem, launches=launches["subm_conv_dw_wgmma"],
+               max_abs_err=err,
+               bound_by="operations" if by_ops * 2 >= len(shapes)
+               else "bytes", library_ms=None, per_shape=shapes, **tot)
+    lib_rows.append(row)
+    return row
+
+
+def bf16_dx_fields(rec, row, n_steps):
+    """dx of a bf16 training path (the conv with the mirrored weights on the
+    tensor-core kernel, tiles packed mirrored): at each recorded shape held,
+    and the SIMT kernel with it, to the plain conv with the mirrored
+    weights (2e-2 of max |dx|), repeat launch bit-equal, both timed in
+    turns, none more than ``SLOWER_LIMIT`` slower, the total lower; the
+    per-step sums go into ``row`` as ``dx_*``."""
     import torch
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
-    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_plan,
-                                                   subm_conv, subm_conv_dw)
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, cout_pad,
+                                                   mirrored, subm_conv_dx,
+                                                   subm_conv_simt,
+                                                   tensor_core_pad)
 
-    dw = n_steps is not None
-    name = "subm_conv_dw" if dw else "subm_conv"
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    err, by_ops, n = 0.0, 0, 0
-    for key in sorted(k for k in rec.inputs if k[0] == name):
+    dx = dict(dx_ms=0.0, dx_previous_ms=0.0, dx_plain_ms=0.0,
+              dx_bound_ms=0.0, dx_launches_per_step=0.0)
+    for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
         a = rec.inputs[key]
-        if dw:
-            x, g, rule = a["x"], a["g"], a["rule"]
-            k, cin, cout = rule.shape[0], x.shape[1], g.shape[1]
-            route = dw_plan(cin, cout, x.shape[0], x.dtype, k).route
-            fn, plain = (lambda: subm_conv_dw(x, g, rule),
-                         lambda: plain_dw(x, g, rule))
-            b, by, flops = dw_bound(x, g, rule)
-            limit, dtype, per = 1e-3, x.dtype, rec.calls[key] / n_steps
-        else:
-            x, w, rule = a["feats"], a["weight"], a["rule"]
-            k, cin, cout = w.shape
-            route = conv_plan(cin, cout, rule.shape[1], x.dtype, k).route
-            fn, plain = (lambda: subm_conv(x, w, rule),
-                         lambda: plain_conv(x, w, rule))
-            b, by, flops, _, _ = conv_bound(x, w, rule)
-            limit, dtype, per = 2e-2, x.dtype, rec.calls[key]
-        if route != "simt":
-            raise AssertionError(f"{problem}: {key} took {route}")
-        err = max(err, held(f"{problem}: SIMT {name} {key}", fn(), plain(),
-                            limit))
-        ms = cuda_ms(fn)
-        plain_ms = cuda_ms(plain, reps=3)
-        log(f"  {name} (SIMT) K={k} {str(dtype)[6:]} V={x.shape[0]} "
-            f"{cin}->{cout}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
-            f"TFLOP/s), plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), "
-            f"{per:g} call(s)")
-        by_ops += by == "operations"
-        n += 1
-        for col, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b)):
-            tot[col] += val * per
-    if not n:
-        raise AssertionError(f"{problem}: no {name} recorded")
-    lib_rows.append(dict(
-        name=name, route="cuda",
-        source=f"treelearn_tpu_torch/csrc/{name}.cu",
-        replaces=("treelearn_tpu/ops/pallas_conv.py:438" if dw
-                  else "treelearn_tpu/ops/pallas_conv.py:355"),
-        problem=problem, launches=launches[name], max_abs_err=err,
-        bound_by="operations" if by_ops * 2 >= n else "bytes",
-        library_ms=None, **tot))
+        g, w, rule = a["g"], a["weight"], a["rule"]
+        k, cin, cout = w.shape
+        v = rule.shape[1]
+        plan = conv_plan(cout + tensor_core_pad(cout, cin, v, g.dtype, k),
+                         cin + cout_pad(cin, g.dtype, k), v, g.dtype, k)
+        if g.dtype != torch.bfloat16 or plan.route != "wgmma":
+            raise AssertionError(f"dx {key} took {plan.route}")
+        per_step = rec.calls[key] / n_steps
+        got = subm_conv_dx(g, w, rule)
+        if not torch.equal(got, subm_conv_dx(g, w, rule)):
+            raise AssertionError(f"dx {key}: two launches differ")
+        wm = mirrored(w)
+        want = plain_conv(g, wm, rule)
+        held(f"bf16 dx {key}", got, want, 2e-2)
+        held(f"SIMT dx {key}", subm_conv_simt(g, w, rule, mirror=True), want,
+             2e-2)
+        ms, previous = race(lambda: subm_conv_dx(g, w, rule),
+                            lambda: subm_conv_simt(g, w, rule, mirror=True))
+        plain = cuda_ms(lambda: plain_conv(g, wm, rule), reps=3)
+        b, by, flops, _, _ = conv_bound(g, wm, rule)
+        log(f"  dx bf16 K={k} V={v} {cin}<-{cout} {plan.bm}x{plan.bn}: "
+            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SIMT "
+            f"kernel {previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} "
+            f"ms ({by}), {per_step:g} call(s) per step")
+        if ms > SLOWER_LIMIT * previous:
+            raise AssertionError(f"dx {key}: {ms:.4f} ms, the SIMT kernel "
+                                 f"{previous:.4f}")
+        for col, val in (("dx_ms", ms), ("dx_previous_ms", previous),
+                         ("dx_plain_ms", plain), ("dx_bound_ms", b),
+                         ("dx_launches_per_step", 1.0)):
+            dx[col] += val * per_step
+    log(f"  dx per bf16 training step: {json.dumps(dx)}")
+    if not dx["dx_ms"] < dx["dx_previous_ms"]:
+        raise AssertionError("the bf16 tensor-core dx is not faster per step")
+    row.update(dx)
 
 
 def k5_small_plot(tmp, dev, fp16, rec=None):
@@ -1704,9 +1955,12 @@ def kernel_size5_check(tmp, lib_rows):
     conv with K = 125 and no other conv kernel; its shapes make a
     ``subm_conv_tf32`` row.  One float32 training step, counts zeroed just
     before it: the 3xTF32 dW must launch (a ``subm_conv_dw_tf32`` row).
-    Then bf16, the path the SIMT kernels keep: the same plot and one step
-    on the card, counts zeroed just before each: the SIMT conv and dW must
-    launch, and their shapes make the SIMT kernels' rows."""
+    Then bf16: the same plot and one step on the card, counts zeroed just
+    before each: the bf16 tensor-core conv and dW must launch at K = 125
+    and no SIMT, rulebook or 3xTF32 kernel; their shapes, held and raced
+    against the SIMT kernels, make the ``subm_conv_wgmma`` (with the dx
+    fields) and ``subm_conv_dw_wgmma`` rows of the problem, their totals
+    printed beside the 3xTF32 ones of this process."""
     import torch
 
     t0 = time.time()
@@ -1724,7 +1978,7 @@ def kernel_size5_check(tmp, lib_rows):
     if (launches["subm_conv_tf32"] == 0 or launches["subm_conv_wgmma"]
             or launches["subm_conv"] or launches["rulebook"]):
         raise AssertionError(f"kernel_size 5 launches {launches}")
-    tf32_conv_rows(rec, launches, lib_rows, problem)
+    tf32_conv = tf32_conv_rows(rec, launches, lib_rows, problem)
     rec = GradRecorder()
     loss, step_launches = k5_step(tmp, torch.float32, rec)
     log(f"  kernel_size 5 float32 training step on the card: loss "
@@ -1733,28 +1987,200 @@ def kernel_size5_check(tmp, lib_rows):
             or step_launches["subm_conv_dw_wgmma"]
             or step_launches["subm_conv_dw"]):
         raise AssertionError(f"kernel_size 5 step launches {step_launches}")
-    tf32_dw_rows(rec, step_launches, lib_rows, problem, 1)
-    # bf16: K != 27 keeps the SIMT kernels
+    tf32_dw = tf32_dw_rows(rec, step_launches, lib_rows, problem, 1)
+    # bf16: the tensor-core kernels at K = 125, no SIMT launch
     problem = "kernel_size 5, bf16 (phase 5b)"
     rec = Recorder()
     _, n_trees, launches, _ = k5_small_plot(tmp, CARD, True, rec)
     log(f"kernel_size 5 small plot, bf16, on the card: n_trees {n_trees}, "
         f"launches {json.dumps(launches)}")
-    if (launches["subm_conv"] == 0 or launches["subm_conv_wgmma"]
+    if (launches["subm_conv_wgmma"] == 0 or launches["subm_conv"]
             or launches["subm_conv_tf32"] or launches["rulebook"]):
         raise AssertionError(f"kernel_size 5 bf16 launches {launches}")
-    simt_rows(rec, launches, lib_rows, problem)
+    conv = bf16_conv_rows(rec, launches, lib_rows, problem)
     rec = GradRecorder()
     loss, step_launches = k5_step(tmp, torch.bfloat16, rec)
     log(f"  kernel_size 5 bf16 training step on the card: loss {loss:.5f}, "
         f"launches {json.dumps(step_launches)}")
-    if (step_launches["subm_conv_dw"] == 0
-            or step_launches["subm_conv_dw_wgmma"]
-            or step_launches["subm_conv_dw_tf32"]):
+    if (step_launches["subm_conv_dw_wgmma"] == 0
+            or step_launches["subm_conv_wgmma"] == 0
+            or step_launches["subm_conv_dw"] or step_launches["subm_conv"]
+            or step_launches["subm_conv_dw_tf32"]
+            or step_launches["subm_conv_tf32"]):
         raise AssertionError(f"kernel_size 5 bf16 step launches "
                              f"{step_launches}")
-    simt_rows(rec, step_launches, lib_rows, problem, n_steps=1)
+    dw = bf16_dw_rows(rec, step_launches, lib_rows, problem, 1)
+    bf16_dx_fields(rec, conv, 1)
+    log(f"  kernel_size 5, K = 125, this process: convs per run bf16 "
+        f"{conv['ms']:.4f} ms, 3xTF32 {tf32_conv['ms']:.4f} ms, SIMT (bf16) "
+        f"{conv['previous_ms']:.4f} ms; dW per step bf16 {dw['ms']:.4f} ms, "
+        f"3xTF32 {tf32_dw['ms']:.4f} ms, SIMT (bf16) "
+        f"{dw['previous_ms']:.4f} ms; dx per step bf16 {conv['dx_ms']:.4f} "
+        f"ms, SIMT (bf16) {conv['dx_previous_ms']:.4f} ms")
+    conv.update(tf32_ms=tf32_conv["ms"])
+    dw.update(tf32_ms=tf32_dw["ms"])
     log(f"  phase 5b: {time.time() - t0:.1f} s")
+
+
+NARROW_CHANNELS = 16   # phase 5c's model: levels 16..112
+NARROW_STEPS = 3       # phase 5c's training steps
+
+
+@contextlib.contextmanager
+def bf16_simt(every_width):
+    """Within the block, bf16 convs take the SIMT kernel, unpadded: with
+    ``every_width`` all of them; else the widths that took it before the
+    bf16 tensor-core conv took every width, i.e. all but K = 27 with Cin
+    and Cout in multiples of 32 (and the 4 -> 32 input conv from 32,768
+    rows, padded onto the tensor cores), which keep the wgmma route
+    (``ops/subm_conv.py``'s routing functions swapped in-process; float32
+    keeps its routes)."""
+    import torch
+
+    from treelearn_tpu_torch.ops import subm_conv as sc
+
+    plan, pad, pad_out = sc.conv_plan, sc.tensor_core_pad, sc.cout_pad
+    bf = torch.bfloat16
+
+    def conv_plan(cin, cout, v, dtype=bf, n_offsets=sc.N_OFFSETS):
+        if dtype == bf and (every_width or n_offsets != 27 or cin <= 0
+                            or cout <= 0 or cin % 32 or cout % 32):
+            return sc.ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
+        return plan(cin, cout, v, dtype, n_offsets)
+
+    def tensor_core_pad(cin, cout, v, dtype, n_offsets=sc.N_OFFSETS):
+        if dtype == bf:
+            return (32 - cin if not every_width and n_offsets == 27
+                    and 0 < cin < 32 and cout and not cout % 32
+                    and v >= 32768 else 0)
+        return pad(cin, cout, v, dtype, n_offsets)
+
+    def cout_pad(cout, dtype, n_offsets=sc.N_OFFSETS):
+        return 0 if dtype == bf else pad_out(cout, dtype, n_offsets)
+
+    sc.conv_plan, sc.tensor_core_pad, sc.cout_pad = (conv_plan,
+                                                     tensor_core_pad,
+                                                     cout_pad)
+    try:
+        yield
+    finally:
+        sc.conv_plan, sc.tensor_core_pad, sc.cout_pad = plan, pad, pad_out
+
+
+def narrow_phase(tmp, path, lib_rows):
+    """Phase 5c: bf16 widths that are no multiple of 32.  (a) Phase 3's
+    plot with a ``channels: 16`` model (levels 16..112, decoder convs of
+    32..224 input channels; seed-0 weights), counts zeroed just before: the
+    rulebook and the bf16 tensor-core conv must launch, no SIMT or 3xTF32
+    conv; (b) the same plot with the SIMT route forced in-process
+    (:func:`bf16_simt`), for every conv and for the widths that took it
+    before: the same tree count, and the same partition as far as bf16
+    summation order lets two correct routes agree: ARI >= 0.999, or, where
+    the shipped ``channels: 32`` model (whose bf16 routes are unchanged)
+    already moves further between its tensor-core route and the SIMT one
+    on the same plot, ARI at least that model's (the seed-0 model's
+    semantic logits sit within bf16 rounding of the threshold); the
+    recorded conv shapes make the ``subm_conv_wgmma`` row of the
+    problem (held and raced against SIMT, the zero-pad design timed at
+    Cin = 16 mod 32).  (c) ``NARROW_STEPS`` bf16 steps of
+    ``train_synthetic_checkpoint`` of that model as phase 6 runs them (its
+    crops), counts zeroed just before: the tensor-core conv and dW must
+    launch and no SIMT kernel; its dW shapes make the
+    ``subm_conv_dw_wgmma`` row, its dx shapes the conv row's ``dx_*``
+    fields."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.config import load_yaml_file
+    from treelearn_tpu_torch.io.pointcloud import load_data
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.train.selftrain import (
+        BENCH_RECIPE, train_synthetic_checkpoint)
+
+    t0 = time.time()
+    problem = f"channels {NARROW_CHANNELS} (phase 5c)"
+    rec = Recorder()
+    _cuda.set_recorder(rec)
+    res, wall, launches, fwd = run_plot(path, channels=NARROW_CHANNELS)
+    _cuda.set_recorder(None)
+    log_plot(f"channels {NARROW_CHANNELS} plot, bf16 (recorder installed)",
+             res, wall, launches, fwd)
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "vert", "cc")
+            if launches[k] == 0]
+    if zero or launches["subm_conv"] or launches["subm_conv_tf32"]:
+        raise AssertionError(f"channels {NARROW_CHANNELS} plot launches "
+                             f"{launches}")
+    labels = load_data(res["output_path"])[:, 3].copy()
+
+    def forced(every_width, channels):
+        with bf16_simt(every_width):
+            out = run_plot(path, channels=channels)
+        what = "every conv" if every_width else "the widths it took before"
+        log_plot(f"channels {channels} plot, bf16, SIMT route forced for "
+                 f"{what}", *out)
+        if out[2]["subm_conv"] == 0 or (every_width
+                                        and out[2]["subm_conv_wgmma"]):
+            raise AssertionError(f"SIMT-forced plot launches {out[2]}")
+        return out, load_data(out[0]["output_path"])[:, 3].copy()
+
+    # how far bf16 summation order alone moves the shipped model's partition
+    ship = load_data(run_plot(path)[0]["output_path"])[:, 3].copy()
+    ari_ship = adjusted_rand(ship, forced(True, 32)[1])
+    limit = min(0.999, ari_ship)
+    log(f"channels 32 plot (the shipped width, its bf16 routes unchanged), "
+        f"tensor-core vs SIMT convs: ARI {ari_ship:.6f}; the limit for "
+        f"channels {NARROW_CHANNELS}: {limit:.6f}")
+    plot = dict(plot_forward_ms=sum(fwd.device_ms()),
+                plot_ari_shipped_width=ari_ship)
+    for every_width, col in ((True, "simt"), (False, "before")):
+        out, other = forced(every_width, NARROW_CHANNELS)
+        ari = adjusted_rand(labels, other)
+        share = float((labels != other).mean())
+        log(f"channels {NARROW_CHANNELS} plot, tensor-core vs SIMT convs "
+            f"({'every width' if every_width else 'the widths before'}): "
+            f"ARI {ari:.6f}, labels differing {share:.6f}, n_trees "
+            f"{res['n_trees']} / {out[0]['n_trees']}")
+        if ari < limit or res["n_trees"] != out[0]["n_trees"]:
+            raise AssertionError("the tensor-core and SIMT bf16 plots "
+                                 "disagree")
+        plot[f"plot_ari_{col}"] = ari
+        plot[f"plot_{col}_forward_ms"] = sum(out[3].device_ms())
+    row = bf16_conv_rows(rec, launches, lib_rows, problem)
+    row.update(plot)
+    del rec
+    model_cfg = dict(load_yaml_file(osp.join(
+        REPO, "configs", "_modular", "model.yaml"))["model"])
+    model_cfg["channels"] = NARROW_CHANNELS
+    rec = GradRecorder()
+    _cuda.set_recorder(rec)
+    _cuda.reset_launches()
+    _, info = train_synthetic_checkpoint(
+        model_cfg, cache_dir=osp.join(tmp, "selftrain_narrow"),
+        steps=NARROW_STEPS, lr=BENCH_RECIPE["lr"], n_crops=4,
+        crop_extent=BENCH_RECIPE["crop_extent"], ppt=BENCH_RECIPE["ppt"],
+        hard_frac=BENCH_RECIPE["hard_frac"], batch_size=1, log_every=1,
+        logger=lambda m: log("  " + m), return_info=True, device=CARD,
+        compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    train_launches = dict(_cuda.LAUNCHES)
+    _cuda.set_recorder(None)
+    losses = np.asarray(info["losses"])
+    log(f"channels {NARROW_CHANNELS} bf16 train: {len(losses)} steps, "
+        f"losses {[round(float(x), 3) for x in losses]}, launches "
+        f"{json.dumps(train_launches)}")
+    if len(losses) != NARROW_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"channels {NARROW_CHANNELS} losses {losses}")
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv_dw_wgmma")
+            if train_launches[k] == 0]
+    if zero or any(train_launches[k] for k in (
+            "subm_conv", "subm_conv_dw", "subm_conv_tf32",
+            "subm_conv_dw_tf32")):
+        raise AssertionError(f"channels {NARROW_CHANNELS} training launches "
+                             f"{train_launches}")
+    n_steps = len(losses)
+    bf16_dw_rows(rec, train_launches, lib_rows, problem, n_steps)
+    bf16_dx_fields(rec, row, n_steps)
+    log(f"  phase 5c: {time.time() - t0:.1f} s")
 
 
 @contextlib.contextmanager
@@ -2796,8 +3222,11 @@ def main():
         # 5. end-to-end agreement on a small plot, float32
         small_plot_check(tmp)
         # 5b. kernel size 5: the 3xTF32 conv and dW with K = 125 (float32),
-        # the SIMT ones (bf16)
+        # the bf16 tensor-core ones
         kernel_size5_check(tmp, rows)
+        # 5c. bf16 widths that are no multiple of 32: a channels 16 model on
+        # the plot and in training
+        narrow_phase(tmp, path, rows)
 
         # 6. training at full width; 7. its backward kernels
         info, train_launches, grad_rec = train_phase(tmp)

@@ -348,15 +348,14 @@ def test_cc_cell_kernel_matches_plain_and_serial(cuda, kind):
 
 @pytest.mark.parametrize("v", [100, 9000, 70000])
 def test_input_conv_padded_route_matches_plain(cuda, v):
-    """The bf16 4 -> 32 input conv and its weight gradient: over
-    ``PAD_MIN_V`` voxels zero-padded onto the tensor-core routes, below it
-    on the SIMT kernels; either way within the bf16 gates of the unpadded
-    plain versions (2e-2 of max |out|, 1e-3 of max |dW|)."""
+    """The bf16 4 -> 32 input conv and its weight gradient, zero-padded to
+    32 input channels onto the tensor-core routes at any row count, within
+    the bf16 gates of the unpadded plain versions (2e-2 of max |out|, 1e-3
+    of max |dW|)."""
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import (PAD_MIN_V, subm_conv,
-                                                   subm_conv_dw)
+    from treelearn_tpu_torch.ops.subm_conv import subm_conv, subm_conv_dw
 
     gen = torch.Generator(device="cpu").manual_seed(v)
     x = torch.randn(v, 4, generator=gen).to(cuda, torch.bfloat16)
@@ -367,11 +366,9 @@ def test_input_conv_padded_route_matches_plain(cuda, v):
     out = subm_conv(x, w, rule)
     dw = subm_conv_dw(x, g, rule)
     torch.cuda.synchronize()
-    padded = v >= PAD_MIN_V
     for name in ("subm_conv", "subm_conv_dw"):
-        assert _cuda.LAUNCHES[name] == before[name] + (not padded)
-        assert (_cuda.LAUNCHES[name + "_wgmma"]
-                == before[name + "_wgmma"] + padded)
+        assert _cuda.LAUNCHES[name] == before[name]
+        assert _cuda.LAUNCHES[name + "_wgmma"] == before[name + "_wgmma"] + 1
     want = plain(x, w, rule).float()
     assert out.shape == (v, 32) and dw.shape == (27, 4, 32)
     assert float((out.float() - want).abs().max()) <= 2e-2 * float(
@@ -755,8 +752,9 @@ def test_simt_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
 
 
 def test_kernel_size_5_routes_and_counts(cuda):
-    """At K = 125 the routed wrappers take the SIMT kernels in bf16 too
-    (no tensor-core launch, no pad) and agree with the plain versions."""
+    """At K = 125 the routed wrappers take the bf16 tensor-core kernels
+    (the 4 -> 32 input conv padded to 32 channels, no SIMT launch) and
+    agree with the plain versions."""
     from treelearn_tpu_torch.model.network import level_rule
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain
@@ -775,14 +773,90 @@ def test_kernel_size_5_routes_and_counts(cuda):
     out = subm_conv(x, w, rule).float()
     dw = subm_conv_dw(x, go, rule)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"] + 1
-    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"] + 1
-    for name in ("subm_conv_wgmma", "subm_conv_dw_wgmma"):
+    for name in ("subm_conv", "subm_conv_dw"):
         assert _cuda.LAUNCHES[name] == before[name]
+        assert _cuda.LAUNCHES[name + "_wgmma"] == before[name + "_wgmma"] + 1
     want = plain(x, w, rule).float()
     assert float((out - want).abs().max()) <= 2e-2 * float(want.abs().max())
     want = plain_dw(x, go, rule)
     assert float((dw - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# ---- the bf16 tensor-core routes at any odd kernel size up to 7 and any
+# width (csrc/subm_conv_wgmma.cu, csrc/subm_conv_dw_wgmma.cu)
+
+
+@pytest.mark.parametrize("v", [1, 63, 136, 1000, 8300, 70000])
+@pytest.mark.parametrize("k_size,cin,cout", [
+    (5, 32, 32), (5, 64, 96), (3, 16, 16), (3, 48, 48), (3, 24, 40),
+    (3, 16, 112), (5, 16, 48), (7, 48, 16), (3, 4, 16), (3, 12, 20)])
+def test_bf16_wgmma_any_kernel_size_and_width(cuda, k_size, cin, cout, v):
+    """The routed bf16 conv, its dx and its dW at K = 125 / 343 and at
+    widths that are no multiple of 32 (16-channel tail slices, 24 channels
+    in a slice with a zero chunk, block widths 8..112, Cout slabs reaching
+    past Cout; 4 -> 16 and 12 -> 20 zero-padded) take the tensor-core
+    kernels only and match the plain versions: 2e-2 of max |out| (conv;
+    dx against the plain conv with the mirrored weights), 1e-3 of max |dW|;
+    two launches of each give the same bits; rows past n_live are zero."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
+    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
+    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv,
+                                                   subm_conv_dw, subm_conv_dx)
+
+    k = k_size ** 3
+    gen = torch.Generator(device="cpu").manual_seed(k + 7 * cin + cout + v)
+    x = torch.randn(v, cin, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(k, cin, cout, generator=gen) * 0.1).to(
+        cuda, torch.bfloat16)
+    go = torch.randn(v, cout, generator=gen).to(cuda, torch.bfloat16)
+    rule = torch.randint(0, v, (k, v), generator=gen, dtype=torch.int32)
+    rule[torch.rand(k, v, generator=gen) > 0.3] = -1
+    rule = rule.to(cuda)
+    before = dict(_cuda.LAUNCHES)
+    out, out2 = subm_conv(x, w, rule), subm_conv(x, w, rule)
+    dx, dx2 = subm_conv_dx(go, w, rule), subm_conv_dx(go, w, rule)
+    dw, dw2 = subm_conv_dw(x, go, rule), subm_conv_dw(x, go, rule)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"] + 4
+    assert (_cuda.LAUNCHES["subm_conv_dw_wgmma"]
+            == before["subm_conv_dw_wgmma"] + 2)
+    for name in ("subm_conv", "subm_conv_dw", "subm_conv_tf32",
+                 "subm_conv_dw_tf32"):
+        assert _cuda.LAUNCHES[name] == before[name], name
+    assert torch.equal(out, out2) and torch.equal(dx, dx2)
+    assert torch.equal(dw, dw2)
+    assert out.shape == (v, cout) and dx.shape == (v, cin)
+    assert dw.shape == (k, cin, cout)
+    for got, want in ((out, plain(x, w, rule)),
+                      (dx, plain(go, mirrored(w), rule))):
+        want = want.float()
+        assert float((got.float() - want).abs().max()) <= 2e-2 * float(
+            want.abs().max().clamp(min=1e-6))
+    want = plain_dw(x, go, rule)
+    assert float((dw - want).abs().max()) <= 1e-3 * float(
+        want.abs().max().clamp(min=1e-6))
+    n_live = v // 2
+    part = subm_conv(x, w, rule, n_live=n_live)
+    assert (part[n_live:] == 0).all()
+    assert torch.equal(part[:n_live], out[:n_live])
+
+
+@pytest.mark.parametrize("k", [27, 125])
+@pytest.mark.parametrize("cin,cout,bn", [
+    (24, 16, 8), (16, 48, 24), (48, 48, 48), (112, 224, 112), (40, 24, 24)])
+def test_pack_weight_kernel_tail_slices(cuda, k, cin, cout, bn):
+    """The pack kernel writes the same images as the torch pack where Cin
+    ends in a 16-channel tail slice or a zero chunk, straight and mirrored,
+    at K = 27 and 125 (a copy: exact)."""
+    from treelearn_tpu_torch.ops.subm_conv import mirrored, pack_weight
+
+    gen = torch.Generator(device="cpu").manual_seed(cin + cout + k)
+    w = torch.randn(k, cin, cout, generator=gen).to(torch.bfloat16)
+    assert torch.equal(pack_weight(w.to(cuda), bn).cpu(), pack_weight(w, bn))
+    bn_m = bn if cin % bn == 0 else 8
+    assert torch.equal(pack_weight(w.to(cuda), bn_m, mirror=True).cpu(),
+                       pack_weight(mirrored(w), bn_m))
 
 
 # ---- the 3xTF32 float32 route (csrc/subm_conv_tf32.cu,
@@ -919,8 +993,9 @@ def test_subm_conv_tf32_sparse_rules(cuda, v):
 def test_subm_conv_fn_float32_grads_through_tf32(cuda, k_size, cin, cout):
     """float32 SubmConvFn on a submanifold rule: forward, dx (the conv with
     the mirrored weights) and dW through the 3xTF32 kernels (the 4 -> 32
-    input conv padded to 8, its dx of 4 channels on the SIMT kernel),
-    against autograd through the plain conv: 1e-4 of each one's max."""
+    input conv padded to 8 input channels, its dx of 4 output channels
+    padded to 8 and cut back), against autograd through the plain conv:
+    1e-4 of each one's max."""
     from treelearn_tpu_torch.model.network import level_rule
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain
@@ -944,8 +1019,8 @@ def test_subm_conv_fn_float32_grads_through_tf32(cuda, k_size, cin, cout):
         if i == 0:
             torch.cuda.synchronize()
             launched = {n: _cuda.LAUNCHES[n] - before[n] for n in before}
-    assert launched["subm_conv_tf32"] == 1 + (cin % 8 == 0)
-    assert launched["subm_conv"] == (cin % 8 != 0)
+    assert launched["subm_conv_tf32"] == 2
+    assert launched["subm_conv"] == 0
     assert launched["subm_conv_dw_tf32"] == 1
     assert launched["subm_conv_dw"] == 0
     for got, want in zip(*res):

@@ -144,18 +144,19 @@ def test_conv_fn_k125_grads_match_plain_autograd():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k125_routes_to_simt(dtype):
-    """K != 27 takes the SIMT conv and dW in bf16, unpadded; in float32 the
-    3xTF32 kernels (their offset count is a launch argument), the 4 -> 32
-    input conv padded to 8 channels; K = 27 keeps its routes."""
-    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_chunks,
-                                                   dw_plan, tensor_core_pad)
+def test_k125_routes_to_tensor_cores(dtype):
+    """K = 125 takes the tensor-core conv and dW of its dtype (the offset
+    count is a launch argument of all four kernels): 3xTF32 in float32,
+    the 4 -> 32 input conv padded to 8 channels; wgmma in bf16, the input
+    conv padded to 32 as at K = 27.  K = 27 keeps its routes."""
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_plan,
+                                                   tensor_core_pad)
 
     f32 = dtype == torch.float32
     for cin, cout, v in ((4, 32, 420575), (32, 32, 420575), (64, 96, 9961)):
         pad = tensor_core_pad(cin, cout, v, dtype, 125)
-        assert pad == (4 if f32 and cin == 4 else 0)
-        route = "tf32x3" if f32 else "simt"
+        assert pad == (0 if cin != 4 else 4 if f32 else 28)
+        route = "tf32x3" if f32 else "wgmma"
         assert conv_plan(cin + pad, cout, v, dtype, 125).route == route
         assert dw_plan(cin + pad, cout, v, dtype, 125).route == route
         assert conv_plan(cin, cout, v, dtype, 27) == conv_plan(cin, cout, v,
@@ -163,8 +164,6 @@ def test_k125_routes_to_simt(dtype):
         assert dw_plan(cin, cout, v, dtype, 27) == dw_plan(cin, cout, v,
                                                             dtype)
         n = dw_plan(cin + pad, cout, v, dtype, 125).n_chunks
-        if not f32:
-            assert n == dw_chunks(v, cin, cout, 125)
         assert n * 125 * (cin + pad) * cout * 4 <= 64 << 20 or n == 1
     assert conv_plan(32, 32, 420575, torch.bfloat16).route == "wgmma"
     assert tensor_core_pad(4, 32, 420575, torch.bfloat16) == 28

@@ -180,13 +180,16 @@ def test_conv_plan_fits_the_card(cin, cout):
     (4, 32, torch.bfloat16), (4, 32, torch.float32),
     (16, 24, torch.bfloat16), (32, 40, torch.bfloat16)])
 def test_conv_plan_routes_float32_and_odd_widths_to_simt(cin, cout, dtype):
-    """Odd widths stay on the SIMT kernel in both dtypes (the unpadded 4 ->
-    32 input conv among them); float32 widths in multiples of 8 take the
-    3xTF32 route since it exists, never the bf16 tensor-core one."""
+    """Widths in multiples of 8 take the tensor-core route of their dtype
+    (3xTF32 in float32, never the bf16 one; wgmma in bf16, 16 -> 24 and
+    32 -> 40 since the bf16 kernel takes any multiple of 8); the plan of a
+    width that is none (the unpadded 4 -> 32 input conv) is the SIMT
+    kernel's, which the wrappers avoid by padding first."""
     from treelearn_tpu_torch.ops.subm_conv import conv_plan
 
-    want = ("tf32x3" if dtype == torch.float32 and cin % 8 == 0
-            and cout % 8 == 0 else "simt")
+    tc = cin % 8 == 0 and cout % 8 == 0
+    want = ("simt" if not tc else "tf32x3" if dtype == torch.float32
+            else "wgmma")
     assert conv_plan(cin, cout, 100000, dtype).route == want
 
 

@@ -180,16 +180,21 @@ def test_dw_plan_fits_the_card_and_covers_the_rows(cin, cout, v):
     (4, 32, torch.bfloat16), (4, 32, torch.float32),
     (48, 32, torch.bfloat16), (32, 40, torch.bfloat16)])
 def test_dw_plan_routes_float32_and_odd_widths_to_simt(cin, cout, dtype):
-    """Odd widths stay on the SIMT dW kernel in both dtypes; float32 widths
-    in multiples of 8 take the 3xTF32 route since it exists.  Either way
-    the chunks cover every row once."""
+    """Widths in multiples of 8 take the tensor-core dW of their dtype
+    (3xTF32 in float32; wgmma in bf16, 48 x 32 and 32 x 40 since the bf16
+    kernel takes any multiple of 8); the plan of a width that is none (the
+    unpadded 4 -> 32 input conv) is the SIMT kernel's, which the wrapper
+    avoids by padding first.  Either way the chunks cover every row
+    once."""
     from treelearn_tpu_torch.ops.subm_conv import dw_chunks, dw_plan
 
-    tf32 = dtype == torch.float32 and cin % 8 == 0 and cout % 8 == 0
+    tc = cin % 8 == 0 and cout % 8 == 0
+    want = ("simt" if not tc else "tf32x3" if dtype == torch.float32
+            else "wgmma")
     for v in DW_VS:
         plan = dw_plan(cin, cout, v, dtype)
-        assert plan.route == ("tf32x3" if tf32 else "simt")
-        if not tf32:
+        assert plan.route == want
+        if not tc:
             assert plan.n_chunks == dw_chunks(v, cin, cout)
         assert plan.n_chunks * plan.rows_per_chunk >= v
         assert (plan.n_chunks - 1) * plan.rows_per_chunk < v

@@ -417,12 +417,13 @@ def test_cc_labels_match_pallas_interpret(kind, monkeypatch):
 
 @pytest.mark.parametrize("cin,cout,v,dtype,pad", [
     (4, 32, 420575, torch.bfloat16, 28), (4, 32, 57993, torch.bfloat16, 28),
-    (4, 32, 100, torch.bfloat16, 0), (4, 32, 420575, torch.float32, 4),
-    (32, 32, 420575, torch.bfloat16, 0), (4, 24, 420575, torch.bfloat16, 0),
-    (16, 64, 100000, torch.bfloat16, 16), (48, 32, 100000, torch.bfloat16, 0)])
+    (4, 32, 100, torch.bfloat16, 28), (4, 32, 420575, torch.float32, 4),
+    (32, 32, 420575, torch.bfloat16, 0), (4, 24, 420575, torch.bfloat16, 28),
+    (16, 64, 100000, torch.bfloat16, 0), (48, 32, 100000, torch.bfloat16, 0)])
 def test_tensor_core_pad_routes(cin, cout, v, dtype, pad):
-    """Only a conv narrower than one K step with a tensor-core Cout is
-    padded: in bf16 over enough rows, to 32 channels, onto the wgmma plans;
+    """Only a Cin that is no multiple of 8 is padded, at any row count and
+    any Cout: in bf16 a Cin below 32 to 32 channels, onto the wgmma plans
+    (16 channels need none: the kernel's 16-channel tail slice reads them);
     in float32 to 8 channels, onto the 3xTF32 plans."""
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_plan,
                                                    tensor_core_pad)

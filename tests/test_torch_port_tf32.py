@@ -351,10 +351,13 @@ def _bf16_conv_plan_before(cin, cout, v, k):
 
 
 def test_bf16_plans_unchanged():
-    """Every bf16 conv, dx and dW plan and pad of the model's shapes (and of
-    odd widths and K = 125) is what it was before the float32 route."""
-    from treelearn_tpu_torch.ops.subm_conv import (_dw_plan_simt, conv_plan,
-                                                   dw_plan, dw_plan_wgmma,
+    """Every bf16 conv, dx and dW plan of the model's shapes at K = 27
+    (widths in multiples of 32) is what it was before the float32 route;
+    the rest (odd widths, K = 125, the 4 -> 32 input conv) now takes the
+    bf16 tensor-core routes, the input conv padded to 32 channels at any
+    row count."""
+    from treelearn_tpu_torch.ops.subm_conv import (conv_plan, dw_plan,
+                                                   dw_plan_wgmma,
                                                    tensor_core_pad)
 
     bf = torch.bfloat16
@@ -362,15 +365,16 @@ def test_bf16_plans_unchanged():
     for cin, cout in sorted(shapes):
         for v in PLOT_VOXELS + CROP_VOXELS:
             for k in (27, 125):
-                assert tuple(conv_plan(cin, cout, v, bf, k)) == \
-                    _bf16_conv_plan_before(cin, cout, v, k)
-                tc = k == 27 and not cin % 32 and not cout % 32
-                assert dw_plan(cin, cout, v, bf, k) == (
-                    dw_plan_wgmma(cin, cout, v) if tc
-                    else _dw_plan_simt(cin, cout, v, k))
                 pad = tensor_core_pad(cin, cout, v, bf, k)
-                assert pad == (32 - cin if k == 27 and 0 < cin < 32
-                               and not cout % 32 and v >= 32768 else 0)
+                assert pad == (32 - cin if cin % 8 else 0)
+                tc = k == 27 and not cin % 32 and not cout % 32
+                if tc:
+                    assert tuple(conv_plan(cin, cout, v, bf, k)) == \
+                        _bf16_conv_plan_before(cin, cout, v, k)
+                    assert dw_plan(cin, cout, v, bf, k) == \
+                        dw_plan_wgmma(cin, cout, v)
+                assert conv_plan(cin + pad, cout, v, bf, k).route == "wgmma"
+                assert dw_plan(cin + pad, cout, v, bf, k).route == "wgmma"
 
 
 # ---- the packed weight images

@@ -1,9 +1,10 @@
-// Submanifold sparse convolution as a gather-GEMM on the float32 SIMT units:
-// the float32 / odd-width route of ops/subm_conv.py (float32 features, the
-// 4 -> 32 input conv, any width that is not a multiple of 32).  bf16 convs
-// with channel counts in multiples of 32 go to csrc/subm_conv_wgmma.cu; this
-// kernel also takes them when asked, as the yardstick that one is timed
-// against.
+// Submanifold sparse convolution as a gather-GEMM on the float32 SIMT units,
+// the first kernel of the port.  ops/subm_conv.py routes it nothing in the
+// shipped paths: every conv of either dtype at up to 343 offsets goes to the
+// tensor-core kernels (csrc/subm_conv_wgmma.cu in bf16,
+// csrc/subm_conv_tf32.cu in float32, odd widths zero-padded onto them), and
+// only K > 343 would land here.  It stays as the yardstick both are timed
+// against (subm_conv_simt).
 //
 // Replaces the Pallas kernel _subm_kernel + _gather_bands
 // (treelearn_tpu/ops/pallas_conv.py:304,181).  The TPU kernel DMAs banded
@@ -12,8 +13,9 @@
 // here a block owns a tile of 64 output voxels x 64 output channels and, for
 // each of the K offsets (27 for kernel_size 3, k^3 for any odd k: the
 // offset count is an argument, and shared memory holds one offset at a
-// time, so nothing here is sized by it), gathers feats[rule[k, i]] rows of a 32-channel
-// slice into shared memory next to the matching 32 x 64 slice of W[k], and
+// time, so nothing here is sized by it), gathers feats[rule[k, i]] rows of
+// a 32-channel slice into shared memory next to the matching 32 x 64 slice
+// of W[k], and
 // every thread accumulates a 4 x 4 block of outputs in float32 registers.
 // Offsets that no voxel of the tile uses are skipped (__syncthreads_or).
 //
@@ -26,9 +28,8 @@
 //
 // Bound: operations, at the float32 rate of the SIMT units (the tensor
 // cores take no float32 operands without rounding them to TF32, which the
-// float32 parity checks could not bear).  On the main path it serves one
-// launch, the 4 -> 32 input conv, which moves more bytes than it multiplies:
-// there the bound is memory.
+// float32 parity checks could not bear).  At the narrow input conv (4 -> 32)
+// it moves more bytes than it multiplies: there the bound is memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

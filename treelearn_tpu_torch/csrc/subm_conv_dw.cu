@@ -1,7 +1,6 @@
 // Weight gradient of the submanifold sparse convolution on the float32
-// units: the route of float32 inputs and of widths that are no multiples of
-// 32 (the 4 -> 32 input conv), and the yardstick csrc/subm_conv_dw_wgmma.cu
-// (bf16, widths in multiples of 32) is timed against.
+// SIMT units, the first dW kernel of the port: the yardstick the
+// tensor-core dW kernels are timed against (see the end of this header).
 //
 // Replaces the Pallas kernel _dw_kernel / rule_conv_dw_banded
 // (treelearn_tpu/ops/pallas_conv.py:415,438).  The TPU grid runs its tiles
@@ -12,8 +11,9 @@
 //
 //   pass 1: the rows are cut into n_chunks equal chunks; block
 //           (tile, k, chunk), k one of the K kernel offsets (27 for
-//           kernel_size 3, k^3 for any odd k; an argument), gathers, 32 rows at a time, x[rule[k, i]] (a
-//           64-channel slice of Cin) and g[i] (a 64-channel slice of Cout)
+//           kernel_size 3, k^3 for any odd k; an argument), gathers, 32
+//           rows at a time, x[rule[k, i]] (a 64-channel slice of Cin) and
+//           g[i] (a 64-channel slice of Cout)
 //           into shared memory and every thread sums a 4 x 4 block of
 //           outer products in float32 registers; the block writes its
 //           64 x 64 tile to partial[chunk, k];
@@ -33,8 +33,11 @@
 // (bf16 inputs are widened in shared memory), a block owns one (offset,
 // 64 x 64 channel tile, row chunk) and so reads g again for each of the K
 // offsets and x again for each Cout tile, and no copy is in flight during
-// the products: about 9 TFLOP/s on bf16 inputs.  The tensor-core route
-// exists for that reason; what stays here is small (Cin = 4) or float32.
+// the products: about 9 TFLOP/s on bf16 inputs.  The tensor-core kernels
+// exist for that reason (csrc/subm_conv_dw_wgmma.cu in bf16,
+// csrc/subm_conv_dw_tf32.cu in float32, any offset count, odd widths
+// zero-padded onto them): ops/subm_conv.py routes this kernel nothing in the
+// shipped paths, and it stays as their yardstick (subm_conv_dw_simt).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

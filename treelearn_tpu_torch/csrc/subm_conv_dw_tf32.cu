@@ -4,9 +4,8 @@
 // Replaces the Pallas kernel _dw_kernel / rule_conv_dw_banded
 // (treelearn_tpu/ops/pallas_conv.py:415,438) for float32 inputs whose
 // channel counts are multiples of 8 (the 4 -> 32 input conv's x zero-padded
-// to 8 channels by the wrapper), at any offset count; csrc/subm_conv_dw.cu
-// keeps bf16 at kernel sizes other than 3 and widths that are no multiple
-// of 8.
+// to 8 channels by the wrapper, other widths that are no multiple of 8
+// likewise), at any offset count.
 //
 //   dW[k] = sum_i x[rule[k, i]]^T g[i]      (rule -1: no input)
 //   x (V, Cin), g (V, Cout) float32, float32 sums, dW (K, Cin, Cout)

@@ -1,12 +1,13 @@
 // Weight gradient of the submanifold sparse convolution on the tensor cores.
 //
 // Replaces the Pallas kernel _dw_kernel / rule_conv_dw_banded
-// (treelearn_tpu/ops/pallas_conv.py:415,438) for bf16 inputs whose channel
-// counts are multiples of 32; csrc/subm_conv_dw.cu keeps float32 and odd
-// widths.
+// (treelearn_tpu/ops/pallas_conv.py:415,438) for every bf16 weight gradient
+// of the port: any offset count (27 at kernel_size 3, 125 at 5; a launch
+// argument) and any Cin and Cout in multiples of 8 (ops/subm_conv.py
+// zero-pads other widths first).
 //
 //   dW[k] = sum_i x[rule[k, i]]^T g[i]      (rule -1: no input)
-//   x (V, Cin), g (V, Cout) bf16, float32 sums, dW (27, Cin, Cout) float32
+//   x (V, Cin), g (V, Cout) bf16, float32 sums, dW (K, Cin, Cout) float32
 //
 // Bound on the card: operations by the count (2 Cin Cout per rule entry),
 // but at 32..448 channels the tensor cores finish them in microseconds; what
@@ -25,18 +26,24 @@
 //   leading offset of a descriptor is the distance between slabs (the next
 //   32 channels), its stride offset the 512 bytes between 8-row groups, and
 //   a K step of 16 rows advances the start address by 1024 bytes.
-// * M is 64 = two slabs.  The 27 * Cin / 32 slabs (offset k, 32 input
-//   channels) are taken in consecutive pairs, so at Cin = 32 one block sums
-//   two offsets at once and at wider Cin one 64-channel slice of an offset;
-//   an odd count leaves the last block a slab of zero rows that it does not
-//   write.  N is the whole Cout up to 256 (384 -> 2 x 192).
+// * M is 64 rows of dW's flattened (offset, input channel) axis, K * Cin
+//   long: block b takes rows 64 b .. 64 b + 63, two slabs of 32.  Each
+//   16-byte chunk of a slab row is 8 of those rows, i.e. 8 channels of one
+//   offset (Cin is a multiple of 8), so a chunk has its own offset and
+//   gathers from its own rule row: at Cin = 32 a block sums two offsets at
+//   once, at Cin = 16 four, at Cin = 48 the slabs straddle offsets; rows
+//   past K * Cin are zero (zero-fill copies) and not written.  N is the
+//   whole Cout up to 256 (384 -> 2 x 192) in slabs of 32 channels; where
+//   Cout is no multiple of 32 the last slab's chunks past Cout are zero
+//   and not written (the products are free; the bytes are not read).
 // * Warp specialisation as in subm_conv_wgmma.cu: producer threads fill a
 //   ring of `stages` slots with cp.async that arrive on the slot's full
 //   mbarrier by themselves, the consumer warpgroup multiplies and hands the
 //   slot back on its empty mbarrier.  A slot holds R = PRODUCERS / 4 rows
 //   (R / 16 K steps); producer thread p copies chunk p % 4 of row p / 4 of
-//   every slab, so it needs two rule entries a slot, which it loads one slot
-//   ahead.  A row that neither slab's offset has is not read from g either
+//   every slab, so it needs two rule entries a slot (its chunk's offset in
+//   each A slab), which it loads one slot ahead.  A row that no chunk's
+//   offset has (the four threads of a row vote) is not read from g either
 //   (zero-fill form), and a K step none of whose 16 rows has an offset is
 //   not multiplied: each producer warp flags its 8 rows, two flags a step.
 // * Output-stationary: float32 accumulators in registers over a row chunk,
@@ -52,9 +59,8 @@
 
 namespace {
 
-constexpr int SLAB_CH = 32;            // channels of a slab
+constexpr int SLAB_CH = 32;            // channels (M or N rows) of a slab
 constexpr int ROW_BYTES = SLAB_CH * 2;
-constexpr int N_OFFSETS = 27;
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_P_WARPS = 8;
 
@@ -71,8 +77,8 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t addr,
 }
 
 // BN: output channels per block; PRODUCERS (128 or 256) threads produce,
-// 128 consume.  Grid: (slab pairs, Cout / BN, row chunks).  Dynamic shared
-// memory, from a 1024-byte aligned base:
+// 128 consume.  Grid: (64-row tiles of K * Cin, Cout splits, row chunks).
+// Dynamic shared memory, from a 1024-byte aligned base:
 //   ring      stages x (2 + BN / 32) slabs of R rows x 64 bytes
 //   full[8], empty[8] mbarriers
 //   flags     [8 slots][8 producer warps]: some row of the warp's 8 is live
@@ -81,7 +87,8 @@ __global__ void __launch_bounds__(128 + PRODUCERS, 1)
 dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
                 const __nv_bfloat16* __restrict__ g,
                 const int32_t* __restrict__ rule, float* __restrict__ partial,
-                int v, int cin, int cout, int rows_per_chunk, int stages) {
+                int v, int cin, int cout, int n_offsets, int rows_per_chunk,
+                int stages) {
   constexpr int R = PRODUCERS / 4;          // rows of a slot
   constexpr int SLAB_BYTES = R * ROW_BYTES;
   constexpr int B_SLABS = BN / SLAB_CH;
@@ -98,14 +105,8 @@ dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
   volatile int* flags = (volatile int*)(after_ring + 16 * MAX_STAGES);
 
   const int tid = threadIdx.x;
-  const int n_slices = cin / SLAB_CH;
-  const int n_slabs = N_OFFSETS * n_slices;
-  const int slab0 = 2 * blockIdx.x;
-  const int k0 = slab0 / n_slices;
-  const int c0 = (slab0 - k0 * n_slices) * SLAB_CH;
-  const bool has1 = slab0 + 1 < n_slabs;
-  const int k1 = has1 ? (slab0 + 1) / n_slices : 0;
-  const int c1 = has1 ? (slab0 + 1 - k1 * n_slices) * SLAB_CH : 0;
+  const int m_total = n_offsets * cin;   // rows of the flattened M axis
+  const int m0 = 64 * blockIdx.x;
   const int n0 = blockIdx.y * BN;
   const int chunk = blockIdx.z;
   const int row_begin = chunk * rows_per_chunk;
@@ -131,15 +132,21 @@ dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
     const int r = p >> 2;
     const int c = p & 3;
     const uint32_t swz = r * ROW_BYTES + ((c ^ ((r >> 1) & 3)) << 4);
+    // this thread's chunk of each A slab: M rows m0 + 8 c (slab 0) and
+    // m0 + 32 + 8 c (slab 1), each 8 channels of one offset
+    const int m_a = m0 + 8 * c, m_b = m_a + SLAB_CH;
+    const bool has0 = m_a < m_total, has1 = m_b < m_total;
+    const int k0 = has0 ? m_a / cin : 0, k1 = has1 ? m_b / cin : 0;
     const int32_t* rule0 = rule + (int64_t)k0 * v;
     const int32_t* rule1 = rule + (int64_t)k1 * v;
-    const __nv_bfloat16* x0 = x + c0 + c * 8;
-    const __nv_bfloat16* x1 = x + c1 + c * 8;
+    const __nv_bfloat16* x0 = x + (has0 ? m_a - k0 * cin : 0);
+    const __nv_bfloat16* x1 = x + (has1 ? m_b - k1 * cin : 0);
+    // g's chunk c of every B slab: columns n0 + 32 j + 8 c, zero past cout
     const __nv_bfloat16* gcol = g + n0 + c * 8;
     int row = row_begin + r;
     int i0 = -1, i1 = -1;
     if (row < row_end) {
-      i0 = rule0[row];
+      if (has0) i0 = rule0[row];
       if (has1) i1 = rule1[row];
     }
     int slot = 0;
@@ -149,7 +156,7 @@ dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
       const int next_row = row + R;
       int j0 = -1, j1 = -1;   // the next slot's rule entries, loaded early
       if (s + 1 < n_stages && next_row < row_end) {
-        j0 = rule0[next_row];
+        if (has0) j0 = rule0[next_row];
         if (has1) j1 = rule1[next_row];
       }
       if (refill) mbar_wait(empty_bar + 8 * slot, phase ^ 1u);
@@ -159,14 +166,18 @@ dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
                  i0 < 0 ? 0u : 16u);
       cp_async16(base + SLAB_BYTES, x1 + (int64_t)(i1 < 0 ? 0 : i1) * cin,
                  i1 < 0 ? 0u : 16u);
-      const bool live = i0 >= 0 || i1 >= 0;
+      // the four threads of a row vote: g's row is needed where any chunk
+      // of the row has an input
+      const unsigned any = __ballot_sync(0xffffffffu, i0 >= 0 || i1 >= 0);
+      const bool live = (any >> (p & 28)) & 0xFu;
       const __nv_bfloat16* grow = gcol + (int64_t)(live ? row : 0) * cout;
-      const uint32_t gbytes = live ? 16u : 0u;
 #pragma unroll
-      for (int j = 0; j < B_SLABS; ++j)
-        cp_async16(base + (2 + j) * SLAB_BYTES, grow + j * SLAB_CH, gbytes);
+      for (int j = 0; j < B_SLABS; ++j) {
+        const bool in = live && n0 + j * SLAB_CH + c * 8 < cout;
+        cp_async16(base + (2 + j) * SLAB_BYTES,
+                   in ? grow + j * SLAB_CH : g, in ? 16u : 0u);
+      }
       cp_async_arrive(bar);
-      const unsigned any = __ballot_sync(0xffffffffu, live);
       if ((p & 31) == 0) {
         flags[slot * MAX_P_WARPS + (p >> 5)] = any != 0u;
         mbar_arrive(bar);
@@ -217,26 +228,27 @@ dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
   }
   wgmma_wait<0>();
 
-  // rows 0..31 of the tile are slab 0's channels, rows 32..63 slab 1's
+  // row t of the tile is row m0 + t of the flattened (offset, channel)
+  // axis, i.e. of partial[chunk] seen as (K * Cin, Cout); this thread holds
+  // rows trow and trow + 8
   const int trow = 16 * (tid / 32) + (tid % 32) / 4;
-  const bool second = trow >= 32;
-  if (second && !has1) return;
-  const int k = second ? k1 : k0;
-  const int ch = (second ? c1 : c0) + (trow & 31);
-  float* out = partial +
-               (((int64_t)chunk * N_OFFSETS + k) * cin + ch) * cout + n0 +
-               2 * (tid % 4);
+  const int col = n0 + 2 * (tid % 4);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    *(float2*)(out + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *(float2*)(out + 8 * (int64_t)cout + 8 * j) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + trow + 8 * half;
+    if (m >= m_total) continue;
+    float* out = partial + ((int64_t)chunk * m_total + m) * cout + col;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      if (col + 8 * j < cout)
+        *(float2*)(out + 8 * j) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
   }
 }
 
 template <int BN, int PRODUCERS>
 int launch(const void* x, const void* g, const void* rule, void* partial,
-           void* dw, int v, int cin, int cout, int n_chunks,
+           void* dw, int v, int cin, int cout, int n_offsets, int n_chunks,
            int rows_per_chunk, int stages, int smem_bytes,
            cudaStream_t stream) {
   auto kernel = dw_wgmma_kernel<BN, PRODUCERS>;
@@ -245,33 +257,35 @@ int launch(const void* x, const void* g, const void* rule, void* partial,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  const int n_slabs = N_OFFSETS * (cin / SLAB_CH);
-  dim3 grid((n_slabs + 1) / 2, cout / BN, n_chunks);
+  const int64_t m_total = (int64_t)n_offsets * cin;
+  dim3 grid((unsigned)((m_total + 63) / 64), (cout + BN - 1) / BN, n_chunks);
   // one chunk: its partial is dW
   void* first = n_chunks == 1 ? dw : partial;
   kernel<<<grid, 128 + PRODUCERS, smem_bytes, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const int32_t*)rule,
-      (float*)first, v, cin, cout, rows_per_chunk, stages);
+      (float*)first, v, cin, cout, n_offsets, rows_per_chunk, stages);
   int err = (int)cudaGetLastError();
   if (err != 0 || n_chunks == 1) return err;
-  return launch_dw_reduce(partial, dw, n_chunks,
-                          (int64_t)N_OFFSETS * cin * cout, stream);
+  return launch_dw_reduce(partial, dw, n_chunks, m_total * cout, stream);
 }
 
 }  // namespace
 
-// x (v, cin), g (v, cout) bf16, rule (27, v) int32, partial (n_chunks, 27,
-// cin, cout) float32 scratch (unused with one chunk), dw (27, cin, cout)
-// float32.  bn, producers, stages, n_chunks, rows_per_chunk, smem_bytes: the
-// plan of ops/subm_conv.py:dw_plan; rows_per_chunk is a multiple of
-// producers / 4 and n_chunks * rows_per_chunk >= v.
+// x (v, cin), g (v, cout) bf16, rule (n_offsets, v) int32, partial
+// (n_chunks, n_offsets, cin, cout) float32 scratch (unused with one chunk),
+// dw (n_offsets, cin, cout) float32.  bn, producers, stages, n_chunks,
+// rows_per_chunk, smem_bytes: the plan of ops/subm_conv.py:dw_plan; bn is a
+// multiple of 32 (the last split may reach past cout), rows_per_chunk a
+// multiple of producers / 4 and n_chunks * rows_per_chunk >= v.
 extern "C" int tl_subm_conv_dw_wgmma(const void* x, const void* g,
                                      const void* rule, void* partial,
                                      void* dw, int v, int cin, int cout,
-                                     int bn, int producers, int stages,
-                                     int n_chunks, int rows_per_chunk,
-                                     int smem_bytes, void* stream) {
-  if (cin <= 0 || cin % SLAB_CH != 0 || bn <= 0 || cout % bn != 0 ||
+                                     int n_offsets, int bn, int producers,
+                                     int stages, int n_chunks,
+                                     int rows_per_chunk, int smem_bytes,
+                                     void* stream) {
+  if (cin <= 0 || cin % 8 != 0 || cout <= 0 || cout % 8 != 0 ||
+      n_offsets < 1 || bn <= 0 || bn % SLAB_CH != 0 ||
       stages < 2 || stages > MAX_STAGES ||
       (producers != 128 && producers != 256) || n_chunks < 1 ||
       rows_per_chunk % (producers / 4) != 0 ||
@@ -281,8 +295,8 @@ extern "C" int tl_subm_conv_dw_wgmma(const void* x, const void* g,
 #define TL_CASE(BN, PRODUCERS)                                              \
   if (bn == BN && producers == PRODUCERS)                                   \
     return launch<BN, PRODUCERS>(x, g, rule, partial, dw, v, cin, cout,     \
-                                 n_chunks, rows_per_chunk, stages,          \
-                                 smem_bytes, s);
+                                 n_offsets, n_chunks, rows_per_chunk,       \
+                                 stages, smem_bytes, s);
 #define TL_BOTH(BN) TL_CASE(BN, 128) TL_CASE(BN, 256)
   TL_BOTH(32)
   TL_BOTH(64)

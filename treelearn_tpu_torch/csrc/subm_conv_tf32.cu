@@ -4,9 +4,9 @@
 // (treelearn_tpu/ops/pallas_conv.py:304,181, subm_conv_banded :355) for
 // float32 features whose channel counts are multiples of 8 (the 4 -> 32
 // input conv zero-padded to 8 input channels by the wrapper), at any
-// offset count; it is also the conv's input gradient (the conv with the
-// mirrored weights).  csrc/subm_conv.cu keeps what is left: bf16 at
-// kernel sizes other than 3 and widths that are no multiple of 8.
+// offset count up to 343; it is also the conv's input gradient (the conv
+// with the mirrored weights).  Other widths are zero-padded onto it by the
+// wrapper.
 //
 //   out[i] = sum_k feats[rule[k, i]] @ W[k]      (rule -1: no input)
 //   float32 in and out, float32 sums, rows i >= n_live are zeros

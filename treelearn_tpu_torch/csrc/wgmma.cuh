@@ -185,7 +185,8 @@ __device__ __forceinline__ uint64_t tf32_desc(uint32_t addr) {
 // t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) at columns
 // t % 4 (+ 4): a[0] = (r, c), a[1] = (r + 8, c), a[2] = (r, c + 4),
 // a[3] = (r + 8, c + 4)), B from shared memory K-major; D += A B with the
-// accumulator layout of Wgmma above.
+// accumulator layout of Wgmma above.  (These register lists also serve
+// the bf16 widths 8..112 that are no multiple of 32.)
 #define REGS_8 "%0, %1, %2, %3"
 #define REGS_16 REGS_8 ", %4, %5, %6, %7"
 #define REGS_24 REGS_16 ", %8, %9, %10, %11"
@@ -202,6 +203,17 @@ __device__ __forceinline__ uint64_t tf32_desc(uint32_t addr) {
 #define ACCS_56 ACCS_48, ACC4(24)
 #define ACCS_80 ACCS_64, ACC4(32), ACC4(36)
 #define ACCS_112 ACCS_96, ACC4(48), ACC4(52)
+
+// the bf16 widths below 256 that are no multiple of 32 (the conv's B
+// operand is K-major, so any multiple of 8 is a valid N)
+DEFINE_WGMMA(8, 4, 5, 6, 7)
+DEFINE_WGMMA(16, 8, 9, 10, 11)
+DEFINE_WGMMA(24, 12, 13, 14, 15)
+DEFINE_WGMMA(40, 20, 21, 22, 23)
+DEFINE_WGMMA(48, 24, 25, 26, 27)
+DEFINE_WGMMA(56, 28, 29, 30, 31)
+DEFINE_WGMMA(80, 40, 41, 42, 43)
+DEFINE_WGMMA(112, 56, 57, 58, 59)
 
 template <int N>
 struct WgmmaTf32;

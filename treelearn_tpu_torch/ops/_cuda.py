@@ -56,12 +56,12 @@ _SIGNATURES = {
     # stream
     "tl_subm_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tl_subm_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # w, wpack, cin, cout, bn, mirror, stream
-    "tl_pack_weight": [_P, _P, _I, _I, _I, _I, _P],
-    # feats, wpack, rule, out, v_out, n_live, cin, cout, bm, bn, stages,
-    # producers, smem_bytes, stream
+    # w, wpack, cin, cout, bn, n_offsets, mirror, stream
+    "tl_pack_weight": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # feats, wpack, rule, out, v_out, n_live, cin, cout, n_offsets, bm, bn,
+    # stages, producers, smem_bytes, stream
     "tl_subm_conv_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+                           _I, _P],
     # w, wpack, cin, cout, bn, sk, n_offsets, mirror, stream
     "tl_pack_weight_tf32": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # feats, wpack, rule, out, v_out, n_live, cin, cout, n_offsets, bn, sk,
@@ -84,10 +84,10 @@ _SIGNATURES = {
     "tl_cc_found_bits": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # pts, cell_ij, cell_keys, cell_start, n, n_cells, width, eps2, out, stream
     "tl_cc_found_bits_serial": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    # x, g, rule, partial, dw, v, cin, cout, bn, producers, stages, n_chunks,
-    # rows_per_chunk, smem_bytes, stream
+    # x, g, rule, partial, dw, v, cin, cout, n_offsets, bn, producers,
+    # stages, n_chunks, rows_per_chunk, smem_bytes, stream
     "tl_subm_conv_dw_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
+                              _I, _I, _I, _P],
     # refs4, q, ranges, items, n_items, k, winner, n_found, stream
     "tl_knn_vote": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # refs, labels, q, ranges, nq, k, winner, n_found, stream

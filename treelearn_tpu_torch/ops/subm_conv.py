@@ -10,26 +10,25 @@ gathers rows cheaply, so the CUDA kernels are plain gather-GEMMs over the
 registers.  No windows, so nothing can overflow.
 
 * csrc/subm_conv_wgmma.cu, the bf16 route: a block owns 64 or 128 output
-  voxels x up to 256 output channels and multiplies on the tensor cores
-  (``wgmma``), gathered rows and packed weight tiles arriving through a
-  ``cp.async`` ring (:func:`conv_plan`, :func:`pack_weight`).
+  voxels x up to 256 output channels (any multiple of 8) and multiplies on
+  the tensor cores (``wgmma``), gathered rows and packed weight tiles
+  arriving through a ``cp.async`` ring (:func:`conv_plan`,
+  :func:`pack_weight`); Cin in 32-channel K slices and a 16-channel tail.
 * csrc/subm_conv_tf32.cu, the float32 route (``"tf32x3"``): the same
   gather-GEMM on the tensor cores in TF32, each product taken as three
   (``hi(a) hi(b) + hi(a) lo(b) + lo(a) hi(b)``, :func:`tf32_split`), which
-  keeps float32 accuracy; widths in multiples of 8, any offset count
-  (:func:`conv_plan_tf32`, :func:`pack_weight_tf32`).
-* csrc/subm_conv.cu, what is left (bf16 at kernel sizes other than 3,
-  widths that are no multiple of 8 in float32 or 32 in bf16): 64 voxels x
-  64 channels per block on the float32 SIMT units.
-* A conv narrower than one K step (the 4 -> 32 input conv) is zero-padded
-  to it and takes the tensor-core route of its dtype, as is its weight
-  gradient: to 32 channels in bf16 wherever that is faster with the pad
-  counted, to 8 in float32 always (:func:`tensor_core_pad`).
-* A bf16 conv of another kernel size than 3 (K = k^3 offsets, any odd k,
-  as the JAX package's rulebook conv takes) goes to the SIMT kernel, as
-  does its weight gradient: the bf16 tensor-core sources are built for
-  ``N_OFFSETS`` = 27.  The float32 ones take the offset count as an
-  argument.
+  keeps float32 accuracy; widths in multiples of 8 (:func:`conv_plan_tf32`,
+  :func:`pack_weight_tf32`).
+* Both take the offset count as an argument: K = k^3 for any odd kernel
+  size up to 7 (``TF32_MAX_OFFSETS`` = 343), as the JAX package's rulebook
+  conv takes any odd k.
+* Other widths are zero-padded onto them, the output cut back
+  (:func:`tensor_core_pad`, :func:`cout_pad`): Cin to a multiple of 8 (in
+  bf16 a Cin below 32, the 4 -> 32 input conv, to 32), Cout to a multiple
+  of 8.  Zero channels add exactly.
+* csrc/subm_conv.cu, 64 voxels x 64 channels per block on the float32 SIMT
+  units, is routed nothing but K > 343: it stays as the yardstick the
+  tensor-core routes are timed against (:func:`subm_conv_simt`).
 
 Kernel 3 replaces ``rule_conv_dw_banded`` (``_dw_kernel``,
 pallas_conv.py:438,415): every route sums per-chunk partial weight
@@ -38,13 +37,15 @@ deterministic (see the sources for why not atomics).
 
 * csrc/subm_conv_dw_wgmma.cu, the bf16 route: ``dW[k] = X_k^T G`` on the
   tensor cores with the voxel rows as the reduction dimension, both
-  operands MN-major straight from row-major rows in shared memory
-  (:func:`dw_plan`).
+  operands MN-major straight from row-major rows in shared memory, M the
+  flattened (offset, input channel) axis in 8-channel chunks, so any Cin
+  in multiples of 8 and any offset count (:func:`dw_plan`).
 * csrc/subm_conv_dw_tf32.cu, the float32 route: the same product in
   3xTF32, X_k^T from registers and G transposed into K-major hi and lo
   images by the consumers (:func:`dw_plan_tf32`).
-* csrc/subm_conv_dw.cu, what is left: 64 x 64 channel tiles on the float32
-  SIMT units.
+* csrc/subm_conv_dw.cu: 64 x 64 channel tiles on the float32 SIMT units,
+  routed nothing in the shipped paths; the yardstick
+  (:func:`subm_conv_dw_simt`).
 
 :class:`SubmConvFn` is the counterpart of ``rule_conv_ad``
 (pallas_conv.py:588-649): forward kernel 2; backward dx = kernel 2 on the
@@ -84,16 +85,17 @@ MAX_BN = 256          # widest wgmma instruction
 SMALL_V_TILES = 32    # fewer 64-row tiles than this: 32-channel blocks
 ONE_WAVE_BLOCKS = 132  # a grid up to one block per SM: 8 producer warps
 WIDE_ROWS_V = 65536   # from here on a 32-channel conv takes 128-row blocks
-PAD_MIN_V = 32768     # from here on a narrow bf16 input is padded to BK
-N_OFFSETS = 27        # offsets of a kernel_size 3 conv: the only count the
-                      # bf16 tensor-core kernels take
-TF32_K = 8            # channels of one k8 step: float32 widths must be
-                      # multiples of it for the 3xTF32 route
+N_OFFSETS = 27        # offsets of a kernel_size 3 conv, the default
+TF32_K = 8            # channels of one k8 step: widths must be multiples
+                      # of it for either tensor-core route
+BF16_BN = (8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224,
+           256)       # the bf16 conv's block widths that are instantiated
 TF32_BN = (8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128)  # its block
                       # widths: two float32 register sets (the slot's
                       # products, the running sum) cap them at 128
 TF32_STAGES = 3       # ring depth of both 3xTF32 kernels
-TF32_MAX_OFFSETS = 343  # kernel_size 7: the largest rule tile it takes
+TF32_MAX_OFFSETS = 343  # kernel_size 7: the largest rule tile either
+                        # tensor-core conv takes
 
 
 class ConvPlan(NamedTuple):
@@ -109,11 +111,30 @@ class ConvPlan(NamedTuple):
     smem_bytes: int   # dynamic shared memory per block
 
 
-def plan_smem_bytes(bm: int, bn: int, stages: int) -> int:
+def plan_smem_bytes(bm: int, bn: int, stages: int,
+                    n_offsets: int = N_OFFSETS) -> int:
     """Dynamic shared memory of a wgmma block: alignment slack, the ring of
-    A and B tiles, the mbarriers, the block's 27 x bm rule entries and its
-    offset lists."""
-    return 1024 + stages * (bm + bn) * BK * 2 + 128 + 27 * bm * 4 + 256
+    A and B tiles, the mbarriers, the block's ``n_offsets`` x bm rule
+    entries and its offset lists (2 n_offsets + 1 ints, 256 bytes at
+    least)."""
+    return (1024 + stages * (bm + bn) * BK * 2 + 128 + n_offsets * bm * 4
+            + max(256, 4 * (2 * n_offsets + 1)))
+
+
+def bf16_bn(cout: int) -> int:
+    """Block width of the bf16 conv for ``cout`` output channels: a Cout in
+    multiples of 32 is split into the fewest equal blocks of multiples of
+    32 up to ``MAX_BN`` (384 -> 192; the split of every shipped width);
+    any other multiple of 8 into the fewest equal blocks that
+    :data:`BF16_BN` has (48 -> 48, 336 -> 112, 136 -> 8)."""
+    n = 1
+    if cout % 32 == 0:
+        while cout % n or (cout // n) % 32 or cout // n > MAX_BN:
+            n += 1
+    else:
+        while cout % n or cout // n not in BF16_BN:
+            n += 1
+    return cout // n
 
 
 def tf32_bn(cout: int) -> int:
@@ -165,95 +186,140 @@ def conv_plan(cin: int, cout: int, v: int,
               n_offsets: int = N_OFFSETS) -> ConvPlan:
     """Static routing and tiling of kernel 2, from the shape alone.
 
-    bf16 with ``cin`` and ``cout`` multiples of 32 and 27 offsets -> the
-    wgmma kernel; float32 with ``cin`` and ``cout`` multiples of 8, any
-    offset count -> the 3xTF32 kernel (:func:`conv_plan_tf32`); the
-    unpadded 4 -> 32 input conv, other odd widths and bf16 kernel sizes
-    other than 3 (``n_offsets`` != 27) -> the SIMT kernel.
+    ``cin`` and ``cout`` multiples of 8 and at most ``TF32_MAX_OFFSETS``
+    offsets: bf16 -> the wgmma kernel, float32 -> the 3xTF32 kernel
+    (:func:`conv_plan_tf32`).  Other widths are the plan of the SIMT
+    kernel: the wrappers zero-pad them onto the tensor cores first
+    (:func:`tensor_core_pad`, :func:`cout_pad`), so only K > 343 reaches
+    it.
 
     The wgmma kernel gives a block 64 output voxels (one consumer warpgroup
     beside the producer warpgroup) and the whole Cout, or the largest even
-    share of it that fits the widest instruction (256; 384 -> 2 x 192), so
-    each gathered row is read once or twice.  Three measured rules (H100,
-    the shapes of chip_smoke.py's paths): with fewer than ``SMALL_V_TILES``
-    row tiles most of the card would idle, so small levels split Cout into
-    32-channel blocks; a 32-channel conv over ``WIDE_ROWS_V`` voxels or
-    more, where a block's fixed costs outweigh its products, takes 128
-    voxels a block; and a grid of at most ``ONE_WAVE_BLOCKS`` blocks, whose
-    length is one block's K loop, gives each block 8 producer warps instead
-    of 4 (larger grids lose more by the lower occupancy than they gain).
+    share of it that fits the widest instruction (:func:`bf16_bn`), so each
+    gathered row is read once or twice.  Three measured rules (H100, the
+    shapes of chip_smoke.py's paths): with fewer than ``SMALL_V_TILES`` row
+    tiles most of the card would idle, so small levels split Cout into
+    32-channel blocks (16 or 8 where Cout is no multiple of 32); a
+    32-channel conv over ``WIDE_ROWS_V`` voxels or more, where a block's
+    fixed costs outweigh its products, takes 128 voxels a block; and a
+    grid of at most ``ONE_WAVE_BLOCKS`` blocks, whose length is one block's
+    K loop, gives each block 8 producer warps instead of 4 (larger grids
+    lose more by the lower occupancy than they gain).  The block's rule
+    tile grows with the offset count (88 KB at K = 343 and 64 rows): where
+    the block would not fit ``SMEM_LIMIT`` it gives up ring slots, then
+    rows.
     """
-    if (dtype == torch.float32 and cin > 0 and cout > 0
-            and not cin % TF32_K and not cout % TF32_K
-            and n_offsets <= TF32_MAX_OFFSETS):
-        return conv_plan_tf32(cin, cout, v, n_offsets)
-    if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS or cin == 0
-            or cout == 0 or cin % BK or cout % 32):
+    if (cin <= 0 or cout <= 0 or cin % TF32_K or cout % TF32_K
+            or n_offsets > TF32_MAX_OFFSETS or dtype not in _DTYPES):
         return ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
-    n = 1
-    while cout % n or (cout // n) % 32 or cout // n > MAX_BN:
-        n += 1
-    bm, bn = 64, cout // n
+    if dtype == torch.float32:
+        return conv_plan_tf32(cin, cout, v, n_offsets)
+    bm, bn = 64, bf16_bn(cout)
     if -(-v // 64) < SMALL_V_TILES:
-        bn = 32
+        bn = 32 if cout % 32 == 0 else (16 if cout % 16 == 0 else 8)
     elif bn == 32 and v >= WIDE_ROWS_V:
         bm = 128
     stages = 4
+    while plan_smem_bytes(bm, bn, stages, n_offsets) > SMEM_LIMIT:
+        if stages > 2:
+            stages -= 1
+        elif bm == 128:
+            bm = 64
+        else:
+            break
     blocks = -(-v // bm) * (cout // bn)
     producers = 256 if blocks <= ONE_WAVE_BLOCKS else 128
     return ConvPlan("wgmma", bm, bn, cout // bn, BK, stages, producers,
-                    plan_smem_bytes(bm, bn, stages))
+                    plan_smem_bytes(bm, bn, stages, n_offsets))
 
 
 def tensor_core_pad(cin: int, cout: int, v: int, dtype: torch.dtype,
                     n_offsets: int = N_OFFSETS) -> int:
-    """Zero input channels to append so that a conv narrower than one K
-    step (the 4 -> 32 input conv), or its weight gradient, takes the
-    tensor-core route of its dtype, or 0 where the shape stays on the SIMT
-    kernels.  Zeros add exactly, so the result differs from the unpadded
-    conv's by the order of its float32 sums only.
+    """Zero input channels to append so that a conv whose Cin is no
+    multiple of 8, or its weight gradient, takes the tensor-core route of
+    its dtype; 0 where Cin already is one, or where the shape stays on the
+    SIMT kernel (K > ``TF32_MAX_OFFSETS``).  Zeros add exactly, so the
+    result differs from the unpadded conv's by the order of its float32
+    sums only.
 
-    float32: ``8 - cin`` at any size and offset count where Cout is a
-    multiple of 8 (the SIMT kernel's float32 rate is 7x below the 3xTF32
-    one).  bf16: ``32 - cin`` from ``PAD_MIN_V`` rows up, at 27 offsets:
-    below it both routes cost a launch and the pad is two more, measured on
-    the H100 by chip_smoke.py (a clear gain from 65,536 rows up, a draw at
-    16,384, a loss below; see PERF.md); other kernel sizes stay on the SIMT
-    kernels unpadded."""
-    if dtype == torch.float32:
-        if (0 < cin < TF32_K and cout > 0 and not cout % TF32_K
-                and n_offsets <= TF32_MAX_OFFSETS):
-            return TF32_K - cin
+    float32: to the next multiple of 8 (4 -> 8 for the input conv).  bf16:
+    a Cin below one K slice to 32 (the 4 -> 32 input conv, whose plan,
+    launches and bits this keeps), a wider one to the next multiple of 8.
+    At any row count ``v``, so that no bf16 shape takes the SIMT kernel:
+    below ~16,000 rows the padded input conv costs a few hundredths of a
+    millisecond more than the SIMT kernel would (launches; PERF.md)."""
+    if (cin <= 0 or not cin % TF32_K or cout <= 0 or dtype not in _DTYPES
+            or n_offsets > TF32_MAX_OFFSETS):
         return 0
-    if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS
-            or not 0 < cin < BK or cout == 0 or cout % 32 or v < PAD_MIN_V):
+    if dtype == torch.bfloat16 and cin < BK:
+        return BK - cin
+    return -cin % TF32_K
+
+
+def cout_pad(cout: int, dtype: torch.dtype,
+             n_offsets: int = N_OFFSETS) -> int:
+    """Zero output channels to append so that a conv, or its weight
+    gradient, whose Cout is no multiple of 8 takes the tensor-core route of
+    its dtype (the extra columns of the output or of dW are cut off
+    again); 0 where it is one or where the shape stays on the SIMT kernel.
+    """
+    if cout <= 0 or dtype not in _DTYPES or n_offsets > TF32_MAX_OFFSETS:
         return 0
-    return BK - cin
+    return -cout % TF32_K
+
+
+def k_slices(cin: int):
+    """(slices, tail, kpad) of the bf16 conv's K loop over ``cin`` input
+    channels: 32-channel slices, the last one 16 wide (``tail``) where
+    ``cin % 32`` is 8 or 16; ``kpad`` channels a weight-image row, the
+    channels past ``cin`` zero (a rest of 24 takes a full slice)."""
+    n = -(-cin // BK)
+    tail = bool(cin % BK) and cin % BK <= 16
+    return n, tail, (n - 1) * BK + 16 if tail else n * BK
 
 
 @functools.lru_cache(maxsize=None)
-def _pack_index(cin: int, cout: int, bn: int) -> torch.Tensor:
-    """For every 16-byte chunk of the packed image, the chunk of the
-    (27, cout, cin) transposed weight it holds (see :func:`pack_weight`)."""
-    n_splits, n_slices = cout // bn, cin // BK
-    k = torch.arange(27).view(27, 1, 1, 1, 1)
-    j = torch.arange(n_splits).view(1, n_splits, 1, 1, 1)
-    s = torch.arange(n_slices).view(1, 1, n_slices, 1, 1)
-    n = torch.arange(bn).view(1, 1, 1, bn, 1)
+def _pack_index(cin: int, cout: int, bn: int, n_offsets: int) -> torch.Tensor:
+    """For every 16-byte chunk of the packed images, the chunk of the
+    (n_offsets, cout, kpad) transposed, zero-padded weight it holds (see
+    :func:`pack_weight`)."""
+    n_slices, tail, kpad = k_slices(cin)
+    full, n_splits = n_slices - tail, cout // bn
+    k = torch.arange(n_offsets).view(-1, 1, 1, 1)
+    j = torch.arange(n_splits).view(1, -1, 1, 1)
+    n = torch.arange(bn).view(1, 1, -1, 1)
+    row = (k * cout + j * bn + n) * (kpad // 8)   # first chunk of a row
+    s = torch.arange(full).view(1, 1, -1, 1, 1)
     p = torch.arange(4).view(1, 1, 1, 1, 4)
-    chunk = p ^ ((n >> 1) & 3)
-    idx = ((k * cout + j * bn + n) * (cin // 8) + s * 4 + chunk)
-    return idx.reshape(-1)
+    parts = [(row.unsqueeze(2) + s * 4 + (p ^ ((n.unsqueeze(2) >> 1) & 3))
+              ).reshape(n_offsets, n_splits, -1)]
+    if tail:
+        p = torch.arange(2).view(1, 1, 1, 2)
+        parts.append((row + full * 4 + (p ^ ((n >> 2) & 1))).reshape(
+            n_offsets, n_splits, -1))
+    return torch.cat(parts, 2).reshape(-1)
+
+
+def _packed_view(packed: torch.Tensor, k: int, cin: int, cout: int,
+                 bn: int) -> torch.Tensor:
+    n_slices, tail, kpad = k_slices(cin)
+    if tail:
+        return packed.view(k, cout // bn, bn * kpad)
+    return packed.view(k, cout // bn, n_slices, bn, BK)
 
 
 def pack_weight(weight: torch.Tensor, bn: int,
                 mirror: bool = False) -> torch.Tensor:
-    """(27, Cin, Cout) -> the shared-memory images of the wgmma kernel's B
-    tiles, (27, Cout / bn, Cin / 32, bn, 32): for offset k, column split j
-    and K slice s one tile of ``bn`` rows (output channels) x 32 input
-    channels, K-major, 64 bytes a row, in the 64-byte swizzle: the 16-byte
-    chunk c of row n lies at chunk position ``c ^ ((n >> 1) & 3)``.  The
-    conv kernel copies a tile linearly into shared memory.
+    """(K, Cin, Cout) -> the shared-memory images of the wgmma kernel's B
+    tiles: for offset k and column split j one image of ``bn`` rows (output
+    channels) x kpad input channels (:func:`k_slices`), one tile per K
+    slice s, K-major.  A 32-channel slice's tile has 64-byte rows in the
+    64-byte swizzle: the 16-byte chunk c of row n lies at chunk position
+    ``c ^ ((n >> 1) & 3)``; the 16-channel tail's tile 32-byte rows in the
+    32-byte swizzle, chunk c at ``c ^ ((n >> 2) & 1)``.  Channels past Cin
+    are zeros.  The conv kernel copies a tile linearly into shared memory.
+    Shape (K, Cout / bn, Cin / 32, bn, 32) where every slice is full, else
+    (K, Cout / bn, bn * kpad).
 
     With ``mirror`` the images are those of :func:`mirrored` ``(weight)``,
     the weights of the conv's input gradient, read straight from ``weight``.
@@ -262,29 +328,30 @@ def pack_weight(weight: torch.Tensor, bn: int,
     if not weight.is_cuda:
         w = mirrored(weight) if mirror else weight
         k, cin, cout = w.shape
-        t = w.transpose(1, 2).contiguous().view(-1, 8)
-        return t[_pack_index(cin, cout, bn)].view(
-            k, cout // bn, cin // BK, bn, BK)
+        kpad = k_slices(cin)[2]
+        t = F.pad(w.transpose(1, 2), (0, kpad - cin)).contiguous().view(-1, 8)
+        return _packed_view(t[_pack_index(cin, cout, bn, k)], k, cin, cout,
+                            bn)
     _cuda.require(weight, "pack_weight weight", torch.bfloat16, 3)
     k, cin, cout = weight.shape
     if mirror:
         cin, cout = cout, cin
-    if k != 27 or cin % BK or cout % bn:
+    if cin <= 0 or cin % 8 or bn % 8 or cout % bn:
         raise ValueError(f"pack_weight: weight {tuple(weight.shape)}, bn {bn}")
-    return _pack_cuda(weight, cin, cout, bn, mirror,
+    return _pack_cuda(weight, cin, cout, bn, k, mirror,
                       _cuda.stream_ptr(weight))
 
 
-def _pack_cuda(weight, cin, cout, bn, mirror, stream):
+def _pack_cuda(weight, cin, cout, bn, n_offsets, mirror, stream):
     """The pack kernel on a checked bf16 CUDA weight; (cin, cout) are the
     conv's, i.e. swapped against ``weight``'s with ``mirror``."""
-    packed = torch.empty((27, cout // bn, cin // BK, bn, BK),
+    packed = torch.empty(n_offsets * cout * k_slices(cin)[2],
                          dtype=weight.dtype, device=weight.device)
     code = _cuda.library().tl_pack_weight(
-        weight.data_ptr(), packed.data_ptr(), cin, cout, bn, int(mirror),
-        stream)
+        weight.data_ptr(), packed.data_ptr(), cin, cout, bn, n_offsets,
+        int(mirror), stream)
     _cuda.check(code, "tl_pack_weight")
-    return packed
+    return _packed_view(packed, n_offsets, cin, cout, bn)
 
 
 def tf32_split(x: torch.Tensor):
@@ -362,18 +429,34 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
     if rule.shape[0] != k or cin != feats.shape[1]:
         raise ValueError(f"subm_conv: shapes feats {tuple(feats.shape)}, "
                          f"weight {tuple(w.shape)}, rule {tuple(rule.shape)}")
-    v_in, v_out = feats.shape[0], rule.shape[1]
+    v_out = rule.shape[1]
     n_live = v_out if n_live is None else int(n_live)
-    out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
     if v_out == 0:
-        return out
-    if not (force_simt or mirror):
+        return torch.empty((0, cout), dtype=feats.dtype, device=feats.device)
+    if force_simt:
+        return _conv_launch(feats, w, rule, n_live, cout, mirror, True)
+    if not mirror:
         _cuda.record("subm_conv", feats=feats, weight=w, rule=rule)
-        pad = tensor_core_pad(cin, cout, v_out, feats.dtype, k)
-        if pad:
-            feats = F.pad(feats, (0, pad))
-            w = F.pad(w, (0, 0, 0, pad))
-            cin += pad
+    pad_in = tensor_core_pad(cin, cout, v_out, feats.dtype, k)
+    pad_out = cout_pad(cout, feats.dtype, k)
+    if not (pad_in or pad_out):
+        return _conv_launch(feats, w, rule, n_live, cout, mirror)
+    # zero channels onto the tensor-core routes, the output cut back
+    if mirror:
+        w = mirrored(w)
+    out = _conv_launch(F.pad(feats, (0, pad_in)),
+                       F.pad(w, (0, pad_out, 0, pad_in)), rule, n_live,
+                       cout + pad_out)
+    return out[:, :cout].contiguous() if pad_out else out
+
+
+def _conv_launch(feats, w, rule, n_live, cout, mirror=False,
+                 force_simt=False):
+    """Launch kernel 2 on checked inputs under the plan of their shape (the
+    SIMT kernel with ``force_simt``)."""
+    k, cin = w.shape[0], feats.shape[1]
+    v_in, v_out = feats.shape[0], rule.shape[1]
+    out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
     plan = conv_plan(cin, cout, v_out, feats.dtype, k)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(feats)
@@ -397,10 +480,10 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
         _cuda.check(code, "tl_subm_conv")
         _cuda.LAUNCHES["subm_conv"] += 1
         return out
-    wpack = _pack_cuda(w, cin, cout, plan.bn, mirror, stream)
+    wpack = _pack_cuda(w, cin, cout, plan.bn, k, mirror, stream)
     code = lib.tl_subm_conv_wgmma(
         feats.data_ptr(), wpack.data_ptr(), rule.data_ptr(), out.data_ptr(),
-        v_out, n_live, cin, cout, plan.bm, plan.bn, plan.stages,
+        v_out, n_live, cin, cout, k, plan.bm, plan.bn, plan.stages,
         plan.producers, plan.smem_bytes, stream)
     _cuda.check(code, "tl_subm_conv_wgmma")
     _cuda.LAUNCHES["subm_conv_wgmma"] += 1
@@ -417,15 +500,15 @@ def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
     Routing, by device, dtype and shape only (:func:`conv_plan`):
 
     * CPU tensors -> the plain version (ops/sparse.py:subm_conv);
-    * CUDA, bf16, Cin and Cout multiples of 32, K = 27 ->
-      csrc/subm_conv_wgmma.cu (counted as ``subm_conv_wgmma``); so is the
-      4 -> 32 input conv over ``PAD_MIN_V`` voxels or more, zero-padded to
-      32 input channels (:func:`tensor_core_pad`);
-    * CUDA, float32, Cin and Cout multiples of 8, any K ->
-      csrc/subm_conv_tf32.cu (counted as ``subm_conv_tf32``); so is the
-      float32 4 -> 32 input conv, zero-padded to 8 input channels;
-    * CUDA, any other width, or bf16 with K != 27 -> csrc/subm_conv.cu
-      (counted as ``subm_conv``).
+    * CUDA, bf16, K <= 343 -> csrc/subm_conv_wgmma.cu (counted as
+      ``subm_conv_wgmma``);
+    * CUDA, float32, K <= 343 -> csrc/subm_conv_tf32.cu (counted as
+      ``subm_conv_tf32``);
+    * widths that are no multiple of 8 are zero-padded onto those routes
+      first, the output cut back (:func:`tensor_core_pad`,
+      :func:`cout_pad`: the 4 -> 32 input conv to 32 input channels in
+      bf16, to 8 in float32);
+    * CUDA, K > 343 -> csrc/subm_conv.cu (counted as ``subm_conv``).
 
     A kernel that fails to build or launch raises; no route gives way to
     another.
@@ -505,14 +588,19 @@ def _dw_plan_simt(cin: int, cout: int, v: int,
 def dw_plan_wgmma(cin: int, cout: int, v: int,
                   producers: int = DW_WGMMA_PRODUCERS,
                   stages: int = DW_WGMMA_STAGES,
-                  target_blocks: int = DW_WGMMA_BLOCKS) -> DwPlan:
+                  target_blocks: int = DW_WGMMA_BLOCKS,
+                  n_offsets: int = N_OFFSETS) -> DwPlan:
     """The tensor-core plan of a (cin, cout, v) weight gradient under
     explicit tunables (tools/conv_tune.py sweeps them; :func:`dw_plan` uses
-    the defaults).  A block sums two 32-channel slabs of the 27 * cin / 32
-    (offset, input slice) slabs against ``bn`` output channels over one row
-    chunk; chunks are cut so that about ``target_blocks`` blocks run, none
-    shorter than ``DW_WGMMA_MIN_ROWS`` rows and the partials under
-    ``DW_PARTIAL_BYTES``, and hold whole ring slots.
+    the defaults).  A block sums 64 rows of dW's flattened (offset, input
+    channel) axis, ``n_offsets * cin`` long (two 32-row slabs), against
+    ``bn`` output channels over one row chunk; ``bn`` is a multiple of 32
+    (Cout in multiples of 32 split as the conv splits it; another Cout in
+    the fewest 256-or-narrower blocks, the last reaching past Cout, its
+    extra columns zero and not written).  Chunks are cut so that about
+    ``target_blocks`` blocks run, none shorter than ``DW_WGMMA_MIN_ROWS``
+    rows and the partials under ``DW_PARTIAL_BYTES``, and hold whole ring
+    slots.
 
     The defaults are what ``tools/conv_tune.py --only dw`` measured on the
     H100 at the training shapes: 4 producer warps (32-row slots) beat 8 at
@@ -520,15 +608,17 @@ def dw_plan_wgmma(cin: int, cout: int, v: int,
     8 bring nothing more, and four blocks an SM is within 10 % of the best
     block target at every shape (the decoder's 2C -> C convs would take
     twice as many, 96 -> 96 and 192 -> 96 half)."""
-    n = 1
-    while cout % n or (cout // n) % 32 or cout // n > MAX_BN:
-        n += 1
-    bn = cout // n
+    if cout % 32 == 0:
+        bn = bf16_bn(cout)
+        n = cout // bn
+    else:
+        n = -(-cout // MAX_BN)
+        bn = -(-cout // (32 * n)) * 32
     rows = producers // 4
     while stages > 2 and dw_smem_bytes(bn, producers, stages) > SMEM_LIMIT:
         stages -= 1
     n_chunks, rows_per_chunk = _cut_chunks(
-        v, -(-(27 * (cin // 32)) // 2) * n, 27 * cin * cout, rows,
+        v, -(-(n_offsets * cin) // 64) * n, n_offsets * cin * cout, rows,
         target_blocks)
     return DwPlan("wgmma", bn, n, producers, stages, n_chunks,
                   rows_per_chunk, dw_smem_bytes(bn, producers, stages))
@@ -586,19 +676,18 @@ def dw_plan(cin: int, cout: int, v: int,
             n_offsets: int = N_OFFSETS) -> DwPlan:
     """Static routing and tiling of kernel 3, from the shape alone.
 
-    bf16 with ``cin`` and ``cout`` multiples of 32 and 27 offsets -> the
-    wgmma kernel (csrc/subm_conv_dw_wgmma.cu); float32 with ``cin`` and
-    ``cout`` multiples of 8, any offset count -> the 3xTF32 kernel
-    (csrc/subm_conv_dw_tf32.cu, :func:`dw_plan_tf32`); the unpadded 4 -> 32
-    input conv, other odd widths and bf16 kernel sizes other than 3 -> the
-    SIMT kernel (csrc/subm_conv_dw.cu)."""
-    if (dtype == torch.float32 and cin > 0 and cout > 0
-            and not cin % TF32_K and not cout % TF32_K):
-        return dw_plan_tf32(cin, cout, v, n_offsets)
-    if (dtype != torch.bfloat16 or n_offsets != N_OFFSETS or cin == 0
-            or cout == 0 or cin % 32 or cout % 32):
+    ``cin`` and ``cout`` multiples of 8, any offset count: bf16 -> the
+    wgmma kernel (csrc/subm_conv_dw_wgmma.cu, :func:`dw_plan_wgmma`),
+    float32 -> the 3xTF32 kernel (csrc/subm_conv_dw_tf32.cu,
+    :func:`dw_plan_tf32`).  Other widths are the SIMT kernel's plan
+    (csrc/subm_conv_dw.cu): the wrapper zero-pads them first, as it does
+    for the conv."""
+    if (cin <= 0 or cout <= 0 or cin % TF32_K or cout % TF32_K
+            or dtype not in _DTYPES):
         return _dw_plan_simt(cin, cout, v, n_offsets)
-    return dw_plan_wgmma(cin, cout, v)
+    if dtype == torch.float32:
+        return dw_plan_tf32(cin, cout, v, n_offsets)
+    return dw_plan_wgmma(cin, cout, v, n_offsets=n_offsets)
 
 
 def _dw_cuda(x, g, rule, force_simt=False):
@@ -615,14 +704,18 @@ def _dw_cuda(x, g, rule, force_simt=False):
     if v == 0:
         return torch.zeros((k, cin, cout), dtype=torch.float32,
                            device=x.device)
-    if not force_simt:
-        _cuda.record("subm_conv_dw", x=x, g=g, rule=rule)
-        pad = tensor_core_pad(cin, cout, v, x.dtype, k)
-        if pad:    # dW of the padded conv; its first cin rows are the answer
-            return _dw_launch(F.pad(x, (0, pad)), g, rule, dw_plan(
-                cin + pad, cout, v, x.dtype, k))[:, :cin].contiguous()
-    return _dw_launch(x, g, rule, _dw_plan_simt(cin, cout, v, k) if force_simt
-                      else dw_plan(cin, cout, v, x.dtype, k))
+    if force_simt:
+        return _dw_launch(x, g, rule, _dw_plan_simt(cin, cout, v, k))
+    _cuda.record("subm_conv_dw", x=x, g=g, rule=rule)
+    pad_in = tensor_core_pad(cin, cout, v, x.dtype, k)
+    pad_out = cout_pad(cout, x.dtype, k)
+    if pad_in or pad_out:
+        # dW of the padded conv; its first cin x cout entries are the answer
+        return _dw_launch(F.pad(x, (0, pad_in)), F.pad(g, (0, pad_out)),
+                          rule, dw_plan(cin + pad_in, cout + pad_out, v,
+                                        x.dtype, k))[:, :cin, :cout
+                                                     ].contiguous()
+    return _dw_launch(x, g, rule, dw_plan(cin, cout, v, x.dtype, k))
 
 
 def _dw_launch(x, g, rule, plan):
@@ -657,7 +750,7 @@ def _dw_launch(x, g, rule, plan):
         return dw
     code = lib.tl_subm_conv_dw_wgmma(
         x.data_ptr(), g.data_ptr(), rule.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), v, cin, cout, plan.bn, plan.producers, plan.stages,
+        dw.data_ptr(), v, cin, cout, k, plan.bn, plan.producers, plan.stages,
         plan.n_chunks, plan.rows_per_chunk, plan.smem_bytes, stream)
     _cuda.check(code, "tl_subm_conv_dw_wgmma")
     _cuda.LAUNCHES["subm_conv_dw_wgmma"] += 1
@@ -672,16 +765,15 @@ def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
     Routing, by device, dtype and shape only (:func:`dw_plan`):
 
     * CPU tensors -> the plain version (ops/sparse.py:subm_conv_dw);
-    * CUDA, bf16, Cin and Cout multiples of 32, K = 27 ->
-      csrc/subm_conv_dw_wgmma.cu (counted as ``subm_conv_dw_wgmma``); so is
-      the 4 -> 32 input conv's over ``PAD_MIN_V`` rows or more, x zero-padded
-      to 32 channels and dW cut back to its 4 rows
-      (:func:`tensor_core_pad`);
-    * CUDA, float32, Cin and Cout multiples of 8, any K ->
-      csrc/subm_conv_dw_tf32.cu (counted as ``subm_conv_dw_tf32``); so is
-      the float32 4 -> 32 input conv's, x zero-padded to 8 channels;
-    * CUDA, any other width, or bf16 with K != 27 -> csrc/subm_conv_dw.cu
-      (counted as ``subm_conv_dw``).
+    * CUDA, bf16 -> csrc/subm_conv_dw_wgmma.cu (counted as
+      ``subm_conv_dw_wgmma``);
+    * CUDA, float32 -> csrc/subm_conv_dw_tf32.cu (counted as
+      ``subm_conv_dw_tf32``);
+    * widths that are no multiple of 8 are zero-padded onto those routes
+      first (x and g get zero columns, dW is cut back: the 4 -> 32 input
+      conv's x to 32 channels in bf16, to 8 in float32); only K > 343, which
+      the conv leaves on the SIMT kernel, keeps such a width unpadded on
+      csrc/subm_conv_dw.cu (counted as ``subm_conv_dw``).
 
     A kernel that fails to build or launch raises; no route gives way to
     another."""

@@ -124,7 +124,7 @@ def tune_dw(dev, reps):
                             _cuda.check(lib.tl_subm_conv_dw_wgmma(
                                 x.data_ptr(), g.data_ptr(), rule.data_ptr(),
                                 partial.data_ptr(), dw.data_ptr(), n, cin, c,
-                                plan.bn, plan.producers, plan.stages,
+                                27, plan.bn, plan.producers, plan.stages,
                                 plan.n_chunks, plan.rows_per_chunk,
                                 plan.smem_bytes, stream),
                                 "tl_subm_conv_dw_wgmma")
@@ -174,8 +174,9 @@ def tune_conv(dev, reps):
                     def launch():
                         _cuda.check(lib.tl_subm_conv_wgmma(
                             x.data_ptr(), wpack.data_ptr(), rule.data_ptr(),
-                            out.data_ptr(), n, n, c, c, bm, bn, stages,
-                            producers, smem, stream), "tl_subm_conv_wgmma")
+                            out.data_ptr(), n, n, c, c, 27, bm, bn,
+                            stages, producers, smem, stream),
+                            "tl_subm_conv_wgmma")
 
                     out.fill_(7.0)
                     launch()

@@ -69,14 +69,16 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     from ..ops.sparse import subm_conv as plain_conv
-    from ..ops.subm_conv import conv_plan, subm_conv
+    from ..ops.subm_conv import conv_plan, cout_pad, subm_conv, tensor_core_pad
 
     dev = resolve_device(args.device)
     cin = cout = args.c
     print(f"device: {dev}; card: {card_line(dev)}; V={args.v_cap} "
           f"C={cin}->{cout}")
     grid, rule, feats, w, n = make_case(args.v_cap, cin, cout, device=dev)
-    route = (conv_plan(cin, cout, n, feats.dtype).route
+    route = (conv_plan(cin + tensor_core_pad(cin, cout, n, feats.dtype),
+                       cout + cout_pad(cout, feats.dtype), n,
+                       feats.dtype).route
              if dev.type == "cuda" else "plain on the CPU")
     print(f"live={n} route={route}")
     t_p = timed_ms(lambda: plain_conv(feats, w, rule), dev, args.reps)

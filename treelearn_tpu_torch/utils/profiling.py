@@ -147,7 +147,8 @@ def conv_rows(x: torch.Tensor, w: torch.Tensor, rule: torch.Tensor, device,
     card only the plain conv runs (the wrappers would take it too).
     Raises if a kernel disagrees with the plain conv."""
     from ..ops.sparse import subm_conv as plain_conv
-    from ..ops.subm_conv import conv_plan, subm_conv, subm_conv_simt
+    from ..ops.subm_conv import (conv_plan, cout_pad, subm_conv,
+                                 subm_conv_simt, tensor_core_pad)
 
     want = plain_conv(x, w, rule)
     row = {"plain_ms": timed_ms(lambda: plain_conv(x, w, rule), device,
@@ -155,8 +156,12 @@ def conv_rows(x: torch.Tensor, w: torch.Tensor, rule: torch.Tensor, device,
            "flops": 2.0 * float((rule >= 0).sum()) * w.shape[1] * w.shape[2]}
     if torch.device(device).type != "cuda":
         return row
-    row["route"] = conv_plan(w.shape[1], w.shape[2], rule.shape[1], x.dtype,
-                             w.shape[0]).route
+    k, cin, cout = w.shape
+    v = rule.shape[1]
+    # the plan of the shape the wrapper launches, zero channels included
+    row["route"] = conv_plan(cin + tensor_core_pad(cin, cout, v, x.dtype, k),
+                             cout + cout_pad(cout, x.dtype, k), v, x.dtype,
+                             k).route
     for name, fn in (("routed", subm_conv), ("simt", subm_conv_simt)):
         ok, rel = conv_agrees(fn(x, w, rule), want)
         if not ok:
