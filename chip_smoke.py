@@ -22,7 +22,11 @@ Phases (any failure exits nonzero; nothing is swallowed):
              inputs are recorded (first call of each shape) for phase 4;
              CUDA events around each model forward give the card's
              milliseconds beside the inference stage's host seconds; its
-             pointwise dump is kept for phase 14.  This first (cold) run is
+             pointwise dump is kept for phase 14; the inference loop's packed
+             ship (float16 predictions + int32 level counts into pinned
+             memory) in bytes, which must be half the float32 bytes of the
+             same rows, and its copy's ms between CUDA events.  This first
+             (cold) run is
              followed by a warm one in the same process, with no recorder:
              wall time, stage seconds and the forward's card milliseconds
              and host seconds are printed cold and warm side by side;
@@ -63,6 +67,24 @@ Phases (any failure exits nonzero; nothing is swallowed):
              1e-4 share), else the summaries must be equal.  Random weights:
              the scores are smoke values, not quality;
 3f. smoke:   ``utils/smoke.py:run_gpu_smoke``: every check must pass;
+3g. tiles:   the inference loop in tile mode (phase 3's config with
+             ``whole_plot: false``: 8 m inner squares, 13.5 m outer, stride
+             0.5) on a 30 m x 30 m crop of the plot, voxelized as the
+             pipeline does: the port's overlapped loop
+             (``get_pointwise_preds``: prefetch thread, pinned side-stream
+             H2D, batch t-1 harvested behind t, packed float16 + int32 ship)
+             and ``serial_yardstick``, this script's copy of the loop as it
+             ran before (one thread: cut, pageable H2D, forward with its
+             counts read by ``int()``, float16 round trip widened on the
+             card, pageable D2H, harvest), in turns (serial, overlapped,
+             overlapped, serial) after one warm-up run of each, in one
+             process: every returned array bit-equal between the two; per
+             run the stage's wall seconds, host ms per tile for cut /
+             forward dispatch / D2H wait / harvest, the forwards' host ms
+             per tile, and the card's busy share (the forwards' and copies'
+             ms between CUDA events over the wall); counts zeroed just
+             before an overlapped run: rulebook and tensor-core conv
+             launches per tile;
 4. kernels:  each kernel against its plain PyTorch version on the inputs its
              path gave it (rulebook exact, timed beside the 27-probe kernel
              it replaced; subm conv in float32 with rtol 1e-4 on the route
@@ -208,7 +230,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              against the same config single-process on the card, on the
              whole plot (one tile-mode run of it takes under 30 s):
              pointwise arrays within 1e-6,
-             instance labels and tree count equal, wall time of each;
+             instance labels and tree count equal, wall time of each; the
+             single run's tiles, its rulebook and tensor-core conv launches
+             (counts zeroed just before) and its loop's host split;
 11. demo:    ``python -m treelearn_tpu_torch.tools.demo`` with its defaults
              on the card: exit 0, at least one tree, the labeled cloud and
              the per-tree files written;
@@ -226,7 +250,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              named part, host waits on the card per part, device-idle share
              of the window) and the span split without the profiler; counts
              zeroed just before: the rulebook, both convs and the tensor-core
-             dW must launch; one ``profile:`` JSON line (the traces go to
+             dW must launch; the forward trace's ``counts`` span must hold no
+             host wait on the card; the packed ship's bytes of the traced
+             ``forward_harvest``; one ``profile:`` JSON line (the traces go to
              ``--trace-dir``, default the run's temporary directory);
 13. bench:   ``python -m treelearn_tpu_torch.tools.bench`` as a subprocess
              on the card at a reduced budget (``BENCH_TRAIN_STEPS=200
@@ -2342,6 +2368,10 @@ def profile_phase(trace_dir):
                         "subm_conv_dw_wgmma") if launches[k] == 0]
     if zero:
         raise AssertionError(f"phase 12: kernels not launched: {zero}")
+    counts_waits = model["trace"]["syncs"].get("counts", [0, 0.0])
+    if counts_waits[0]:
+        raise AssertionError(f"phase 12: the forward's counts span waits on "
+                             f"the card: {counts_waits}")
 
     def parts(tr):
         keep = ("parts", "span_split", "syncs", "sync_total", "window_ms",
@@ -2350,6 +2380,7 @@ def profile_phase(trace_dir):
 
     summary = {
         "card": model["card"], "forward_ms": model["forward_ms"],
+        "ship_bytes": model["ship_bytes"],
         "mfu": model["mfu"], "voxelize_ms": model["voxelize_ms"],
         "plans_ms": model["plans_ms"],
         "levels": [{k: r[k] for k in ("level", "v", "c", "routed_ms",
@@ -2363,6 +2394,200 @@ def profile_phase(trace_dir):
     log(f"  launches {json.dumps(launches)}; phase 12: "
         f"{time.time() - t0:.1f} s")
     return summary
+
+
+def ship_check(mt, cols):
+    """The whole-plot run's packed ship (``model_timings`` of the inference
+    loop): float16 predictions of ``cols`` columns + int32 level counts.
+    Fails unless the predictions take half the bytes of the float32 ship of
+    the same rows."""
+    meta = 4 * 2 * len(mt["n_vox_levels"]) * mt["steps"]
+    shipped = mt["d2h_bytes"]
+    f32 = 4 * cols * mt["points"]
+    log(f"  packed ship: {shipped} B = {shipped - meta} B float16 "
+        f"predictions ({mt['points']} rows x {cols}) + {meta} B int32 "
+        f"counts; float32 of the same rows {f32} B; copies "
+        f"{mt['d2h_ms']:.3f} ms between CUDA events, host wait "
+        f"{1e3 * mt['d2h_wait_s']:.2f} ms; pinned H2D {mt['h2d_ms']:.3f} ms")
+    if 2 * (shipped - meta) != f32:
+        raise AssertionError(f"packed ship: {shipped - meta} B of "
+                             f"predictions, float32 {f32} B")
+
+
+def serial_yardstick(model, loader, dtype, need_backbone, tm):
+    """The inference loop as it ran before the overlap was ported: the
+    yardstick phase 3g races the port's loop against, as ``bf16_simt`` is
+    for the convs.  One thread, per batch: the cut (the loader's next), the
+    inputs' pageable H2D and the forward with its counts read by ``int()``,
+    the kept rows rounded through float16 and widened back on the card,
+    their pageable D2H, the numpy harvest.  Returns the arrays
+    ``get_pointwise_preds`` returns; ``tm`` takes its timing keys."""
+    import numpy as np
+    import torch
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    for k in ("cut_s", "dispatch_s", "d2h_wait_s", "harvest_s"):
+        tm[k] = 0.0
+    tm["steps"] = 0
+    parts, copies = [], []
+    it = iter(loader)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        t1 = time.perf_counter()
+        n = int(batch["n_points"])
+        h2d = events()
+        h2d[0].record()
+        inputs = [torch.from_numpy(np.ascontiguousarray(batch[k][:n])).to(CARD)
+                  for k in ("coords", "input_feats", "batch_ids", "valid")]
+        h2d[1].record()
+        with torch.no_grad():
+            output = model(*inputs, batch_size=int(batch["batch_size"]),
+                           compute_dtype=dtype)
+            # the counts as that loop read them: one host wait a level
+            part_counts = [int(x) for x in output["rule_nnz_per_level"]]
+        t2 = time.perf_counter()
+        sel = np.flatnonzero(np.asarray(batch["masks_inner"][:n])
+                             & np.asarray(batch["valid"][:n]))
+        d2h = events()
+        d2h[0].record()
+        sel_t = torch.from_numpy(sel).to(CARD)
+        keys = ["semantic_prediction_logits", "offset_predictions"]
+        if need_backbone:
+            keys.append("backbone_feats")
+        packed = torch.cat([output[k][sel_t] for k in keys],
+                           dim=1).to(torch.float16).float().cpu()
+        d2h[1].record()
+        t3 = time.perf_counter()
+        packed = packed.numpy()
+        part = {"semantic_prediction_logits": packed[:, :2],
+                "offset_predictions": packed[:, 2:5],
+                "backbone_feats": (packed[:, 5:] if need_backbone else
+                                   np.zeros((len(sel), 0), np.float32)),
+                "coords": (np.asarray(batch["coords"])[sel]
+                           + np.asarray(batch["centers"])[sel]),
+                "point_ids": np.asarray(batch["point_ids"])[sel],
+                "rule_nnz": part_counts}
+        for k in ("semantic_labels", "offset_labels", "instance_labels",
+                  "input_feats"):
+            part[k] = np.asarray(batch[k])[sel]
+        parts.append(part)
+        t4 = time.perf_counter()
+        for k, a, b in (("cut_s", t0, t1), ("dispatch_s", t1, t2),
+                        ("d2h_wait_s", t2, t3), ("harvest_s", t3, t4)):
+            tm[k] += b - a
+        tm["steps"] += 1
+        copies.append((h2d, d2h))
+    torch.cuda.synchronize()
+    tm["h2d_ms"] = sum(a.elapsed_time(b) for (a, b), _ in copies)
+    tm["d2h_ms"] = sum(a.elapsed_time(b) for _, (a, b) in copies)
+    keys = ("semantic_prediction_logits", "semantic_labels",
+            "offset_predictions", "offset_labels", "coords",
+            "instance_labels", "backbone_feats", "input_feats", "point_ids")
+    return tuple(np.concatenate([p[k] for p in parts]) for k in keys)
+
+
+def tile_loop_phase(data, config):
+    """Phase 3g: the port's overlapped inference loop against
+    :func:`serial_yardstick` in tile mode on a 30 m x 30 m crop of the
+    plot, in turns in one process; returns the printed summary."""
+    import numpy as np
+    import torch
+
+    from treelearn_tpu_torch.model import TreeLearn
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.voxelize import voxel_downsample_trace_np
+    from treelearn_tpu_torch.pipeline.inference import get_pointwise_preds
+    from treelearn_tpu_torch.pipeline.streaming import TileStream
+    from treelearn_tpu_torch.utils.profiling import ForwardTimer
+
+    t_phase = time.time()
+    mid = (data[:, :2].min(0) + data[:, :2].max(0)) / 2
+    crop = data[(np.abs(data[:, :2] - mid) <= 15.0).all(1)]
+    xyz = crop[:, :3] - crop[:, :3].mean(0)     # the pipeline's centering
+    sg = config.sample_generation
+    down, first, _ = voxel_downsample_trace_np(xyz.astype(np.float32),
+                                               sg.voxel_size)
+    pts = np.round(down.astype(np.float32), 2).astype(np.float64)
+    stream = TileStream(pts, crop[first, 3], np.zeros((len(pts), 1),
+                                                      np.float32),
+                        sg.inner_edge, sg.outer_edge, sg.stride)
+    model = TreeLearn(**config.model).init(0)
+    model.spatial_shape = tuple(config.model.spatial_shape)
+    model = model.to(CARD).eval()
+    dtype = torch.bfloat16 if config.fp16 else torch.float32
+
+    def loader():
+        return stream.batches(
+            batch_size=config.dataloader.batch_size,
+            inner_square_edge_length=config.dataset_test
+            .inner_square_edge_length, min_bucket=1)
+
+    def run(which):
+        tm = {}
+        forwards = ForwardTimer()
+        _cuda.reset_launches()
+        t0 = time.time()
+        if which == "overlapped":
+            out = get_pointwise_preds(model, loader(), compute_dtype=dtype,
+                                      device=CARD, timings=tm,
+                                      need_backbone=False)
+        else:
+            out = serial_yardstick(model, loader(), dtype, False, tm)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        forwards.remove()
+        launches = dict(_cuda.LAUNCHES)
+        tiles = tm["steps"]
+        busy_ms = sum(forwards.device_ms()) + tm["h2d_ms"] + tm["d2h_ms"]
+        row = {"loop": which, "wall_s": wall, "tiles": tiles,
+               "busy_share": busy_ms / (wall * 1e3),
+               "forward_device_ms": sum(forwards.device_ms()),
+               "forward_host_ms_per_tile": 1e3 * sum(forwards.host_s) / tiles,
+               "h2d_ms": tm["h2d_ms"], "d2h_ms": tm["d2h_ms"],
+               "launches_per_tile": {k: launches[k] / tiles for k in (
+                   "rulebook", "subm_conv_wgmma")}}
+        for k in ("cut_s", "dispatch_s", "d2h_wait_s", "harvest_s"):
+            row[k[:-2] + "_ms_per_tile"] = 1e3 * tm[k] / tiles
+        return out, row
+
+    log(f"tile loop: {len(crop)} points of a 30 m x 30 m crop, {len(pts)} "
+        f"voxels, {len(stream)} tiles in the grid")
+    run("overlapped")
+    run("serial")
+    rows, want = [], None
+    for which in ("serial", "overlapped", "overlapped", "serial"):
+        out, row = run(which)
+        if want is None:
+            want = out
+        for k, (a, b) in enumerate(zip(out, want)):
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                    a.view(np.uint8), b.view(np.uint8)):
+                raise AssertionError(f"tile loop: {which} array {k} differs "
+                                     f"from the first serial run's")
+        if which == "overlapped" and (
+                row["launches_per_tile"]["rulebook"] == 0
+                or row["launches_per_tile"]["subm_conv_wgmma"] == 0):
+            raise AssertionError(f"tile loop: launches {row}")
+        log(f"  {which}: wall {row['wall_s']:.3f} s, {row['tiles']} tiles, "
+            f"host ms per tile: cut {row['cut_ms_per_tile']:.2f} / forward "
+            f"dispatch {row['dispatch_ms_per_tile']:.2f} / D2H wait "
+            f"{row['d2h_wait_ms_per_tile']:.2f} / harvest "
+            f"{row['harvest_ms_per_tile']:.2f}; forwards' host ms per tile "
+            f"{row['forward_host_ms_per_tile']:.2f}; card: forwards "
+            f"{row['forward_device_ms']:.1f} ms, H2D {row['h2d_ms']:.2f} ms, "
+            f"D2H {row['d2h_ms']:.2f} ms, busy share "
+            f"{row['busy_share']:.4f}")
+        rows.append(row)
+    log(f"  arrays bit-equal across the four runs; launches per tile "
+        f"{json.dumps(rows[1]['launches_per_tile'])}")
+    log(f"tile_loop: {json.dumps(rows)}")
+    log(f"  phase 3g: {time.time() - t_phase:.1f} s")
+    return rows
 
 
 def log_plot(what, res, wall, launches, forwards):
@@ -2862,6 +3087,7 @@ def dp_pipeline_phase(tmp, data):
     card (no process group: the single path)."""
     import numpy as np
 
+    from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.parallel.launch import spawn_ranks
     from treelearn_tpu_torch.pipeline import run_treelearn_pipeline
 
@@ -2872,10 +3098,24 @@ def dp_pipeline_phase(tmp, data):
         forests[mode] = osp.join(d, "smoke.npz")
         np.savez(forests[mode], points=data[:, :3].astype(np.float32),
                  labels=data[:, 3])
+    _cuda.reset_launches()
     t0 = time.time()
     single = run_treelearn_pipeline(dp_pipeline_config(forests["single"]),
                                     device=CARD)
     wall_single = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    mt = single["model_timings"]
+    tiles = mt["steps"]
+    log(f"dp pipeline, single process: {tiles} tiles, launches per tile "
+        f"rulebook {launches['rulebook'] / tiles:.2f}, tensor-core conv "
+        f"{launches['subm_conv_wgmma'] / tiles:.2f}; the loop's host ms per "
+        f"tile: cut (prefetch thread) {1e3 * mt['cut_s'] / tiles:.2f} / "
+        f"forward dispatch {1e3 * mt['dispatch_s'] / tiles:.2f} / D2H wait "
+        f"{1e3 * mt['d2h_wait_s'] / tiles:.2f} / harvest "
+        f"{1e3 * mt['harvest_s'] / tiles:.2f}; dispatch + overlapped "
+        f"harvest {mt['device_s']:.3f} s")
+    if launches["rulebook"] == 0 or launches["subm_conv_wgmma"] == 0:
+        raise AssertionError(f"dp pipeline: launches {launches}")
     out = osp.dirname(forests["dist"])
     t0 = time.time()
     spawn_ranks(dp_pipeline_rank, DP_WORLD, osp.join(out, "store"),
@@ -3156,6 +3396,7 @@ def main():
         mt = res["model_timings"]
         log(f"  voxels per level {[int(x) for x in mt['n_vox_levels']]}, "
             f"rule nnz per level {[int(x) for x in mt['rule_nnz']]}")
+        ship_check(mt, cols=5)    # save_backbone_feats: False
         for call in KNN_LOG:
             log(f"  knn route {call.route}: {call.n_refs} refs, "
                 f"{call.n_queries} queries")
@@ -3202,6 +3443,8 @@ def main():
         del cand, knots, knot_labels
         eval_phase(tmp, res_hd, path)
         smoke_phase()
+        # 3g. the inference loop in tile mode, overlapped against serial
+        tile_loop_phase(data, config)
 
         # 4. kernels against their plain versions, main-path inputs
         rows = []

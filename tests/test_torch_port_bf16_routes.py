@@ -255,5 +255,5 @@ def test_channels16_forward_matches_jax():
         np.testing.assert_allclose(got[key].numpy()[:n],
                                    np.asarray(want[key])[:n],
                                    rtol=1e-4, atol=1e-4, err_msg=key)
-    assert got["n_voxels_per_level"] == [
+    assert got["n_voxels_per_level"].tolist() == [
         int(x) for x in np.asarray(want["n_voxels_per_level"])]

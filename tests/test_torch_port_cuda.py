@@ -1026,3 +1026,36 @@ def test_subm_conv_fn_float32_grads_through_tf32(cuda, k_size, cin, cout):
     for got, want in zip(*res):
         assert float((got - want).abs().max()) <= 1e-4 * float(
             want.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["tiles", "whole_plot"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inference_loop_pinned_side_stream_equals_serial(cuda, mode, dtype):
+    """The overlapped loop on the card (inputs pinned, their H2D on the
+    prefetch thread's side stream, the packed float16 + int32 ship into
+    pinned buffers, batch t-1 harvested behind t) returns the serial loop's
+    arrays bit for bit."""
+    from test_torch_port_inference_loop import (CFG, _batches,
+                                                _assert_bitwise, serial_loop)
+    from treelearn_tpu_torch.model import TreeLearn
+    from treelearn_tpu_torch.pipeline.inference import (get_pointwise_preds,
+                                                        stage)
+
+    model = TreeLearn(**CFG).init(0).to(cuda).eval()
+    want, counts = serial_loop(model, _batches(mode), dev=cuda,
+                               compute_dtype=dtype)
+    tm = {}
+    got = get_pointwise_preds(model, _batches(mode), device=cuda,
+                              compute_dtype=dtype, timings=tm)
+    for a, b in zip(got, want):
+        _assert_bitwise(a, b)
+    assert tm["steps"] == len(counts)
+    assert tm["h2d_ms"] > 0 and tm["d2h_ms"] > 0
+    np.testing.assert_array_equal(
+        tm["rule_nnz"], np.max([c[1] for c in counts], axis=0))
+
+    side = torch.cuda.Stream(cuda)
+    staged = stage(next(iter(_batches(mode))), cuda, side)
+    assert staged["h2d"] is not None
+    assert all(t.device.type == "cuda" for t in staged["tensors"])
+    staged["h2d"][1].synchronize()

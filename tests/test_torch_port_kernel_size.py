@@ -91,9 +91,9 @@ def test_forward_k5_matches_jax():
         np.testing.assert_allclose(got[key].numpy()[:n],
                                    np.asarray(want[key])[:n],
                                    rtol=1e-4, atol=1e-4, err_msg=key)
-    assert got["n_voxels_per_level"] == [
+    assert got["n_voxels_per_level"].tolist() == [
         int(x) for x in np.asarray(want["n_voxels_per_level"])]
-    assert got["rule_nnz_per_level"] == [
+    assert got["rule_nnz_per_level"].tolist() == [
         int(x) for x in np.asarray(want["rule_nnz_per_level"])]
 
 

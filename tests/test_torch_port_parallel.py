@@ -259,19 +259,26 @@ def _infer_rank(init_method, tmp):
 
 def test_dp_inference_matches_single_process(tmp_path):
     """Batch i goes to rank i % 2; rank 0 returns every array in loader
-    order, equal to the single-process result; rank 1 returns None."""
+    order, equal to the single-process result; rank 1 returns None.  Both
+    go through the overlapped loop (prefetch thread, batch t-1 harvested
+    behind t); both equal, bit for bit, the serial loop of
+    test_torch_port_inference_loop.py on the same batches."""
+    from test_torch_port_inference_loop import serial_loop
     from treelearn_tpu_torch.model import TreeLearn
     from treelearn_tpu_torch.pipeline.inference import get_pointwise_preds
 
     model = TreeLearn(**dict(CFG, use_coords=False, use_feats=False)).init(1)
     single = get_pointwise_preds(model, iter(_tile_batches()), device="cpu")
+    serial, _ = serial_loop(model.eval(), _tile_batches())
     _spawn(_infer_rank, tmp_path, str(tmp_path))
     r0, r1 = (_load(tmp_path / f"infer{r}.pkl") for r in range(WORLD))
     assert r1["out"] is None
     assert (r0["steps"], r1["steps"]) == (3, 2)
-    assert len(r0["out"]) == len(single) == 9
-    for a, b in zip(single, r0["out"]):
+    assert len(r0["out"]) == len(single) == len(serial) == 9
+    for a, b, c in zip(single, r0["out"], serial):
         np.testing.assert_array_equal(a, b)
+        assert a.dtype == c.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), c.view(np.uint8))
 
 
 def _pipeline_cfg(forest_path, dist):

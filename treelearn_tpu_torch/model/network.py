@@ -181,7 +181,8 @@ class TreeLearn(nn.Module):
         """coords (N, 3) f32 metric, input_feats (N, F) f32, batch_ids (N,),
         valid (N,) bool -> dict with semantic_prediction_logits (N, 2),
         offset_predictions (N, 3), backbone_feats (N, channels) in float32,
-        plus n_voxels, n_voxels_per_level and rule_nnz_per_level.
+        plus n_voxels and the (levels,) int32 tensors n_voxels_per_level
+        and rule_nnz_per_level on the inputs' device.
 
         Its parts run under named spans (utils/trace.py: voxelize, plans,
         unet.L<l>, heads, devoxelize, counts), which record only while a
@@ -216,8 +217,15 @@ class TreeLearn(nn.Module):
             sem = self.semantic_linear(backbone_feats, valid)
             off = self.offset_linear(backbone_feats, valid)
         with span("counts"):
-            n_voxels_per_level = [p.grid.n_active for p in plans]
-            rule_nnz_per_level = [int((p.rule >= 0).sum()) for p in plans]
+            # kept on the device: a host read here waits on the card once a
+            # level; callers read them from the shipped meta
+            # (pipeline/inference.py:level_counts)
+            dev = coords.device
+            n_voxels_per_level = torch.tensor(
+                [p.grid.n_active for p in plans], dtype=torch.int32,
+                pin_memory=dev.type == "cuda").to(dev, non_blocking=True)
+            rule_nnz_per_level = torch.stack(
+                [(p.rule >= 0).sum() for p in plans]).to(torch.int32)
         return {
             "semantic_prediction_logits": sem.float(),
             "offset_predictions": off.float(),

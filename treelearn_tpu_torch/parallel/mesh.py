@@ -189,8 +189,11 @@ def make_dp_inference_step(model, group: DPGroup, *,
                            need_backbone: bool = True):
     """Tile-parallel inference step: forwards one loader batch on this
     rank's device and returns its harvested host arrays
-    (pipeline/inference.py:forward_harvest).  ``get_pointwise_preds(...,
-    group=...)`` deals batch ``i`` to rank ``i % world`` and gathers."""
+    (pipeline/inference.py:forward_harvest: staged, dispatched and
+    harvested in one call).  ``get_pointwise_preds(..., group=...)`` deals
+    batch ``i`` to rank ``i % world`` itself, through the same stage /
+    dispatch / harvest functions with a prefetch thread and the harvest of
+    batch t-1 behind batch t, and gathers."""
     from ..pipeline.inference import forward_harvest
 
     model = model.to(group.device).eval()

@@ -2,13 +2,25 @@
 
 Parity: get_pointwise_preds (reference util/pipeline.py:79-109) — forward
 every batch, keep only inner-square points, un-center coordinates,
-concatenate.  Predictions are rounded through float16 on the device before
-the copy to the host, as the JAX package's eval step ships them
-(train/loop.py:make_eval_step), so downstream thresholds see the same
-values.  With a data-parallel ``group`` (parallel/mesh.py) batch ``i`` goes
-to rank ``i % world`` and rank 0 gathers the harvested arrays in loader
-order (JAX pipeline/inference.py:451-496); eager shapes need no padded
-tail group.
+concatenate.  With a data-parallel ``group`` (parallel/mesh.py) batch ``i``
+goes to rank ``i % world`` and rank 0 gathers the harvested arrays in
+loader order (JAX pipeline/inference.py:451-496); eager shapes need no
+padded tail group.
+
+Ported from the JAX loop, which is a three-stage software pipeline:
+
+- prefetch (JAX ``_prefetch``): a daemon thread runs the loader (tile cut
+  and collate) two batches ahead; on a card it copies each batch's model
+  inputs into pinned host memory and starts their H2D on a side stream, and
+  the forward's stream waits on that copy's event;
+- dispatch-ahead: batch t is forwarded and its outputs' D2H enqueued before
+  the host waits on batch t-1's copy and builds its numpy arrays, so that
+  harvest runs while the card finishes t and the thread cuts t+1;
+- one packed ship (JAX ``make_eval_step``'s ``preds_f16`` / ``meta_i32``):
+  the kept rows' predictions as one float16 array and the per-level voxel
+  and rule counts as one int32 array, copied into pinned buffers.  The host
+  widens float16 to float32, so downstream thresholds see the values the
+  JAX eval step ships.
 
 Not ported, because they have no meaning on a GPU: the executable caches and
 their disk serialization, the MFU timing re-dispatch, and the tunnel
@@ -18,8 +30,11 @@ to retry.
 
 from __future__ import annotations
 
+import contextlib
+import queue
+import threading
 import time
-from typing import Iterable, Optional
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -28,56 +43,210 @@ from ..device import resolve_device
 from ..utils.trace import span
 
 
+_INPUT_KEYS = ("coords", "input_feats", "batch_ids", "valid")
 _HOST_KEYS = ("semantic_labels", "offset_labels", "instance_labels",
               "input_feats")
+_DONE = object()
+PREFETCH_THREAD = "tile-prefetch"
 
 
-def forward_harvest(model, batch, dev, compute_dtype=torch.float32,
-                    need_backbone: bool = True) -> dict:
-    """Forward one loader batch on ``dev`` in eval mode and harvest its
-    inner-mask points as host arrays (the outputs rounded through float16
-    on the device), with the batch's per-level voxel and rule counts.  Its
-    parts run under the spans harvest.h2d, harvest.forward, harvest.d2h
-    and harvest.host (utils/trace.py)."""
-    # drop the collate padding: eager shapes need no buckets
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def stage(batch, dev, stream=None) -> dict:
+    """The model inputs of one loader batch on ``dev`` (collate padding
+    dropped: eager shapes need no buckets) and the indices of its kept rows
+    (inner and valid).  On a card the arrays go through pinned host memory
+    and their H2D is enqueued ``non_blocking`` on ``stream`` (default the
+    current one), between two CUDA events; :func:`dispatch` makes the
+    forward's stream wait on the second."""
     n = int(batch.get("n_points", len(batch["coords"])))
-    to = lambda k: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(batch[k][:n])).to(dev)
+    sel = np.flatnonzero(np.asarray(batch["masks_inner"][:n])
+                         & np.asarray(batch["valid"][:n]))
+    host = [torch.from_numpy(np.ascontiguousarray(batch[k][:n]))
+            for k in _INPUT_KEYS] + [torch.from_numpy(sel)]
+    if dev.type != "cuda":
+        return {"n": n, "sel": sel, "tensors": host, "h2d": None}
+    if stream is None:
+        stream = torch.cuda.current_stream(dev)
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        pinned = [t.pin_memory() for t in host]
+        h2d = _events()
+        h2d[0].record(stream)
+        tensors = [t.to(dev, non_blocking=True) for t in pinned]
+        h2d[1].record(stream)
+    return {"n": n, "sel": sel, "tensors": tensors, "h2d": h2d}
+
+
+def level_counts(output) -> torch.Tensor:
+    """The forward's per-level voxel and rule counts as one int32 tensor on
+    its device, ``n_voxels_per_level`` then ``rule_nnz_per_level``."""
+    return torch.cat([output["n_voxels_per_level"],
+                      output["rule_nnz_per_level"]]).to(torch.int32)
+
+
+def split_counts(meta: np.ndarray):
+    """(n_voxels_per_level, rule_nnz_per_level) as int64 arrays from the
+    shipped meta of :func:`level_counts`."""
+    meta = np.asarray(meta, np.int64)
+    return meta[:len(meta) // 2], meta[len(meta) // 2:]
+
+
+def dispatch(model, batch, staged: dict, compute_dtype=torch.float32,
+             need_backbone: bool = True) -> dict:
+    """Forward one staged batch (eval mode, no grad) and enqueue its packed
+    ship: the kept rows' logits, offsets and (with ``need_backbone``)
+    backbone features as one float16 tensor, the level counts as one int32
+    tensor.  On a card both are copied ``non_blocking`` into pinned host
+    buffers between two CUDA events and nothing waits; :func:`harvest`
+    waits on the second event.  Spans: harvest.forward, harvest.d2h."""
+    coords, feats, bids, valid, sel_t = staged["tensors"]
+    cuda = coords.device.type == "cuda"
+    if cuda:
+        cur = torch.cuda.current_stream(coords.device)
+        cur.wait_event(staged["h2d"][1])
+        for t in staged["tensors"]:   # made on the side stream, used here
+            t.record_stream(cur)
     with torch.no_grad():
-        with span("harvest.h2d"):
-            inputs = [to(k) for k in ("coords", "input_feats", "batch_ids",
-                                      "valid")]
         with span("harvest.forward"):
-            output = model(*inputs, batch_size=int(batch["batch_size"]),
+            output = model(coords, feats, bids, valid,
+                           batch_size=int(batch["batch_size"]),
                            compute_dtype=compute_dtype)
         with span("harvest.d2h"):
-            keep = np.asarray(batch["masks_inner"][:n]) & np.asarray(
-                batch["valid"][:n])
-            sel = np.flatnonzero(keep)
-            sel_t = torch.from_numpy(sel).to(dev)
-            preds = [output["semantic_prediction_logits"][sel_t],
-                     output["offset_predictions"][sel_t]]
+            keys = ["semantic_prediction_logits", "offset_predictions"]
             if need_backbone:
-                preds.append(output["backbone_feats"][sel_t])
-            packed = torch.cat(preds, dim=1).to(torch.float16).float().cpu()
+                keys.append("backbone_feats")
+            packed = torch.cat([output[k][sel_t] for k in keys],
+                               dim=1).to(torch.float16)
+            meta = level_counts(output)
+            d2h = None
+            if cuda:
+                host_p = torch.empty(packed.shape, dtype=packed.dtype,
+                                     pin_memory=True)
+                host_m = torch.empty(meta.shape, dtype=meta.dtype,
+                                     pin_memory=True)
+                d2h = _events()
+                d2h[0].record()
+                host_p.copy_(packed, non_blocking=True)
+                host_m.copy_(meta, non_blocking=True)
+                d2h[1].record()
+                packed, meta = host_p, host_m
+    return {"batch": batch, "n": staged["n"], "sel": staged["sel"],
+            "preds_f16": packed, "meta_i32": meta, "d2h": d2h,
+            "h2d": staged["h2d"], "need_backbone": need_backbone}
+
+
+def harvest(pending: dict, timings: Optional[dict] = None) -> dict:
+    """Wait for a dispatched batch's ship and build its host arrays: the
+    float16 predictions widened to float32, coordinates un-centered, the
+    labels of the kept rows, the level counts.  ``timings`` takes the wait
+    and host seconds, the shipped bytes and, on a card, the copies'
+    milliseconds between their events.  Spans: harvest.wait,
+    harvest.host."""
+    tm = {} if timings is None else timings
+    t0 = time.perf_counter()
+    with span("harvest.wait"):
+        if pending["d2h"] is not None:
+            pending["d2h"][1].synchronize()
+    t1 = time.perf_counter()
     with span("harvest.host"):
-        packed = packed.numpy()
+        batch, sel = pending["batch"], pending["sel"]
+        packed = pending["preds_f16"].float().numpy()
+        n_vox, nnz = split_counts(pending["meta_i32"].numpy())
         out = {
             "semantic_prediction_logits": packed[:, :2],
             "offset_predictions": packed[:, 2:5],
-            "backbone_feats": (packed[:, 5:] if need_backbone
+            "backbone_feats": (packed[:, 5:] if pending["need_backbone"]
                                else np.zeros((len(sel), 0), np.float32)),
             "coords": (np.asarray(batch["coords"])[sel]
                        + np.asarray(batch["centers"])[sel]),
-            "n_points": n,
-            "n_vox_levels": np.asarray(output["n_voxels_per_level"]),
-            "rule_nnz": np.asarray(output["rule_nnz_per_level"]),
+            "n_points": pending["n"],
+            "n_vox_levels": n_vox,
+            "rule_nnz": nnz,
         }
         for k in _HOST_KEYS:
             out[k] = np.asarray(batch[k])[sel]
         if "point_ids" in batch:
             out["point_ids"] = np.asarray(batch["point_ids"])[sel]
+    t2 = time.perf_counter()
+    tm["d2h_wait_s"] = tm.get("d2h_wait_s", 0.0) + (t1 - t0)
+    tm["harvest_s"] = tm.get("harvest_s", 0.0) + (t2 - t1)
+    tm["d2h_bytes"] = tm.get("d2h_bytes", 0) + sum(
+        pending[k].numel() * pending[k].element_size()
+        for k in ("preds_f16", "meta_i32"))
+    for key, ev in (("h2d_ms", pending["h2d"]), ("d2h_ms", pending["d2h"])):
+        if ev is not None:
+            ev[1].synchronize()
+            tm[key] = tm.get(key, 0.0) + ev[0].elapsed_time(ev[1])
     return out
+
+
+def forward_harvest(model, batch, dev, compute_dtype=torch.float32,
+                    need_backbone: bool = True,
+                    timings: Optional[dict] = None) -> dict:
+    """Forward one loader batch on ``dev`` in eval mode and harvest its
+    inner-mask points as host arrays, with the batch's per-level voxel and
+    rule counts: :func:`stage` on the current stream, :func:`dispatch`,
+    :func:`harvest` (which adds to ``timings``), one after the other.  Its
+    parts run under the spans harvest.h2d, harvest.forward, harvest.d2h,
+    harvest.wait and harvest.host (utils/trace.py)."""
+    with span("harvest.h2d"):
+        staged = stage(batch, dev)
+    return harvest(dispatch(model, batch, staged, compute_dtype,
+                            need_backbone), timings)
+
+
+def prefetch(items: Iterable, dev, depth: int = 2) -> Iterator[tuple]:
+    """Run ``items`` (pairs (index, loader batch)) on a daemon thread
+    ``depth`` batches ahead and :func:`stage` each batch, on a card on a
+    side stream of its own; yields (index, batch, staged, seconds the
+    thread spent cutting and staging it).  A loader exception is raised
+    here with its type.  Closing the generator (``break``, an exception in
+    the consumer) stops the thread and joins it."""
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def work():
+        try:
+            it = iter(items)
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    i, batch = next(it)
+                except StopIteration:
+                    put(_DONE)
+                    return
+                staged = stage(batch, dev, side)
+                if not put((i, batch, staged, time.perf_counter() - t0)):
+                    return
+        except BaseException as e:  # handed to the consumer, raised there
+            put(e)
+
+    thread = threading.Thread(target=work, name=PREFETCH_THREAD, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join()
 
 
 def get_pointwise_preds(model, dataloader: Iterable, *, compute_dtype=torch.float32,
@@ -90,39 +259,36 @@ def get_pointwise_preds(model, dataloader: Iterable, *, compute_dtype=torch.floa
     are the original-cloud row ids of id-aware loaders
     (pipeline/streaming.py), or None.
 
+    The loader runs on a :func:`prefetch` thread; batch t is dispatched
+    before batch t-1 is harvested (module docstring).
+
     With ``group`` (a :class:`parallel.mesh.DPGroup` of world size > 1)
     this rank forwards batches ``rank, rank + world, ...`` on
     ``group.device``; rank 0 returns the arrays of all batches in loader
     order, the other ranks None.
 
-    ``timings`` (a dict) receives device_s, steps, points and the per-level
-    voxel counts (n_vox_levels, rule_nnz) of this rank's batches."""
+    ``timings`` (a dict) receives device_s (dispatch + overlapped harvest,
+    as the JAX loop counts it), steps, points, the per-level voxel counts
+    (n_vox_levels, rule_nnz) of this rank's batches, and the host split:
+    cut_s (the thread's cut and stage), dispatch_s, d2h_wait_s, harvest_s;
+    d2h_bytes shipped; on a card h2d_ms and d2h_ms between CUDA events."""
     if group is not None:
-        from ..parallel.mesh import make_dp_inference_step
-
-        step = make_dp_inference_step(model, group,
-                                      compute_dtype=compute_dtype,
-                                      need_backbone=need_backbone)
+        dev = group.device
         mine = lambda i: i % group.world == group.rank  # noqa: E731
     else:
         dev = resolve_device(device)
-        model = model.to(dev).eval()
-        step = lambda b: forward_harvest(  # noqa: E731
-            model, b, dev, compute_dtype, need_backbone)
         mine = lambda i: True  # noqa: E731
+    model = model.to(dev).eval()
     tm = timings if timings is not None else {}
-    tm.setdefault("device_s", 0.0)
+    for k in ("device_s", "cut_s", "dispatch_s"):
+        tm.setdefault(k, 0.0)
     tm.setdefault("steps", 0)
     tm.setdefault("points", 0)
 
     parts = []
-    for i, batch in enumerate(dataloader):
-        if not mine(i):
-            continue
-        t0 = time.time()
-        part = step(batch)
-        tm["device_s"] += time.time() - t0
-        tm["steps"] += 1
+
+    def finish(i, pending):
+        part = harvest(pending, tm)
         tm["points"] += len(part["coords"])
         for k in ("n_vox_levels", "rule_nnz"):
             prev = tm.get(k)
@@ -131,6 +297,24 @@ def get_pointwise_preds(model, dataloader: Iterable, *, compute_dtype=torch.floa
             logger.info(f"batch {i}: {part['n_points']} points, voxels per "
                         f"level {part['n_vox_levels'].tolist()}")
         parts.append((i, part))
+
+    pending = None
+    ours = ((i, b) for i, b in enumerate(dataloader) if mine(i))
+    with contextlib.closing(prefetch(ours, dev)) as batches:
+        for i, batch, staged, cut_s in batches:
+            tm["cut_s"] += cut_s
+            t0 = time.time()
+            out = dispatch(model, batch, staged, compute_dtype, need_backbone)
+            tm["dispatch_s"] += time.time() - t0
+            tm["steps"] += 1
+            if pending is not None:
+                finish(*pending)  # waits on t-1 while the card runs t
+            pending = (i, out)
+            tm["device_s"] += time.time() - t0
+    if pending is not None:
+        t0 = time.time()
+        finish(*pending)
+        tm["device_s"] += time.time() - t0
 
     if group is not None:
         import torch.distributed as dist

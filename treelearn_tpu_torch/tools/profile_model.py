@@ -14,8 +14,8 @@ at (V, C = channels (l + 1)) runs through kernel 2's routed plan, through
 the SIMT kernel and through the plain gather conv, each with its MFU; a
 kernel that disagrees with the plain conv fails the run.  ``--trace DIR``
 adds a ``torch.profiler`` trace of one warm forward as the pipeline runs it
-(``pipeline/inference.py:forward_harvest`` on the plot as one batch: H2D,
-forward, packed D2H) and prints its summary (utils/trace.py).  ``--device cpu`` runs the plain versions on the host
+(``pipeline/inference.py:forward_harvest`` on the plot as one batch: pinned
+H2D, forward, the packed float16 + int32 D2H, the wait on it, host arrays) and prints its summary (utils/trace.py).  ``--device cpu`` runs the plain versions on the host
 clock at a small ``--points``.
 """
 
@@ -107,6 +107,7 @@ def main(argv=None) -> dict:
 
     from ..model import TreeLearn
     from ..model.network import analytic_model_flops
+    from ..pipeline.inference import level_counts, split_counts
 
     dev = resolve_device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -133,10 +134,10 @@ def main(argv=None) -> dict:
     print(f"voxelize+plans:     {res['plans_ms']:9.2f} ms  (plans "
           f"~{res['plans_ms'] - res['voxelize_ms']:.2f} ms)")
     if not args.skip_model:
+        n_vox, nnz = split_counts(level_counts(out).cpu().numpy())
         res["flops"] = analytic_model_flops(
-            out["n_voxels_per_level"], len(pts), channels=model.channels,
-            num_blocks=args.levels,
-            rule_nnz_per_level=out["rule_nnz_per_level"])
+            n_vox, len(pts), channels=model.channels,
+            num_blocks=args.levels, rule_nnz_per_level=nnz)
         res["mfu"] = (res["flops"] / (res["forward_ms"] * 1e-3)
                       / H100_BF16_PEAK_FLOPS if dev.type == "cuda" else None)
         print(f"full forward:       {res['forward_ms']:9.2f} ms  (unet+heads "
@@ -166,9 +167,14 @@ def main(argv=None) -> dict:
         from ..utils.trace import trace_parts
 
         batch = plot_batch(pts)
-        harvest = lambda: forward_harvest(model, batch, dev, dtype)  # noqa
+        tm = {}
+        harvest = lambda: forward_harvest(model, batch, dev, dtype,  # noqa
+                                          timings=tm)
         harvest()
-        print("\ntrace of one warm forward (forward_harvest):")
+        res["ship_bytes"] = tm["d2h_bytes"]
+        print(f"\npacked ship of one forward_harvest: {res['ship_bytes']} B "
+              f"(float16 predictions + int32 level counts)")
+        print("trace of one warm forward (forward_harvest):")
         res["trace"] = trace_parts(harvest, args.trace, "forward", dev)
     return res
 
