@@ -1,0 +1,15 @@
+"""loader_collate_ms.train (ms): host milliseconds a batch of the loader's
+padded collate (the ``loader.collate`` span): its sum in the window over
+the ``loader.batch`` spans there."""
+
+from benchmark.yardstick.trace import span_seconds
+
+
+def read(ctx):
+    if "events" not in ctx:
+        return None
+    t0, t1 = ctx["win"]
+    n = len(span_seconds(ctx["events"], "loader.batch", t0, t1))
+    sec = [s for name in ("loader.collate",)
+           for s in span_seconds(ctx["events"], name, t0, t1)]
+    return 1e3 * sum(sec) / n if n and sec else None

@@ -1,0 +1,14 @@
+"""voxelize_s.seg (s): host seconds of the plot's voxel downsampling (the
+pipeline's ``voxelize_features.voxelize`` span) a plot: the spans in the
+window over the window's plots."""
+
+from benchmark.yardstick.trace import span_seconds
+
+
+def read(ctx):
+    p = ctx.get("passes") or []
+    if "events" not in ctx or not p:
+        return None
+    t0, t1 = ctx["win"]
+    sec = span_seconds(ctx["events"], "voxelize_features.voxelize", t0, t1)
+    return sum(sec) / len(p) if sec else None

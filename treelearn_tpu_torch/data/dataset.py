@@ -15,6 +15,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.trace import span
+
 INSTANCE_LABEL_IGNORE_IN_RAW_DATA = -1  # unlabeled in raw data
 NON_TREE_CLASS_IN_RAW_DATA = 0          # non-tree instance label in raw data
 NON_TREE_CLASS_IN_DATASET = 1           # semantic label for non-tree
@@ -110,27 +112,33 @@ class TreeDataset:
         return len(self.data_paths)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        data = np.load(self.data_paths[index])
-        xyz = np.asarray(data["points"], dtype=np.float64)
-        input_feat = np.asarray(data["feat"], dtype=np.float32)
-        instance_label = np.asarray(data["instance_label"])
-        semantic_label = semantic_from_instance(instance_label)
-        center = (np.zeros(3) if self.training else np.asarray(data["center"]))
+        """One crop; its parts run under the spans loader.read,
+        loader.augment (training only) and loader.offsets."""
+        with span("loader.read"):
+            data = np.load(self.data_paths[index])
+            xyz = np.asarray(data["points"], dtype=np.float64)
+            input_feat = np.asarray(data["feat"], dtype=np.float32)
+            instance_label = np.asarray(data["instance_label"])
+            center = (np.zeros(3) if self.training
+                      else np.asarray(data["center"]))
 
         if self.training:
-            if self.data_augmentations.get("point_jitter") and self.rng.random() <= 0.25:
-                xyz = point_jitter(xyz, self.rng)
-            xyz = augment(xyz, self.data_augmentations, self.rng)
+            with span("loader.augment"):
+                if self.data_augmentations.get("point_jitter") and self.rng.random() <= 0.25:
+                    xyz = point_jitter(xyz, self.rng)
+                xyz = augment(xyz, self.data_augmentations, self.rng)
 
-        offset_label, mask_valid_offset = get_offset_labels(
-            xyz, instance_label, semantic_label)
+        with span("loader.offsets"):
+            semantic_label = semantic_from_instance(instance_label)
+            offset_label, mask_valid_offset = get_offset_labels(
+                xyz, instance_label, semantic_label)
 
-        inf_norm = np.linalg.norm(xyz[:, :-1], ord=np.inf, axis=1)
-        mask_inner = inf_norm <= (self.inner_square_edge_length / 2)
-        mask_not_ignore = instance_label != INSTANCE_LABEL_IGNORE_IN_RAW_DATA
-        mask_off = (mask_inner & mask_not_ignore
-                    & (semantic_label != NON_TREE_CLASS_IN_DATASET) & mask_valid_offset)
-        mask_sem = mask_inner & mask_not_ignore
+            inf_norm = np.linalg.norm(xyz[:, :-1], ord=np.inf, axis=1)
+            mask_inner = inf_norm <= (self.inner_square_edge_length / 2)
+            mask_not_ignore = instance_label != INSTANCE_LABEL_IGNORE_IN_RAW_DATA
+            mask_off = (mask_inner & mask_not_ignore
+                        & (semantic_label != NON_TREE_CLASS_IN_DATASET) & mask_valid_offset)
+            mask_sem = mask_inner & mask_not_ignore
 
         return {
             "coords": xyz.astype(np.float32),
@@ -261,12 +269,19 @@ class TreeLoader:
             idx = order[start:start + gb]
             if self.drop_last and len(idx) < gb:
                 return
-            samples = [self.dataset[i] for i in idx]
-            if self.n_shards > 1:
-                yield collate_dp(samples, self.n_shards, self.batch_size,
-                                 self.pad_to, self.min_bucket)
-            else:
-                yield collate_padded(samples, self.pad_to, self.min_bucket)
+            # the span closes before the yield: it times making the batch,
+            # not the consumer's step
+            with span("loader.batch"):
+                samples = [self.dataset[i] for i in idx]
+                with span("loader.collate"):
+                    if self.n_shards > 1:
+                        batch = collate_dp(samples, self.n_shards,
+                                           self.batch_size, self.pad_to,
+                                           self.min_bucket)
+                    else:
+                        batch = collate_padded(samples, self.pad_to,
+                                               self.min_bucket)
+            yield batch
 
 
 def build_dataloader(dataset, batch_size=1, num_workers=0, training=True,

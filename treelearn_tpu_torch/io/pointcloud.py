@@ -14,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.trace import span
 from .las import read_las, write_las
 
 INSTANCE_LABEL_IGNORE_IN_RAW_DATA = -1  # label for unlabeled in raw data
@@ -91,18 +92,16 @@ def save_data(data: np.ndarray, save_format: str, save_name: str, save_folder: s
 
         offsets = points.mean(0) if use_offset else (0.0, 0.0, 0.0)
 
-        from ..utils.timing import substage
-
-        with substage(f"save_data palette ({save_name})"):
+        with span("las.palette"):
             # tree ids are small ints: index a dense palette over
             # [min, max] directly instead of np.unique's 10M-row sort
             # (measured 7.7 s at 10M points)
             ilab = labels.astype(np.int64)
             lmin, lmax = (int(ilab.min()), int(ilab.max())) if len(ilab) else (0, 0)
-            span = lmax - lmin + 1
+            n_ids = lmax - lmin + 1
             prng = np.random.default_rng()  # palette gen: one vectorized draw
-            if span <= 4 * len(ilab) + 1024:
-                palette = prng.integers(0, 256, size=(span, 3),
+            if n_ids <= 4 * len(ilab) + 1024:
+                palette = prng.integers(0, 256, size=(n_ids, 3),
                                         dtype=np.uint16)
                 colors = palette[ilab - lmin]
             else:  # pathological sparse ids: fall back to the exact route
@@ -113,7 +112,7 @@ def save_data(data: np.ndarray, save_format: str, save_name: str, save_folder: s
             colors[non_tree] = [0, 0, 0]
 
         save_path = osp.join(save_folder, f"{save_name}.{save_format}")
-        with substage(f"write_las ({save_name}, {len(points)} pts)"):
+        with span("las.write"):
             write_las(
                 save_path,
                 xyz=points,

@@ -145,7 +145,10 @@ def knn_classify(ref_pts: np.ndarray, ref_labels: np.ndarray,
     ``TL_KNN_KDTREE_MIN_PAIRS`` (2e10) query x ref pairs the host KD-tree
     backstop; in between the banded k-NN passes on ``device``
     (ops/knn.py, kernel 6 on the card).  Only the banded route needs the
-    device."""
+    device.  The route runs under the span knn.banded, or knn.kdtree and
+    then knn.vote, and the counter ``knn.queries.<route>`` takes the
+    call's queries (utils/trace.py)."""
+    from ..utils.trace import count, span
     from . import _cuda
     from .knn import banded_knn_classify
 
@@ -167,11 +170,18 @@ def knn_classify(ref_pts: np.ndarray, ref_labels: np.ndarray,
         route = "kdtree_backstop"
     else:
         info = {}
-        out = banded_knn_classify(ref_pts, labels, query_pts, k=k,
-                                  small_refs_kdtree=False, device=device,
-                                  log=info)
+        with span("knn.banded"):
+            out = banded_knn_classify(ref_pts, labels, query_pts, k=k,
+                                      small_refs_kdtree=False, device=device,
+                                      log=info)
+        count("knn.queries.banded", nq)
         KNN_LOG.append(KnnCall("banded", nr, nq, tuple(info["rounds"]),
                                info["n_brute"]))
         return out
+    with span("knn.kdtree"):
+        nn = kdtree_knn(ref_pts, query_pts, k)
+    with span("knn.vote"):
+        out = vote(labels[nn])
+    count(f"knn.queries.{route}", nq)
     KNN_LOG.append(KnnCall(route, nr, nq))
-    return vote(labels[kdtree_knn(ref_pts, query_pts, k)])
+    return out

@@ -204,7 +204,9 @@ def prefetch(items: Iterable, dev, depth: int = 2) -> Iterator[tuple]:
     side stream of its own; yields (index, batch, staged, seconds the
     thread spent cutting and staging it).  A loader exception is raised
     here with its type.  Closing the generator (``break``, an exception in
-    the consumer) stops the thread and joins it."""
+    the consumer) stops the thread and joins it.  The consumer's wait for
+    each batch is the span ``inference.wait_batch``: a profiler started on
+    the main thread does not see the loader thread's own spans."""
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -238,7 +240,8 @@ def prefetch(items: Iterable, dev, depth: int = 2) -> Iterator[tuple]:
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("inference.wait_batch"):
+                item = q.get()
             if item is _DONE:
                 return
             if isinstance(item, BaseException):

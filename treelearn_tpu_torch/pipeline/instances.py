@@ -17,6 +17,7 @@ import numpy as np
 
 from ..ops.cluster import dbscan_cluster, knn_classify
 from ..ops.hdbscan import hdbscan_cluster
+from ..utils.trace import span
 
 
 def softmax_np(x: np.ndarray) -> np.ndarray:
@@ -60,53 +61,59 @@ def get_instances(coords: np.ndarray, offset: np.ndarray,
                   device=None) -> np.ndarray:
     """``verticality_feat=None`` defers verticality: it is computed here,
     on ``device``, only for points that already pass the confidence and
-    offset filters (neighborhoods still from the full cloud)."""
-    cluster_coords = (coords + offset)[:, :3]
+    offset filters (neighborhoods still from the full cloud).  Its parts
+    run under the spans cluster.filter, cluster.verticality and
+    cluster.components."""
+    with span("cluster.filter"):
+        cluster_coords = (coords + offset)[:, :3]
 
-    logits = np.asarray(semantic_prediction_logits)
-    thr = float(grouping_cfg.tree_conf_thresh)
-    if logits.ndim == 2 and logits.shape[1] == 2 and 0.0 < thr < 1.0:
-        # binary head: the softmax confidence test is exactly the logit
-        # margin against the log-odds (instances.py:66-78 of the JAX package)
-        other = 1 - tree_class_in_dataset
-        margin = (logits[:, tree_class_in_dataset].astype(np.float64)
-                  - logits[:, other].astype(np.float64))
-        tree_mask = margin >= np.log(thr / (1.0 - thr))
-    else:
-        probs = softmax_np(np.asarray(logits, np.float64))
-        tree_mask = probs[:, tree_class_in_dataset] >= thr
-    offset_mask = np.abs(offset[:, 2]) < grouping_cfg.tau_off
-    if verticality_feat is None:
-        from ..ops.features import compute_verticality
+        logits = np.asarray(semantic_prediction_logits)
+        thr = float(grouping_cfg.tree_conf_thresh)
+        if logits.ndim == 2 and logits.shape[1] == 2 and 0.0 < thr < 1.0:
+            # binary head: the softmax confidence test is exactly the logit
+            # margin against the log-odds (instances.py:66-78 of the JAX
+            # package)
+            other = 1 - tree_class_in_dataset
+            margin = (logits[:, tree_class_in_dataset].astype(np.float64)
+                      - logits[:, other].astype(np.float64))
+            tree_mask = margin >= np.log(thr / (1.0 - thr))
+        else:
+            probs = softmax_np(np.asarray(logits, np.float64))
+            tree_mask = probs[:, tree_class_in_dataset] >= thr
+        offset_mask = np.abs(offset[:, 2]) < grouping_cfg.tau_off
+    with span("cluster.verticality"):
+        if verticality_feat is None:
+            from ..ops.features import compute_verticality
 
-        pre = np.where(tree_mask & offset_mask)[0]
-        vertical_mask = np.zeros(len(coords), bool)
-        if len(pre):
-            vert = compute_verticality(coords[:, :3].astype(np.float32),
-                                       search_radius=search_radius,
-                                       query_idx=pre, device=device)
-            vertical_mask[pre] = vert[:, 0] > grouping_cfg.tau_vert
-    else:
-        vertical_mask = (np.asarray(verticality_feat).reshape(-1)
-                         > grouping_cfg.tau_vert)
-    mask_cluster = tree_mask & vertical_mask & offset_mask
-    ind_cluster = np.where(mask_cluster)[0]
-    filtered_xy = cluster_coords[ind_cluster][:, :2]
+            pre = np.where(tree_mask & offset_mask)[0]
+            vertical_mask = np.zeros(len(coords), bool)
+            if len(pre):
+                vert = compute_verticality(coords[:, :3].astype(np.float32),
+                                           search_radius=search_radius,
+                                           query_idx=pre, device=device)
+                vertical_mask[pre] = vert[:, 0] > grouping_cfg.tau_vert
+        else:
+            vertical_mask = (np.asarray(verticality_feat).reshape(-1)
+                             > grouping_cfg.tau_vert)
+    with span("cluster.components"):
+        mask_cluster = tree_mask & vertical_mask & offset_mask
+        ind_cluster = np.where(mask_cluster)[0]
+        filtered_xy = cluster_coords[ind_cluster][:, :2]
 
-    predictions = non_trees_label * np.ones(len(cluster_coords))
-    predictions[tree_mask] = not_assigned_label
+        predictions = non_trees_label * np.ones(len(cluster_coords))
+        predictions[tree_mask] = not_assigned_label
 
-    if grouping_cfg.get("use_hdbscan", False):
-        pred_instances = group_hdbscan(
-            filtered_xy, grouping_cfg.tau_min, not_assigned_label,
-            start_num_preds, device=device)
-    else:
-        pred_instances = dbscan_cluster(
-            filtered_xy.astype(np.float32), eps=grouping_cfg.tau_group,
-            min_size=grouping_cfg.tau_min,
-            not_assigned_label=not_assigned_label, start_num=start_num_preds,
-            device=device)
-    predictions[ind_cluster] = pred_instances
+        if grouping_cfg.get("use_hdbscan", False):
+            pred_instances = group_hdbscan(
+                filtered_xy, grouping_cfg.tau_min, not_assigned_label,
+                start_num_preds, device=device)
+        else:
+            pred_instances = dbscan_cluster(
+                filtered_xy.astype(np.float32), eps=grouping_cfg.tau_group,
+                min_size=grouping_cfg.tau_min,
+                not_assigned_label=not_assigned_label,
+                start_num=start_num_preds, device=device)
+        predictions[ind_cluster] = pred_instances
     return predictions.astype(np.int64)
 
 

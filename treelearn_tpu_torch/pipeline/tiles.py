@@ -24,6 +24,7 @@ import numpy as np
 
 from ..io.pointcloud import load_data
 from ..ops.voxelize import voxel_downsample_trace_np
+from ..utils.trace import span
 
 
 def fill_occupancy_holes(occ: np.ndarray, how_far_fill: int,
@@ -323,14 +324,17 @@ def prepare_voxelized_features(cfg, forest_path: str, logger,
     vox_arrays = None
     if (not osp.exists(save_path_vox)) or (
             return_type == "original" and not osp.exists(save_path_trace)):
-        data = load_data(forest_path)
-        down, first_idx, inverse = voxel_downsample_trace_np(
-            data[:, :3], cfg.voxel_size)
-        labels = data[first_idx, 3]
-        down = np.round(down.astype(np.float32), 2)
-        np.savez(save_path_vox, points=down, labels=labels)
-        if return_type == "original":
-            np.savez(save_path_trace, inverse=inverse.astype(np.int64))
+        with span("voxelize_features.read"):
+            data = load_data(forest_path)
+        with span("voxelize_features.voxelize"):
+            down, first_idx, inverse = voxel_downsample_trace_np(
+                data[:, :3], cfg.voxel_size)
+            labels = data[first_idx, 3]
+            down = np.round(down.astype(np.float32), 2)
+        with span("voxelize_features.write"):
+            np.savez(save_path_vox, points=down, labels=labels)
+            if return_type == "original":
+                np.savez(save_path_trace, inverse=inverse.astype(np.int64))
         # hand the arrays back in memory: the streaming pipeline otherwise
         # reloads the npz it just wrote (~1 s per 437k voxels on this host)
         vox_arrays = (down, labels)
@@ -342,12 +346,13 @@ def prepare_voxelized_features(cfg, forest_path: str, logger,
     if not osp.exists(save_path_features):
         from ..ops.features import compute_verticality
 
-        data = load_data(save_path_vox)
-        fn = features_fn or compute_verticality
-        kwargs = {} if features_fn else {"device": device}
-        features = fn(data[:, :3].astype(np.float32),
-                      search_radius=cfg.search_radius_features, **kwargs)
-        np.savez(save_path_features, features=features)
+        with span("voxelize_features.features"):
+            data = load_data(save_path_vox)
+            fn = features_fn or compute_verticality
+            kwargs = {} if features_fn else {"device": device}
+            features = fn(data[:, :3].astype(np.float32),
+                          search_radius=cfg.search_radius_features, **kwargs)
+            np.savez(save_path_features, features=features)
     return save_path_vox, save_path_features, vox_arrays
 
 

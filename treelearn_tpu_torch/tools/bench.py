@@ -411,6 +411,7 @@ def run(device=None) -> None:
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
         prof.start()
+        prof_t0 = time.time_ns()
     for p in range(n_steady):
         if remaining() < steady_est + 60:
             DEGRADED.append(f"steady_passes_{p}of{n_steady}")
@@ -426,13 +427,17 @@ def run(device=None) -> None:
         if elapsed is None or dt < elapsed:
             elapsed, result, forwards = dt, r, fw
     if prof is not None:
-        from ..utils.trace import print_trace_summary, summarize_trace
+        from ..utils.trace import (counter_totals, print_trace_summary,
+                                   summarize_trace)
 
+        prof_t1 = time.time_ns()
         prof.stop()
         os.makedirs(profile_dir, exist_ok=True)
         trace_path = osp.join(profile_dir, "steady.trace.json")
         prof.export_chrome_trace(trace_path)
-        print_trace_summary(summarize_trace(trace_path), log)
+        summary = summarize_trace(trace_path)
+        summary["counters"] = counter_totals(prof_t0, prof_t1)
+        print_trace_summary(summary, log)
         log(f"profiler trace written to {trace_path}")
 
     if elapsed is not None:

@@ -1,14 +1,21 @@
-"""Named spans of the forward, the harvest and the training step, and the
-summary of a ``torch.profiler`` chrome trace (the counterpart of the JAX
-package's scripts/parse_trace.py).
+"""Named spans and counters of the host's work, and the summary of a
+``torch.profiler`` chrome trace (the counterpart of the JAX package's
+scripts/parse_trace.py).
 
-``span(name)`` marks a part of the host's work.  It records only while
-something listens: inside ``torch.profiler.profile`` it is a
-``record_function`` range (a ``user_annotation`` event of the trace); while
-a :class:`SpanTimer` is installed it takes the host clock and a pair of CUDA
-events on the current stream; otherwise it does nothing.  It never
-synchronizes, so it changes no output and no timing but its own few
-microseconds.
+``span(name)`` marks a part of the host's work: the pipeline's stages and
+their parts, the loader, the forward, the harvest and the training step.
+It records only while something listens: inside ``torch.profiler.profile``
+it is a ``record_function`` range (a ``user_annotation`` event of the
+trace); while a :class:`SpanTimer` is installed it takes the host clock and
+a pair of CUDA events on the current stream; otherwise it does nothing.  It
+never synchronizes, so it changes no output and no timing but its own few
+microseconds.  A span's name is a fixed string: sizes and file names go
+into counters or nowhere.
+
+``count(name, n)`` adds ``n`` to a counter under the same rule: while
+something listens it keeps the sample ``(time.time_ns(), name, n)`` (the
+profiler's clock), the newest ``MAX_COUNTS`` of them;
+:func:`counter_totals` sums them over a window.
 
 :func:`trace_parts` runs a function once under the profiler and prints what
 ``tools/profile_model.py --trace`` and ``tools/profile_step.py --train
@@ -39,7 +46,10 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 NO_DEVICE_EVENTS = ("trace: ProfilerActivity.CUDA gave no device events on "
                     "this host; the CUDA-event split of the spans follows")
 
+MAX_COUNTS = 1_000_000     # counter samples kept, the newest
+
 _TIMER = None              # the installed SpanTimer, if any
+_COUNTS = collections.deque(maxlen=MAX_COUNTS)   # (t_ns, name, n)
 
 
 @contextmanager
@@ -56,6 +66,22 @@ def span(name: str):
         yield
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a span would record."""
+    if _TIMER is not None or torch.autograd._profiler_enabled():
+        _COUNTS.append((time.time_ns(), name, int(n)))
+
+
+def counter_totals(lo_ns: int, hi_ns: int) -> dict:
+    """{name: total} of the counter samples taken in [lo_ns, hi_ns]
+    (``time.time_ns`` clock)."""
+    out = {}
+    for t, name, n in list(_COUNTS):
+        if lo_ns <= t <= hi_ns:
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 class SpanTimer:
     """The CUDA-event split: while installed (``with SpanTimer(device):``)
     every span takes its host seconds and, on a card, a CUDA event before
@@ -65,15 +91,18 @@ class SpanTimer:
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
         self.parts = []      # (name, host seconds, start event, end event)
+        self.window_ns = (0, 0)  # time.time_ns() when installed, removed
 
     def __enter__(self):
         global _TIMER
         _TIMER = self
+        self.window_ns = (time.time_ns(), 0)
         return self
 
     def __exit__(self, *exc):
         global _TIMER
         _TIMER = None
+        self.window_ns = (self.window_ns[0], time.time_ns())
 
     @contextmanager
     def part(self, name):
@@ -104,6 +133,10 @@ class SpanTimer:
             if self.cuda:
                 row[2] += start.elapsed_time(end)
         return out
+
+    def counters(self) -> dict:
+        """{name: total} of the counters taken while it was installed."""
+        return counter_totals(*self.window_ns)
 
 
 def family(kernel_name: str) -> str:
@@ -243,6 +276,7 @@ def print_trace_summary(s: dict, log=print) -> None:
     log("host ms per part:")
     for name, (n, ms) in s["parts"].items():
         log(f"  {name:<28s} {ms:10.3f} ms  x{n}")
+    print_counters(s.get("counters"), log)
     if s["syncs"]:
         n, ms = s["sync_total"]
         log(f"host waits on the card: {n} in {ms:.3f} ms; per innermost "
@@ -257,11 +291,19 @@ def print_trace_summary(s: dict, log=print) -> None:
         else "not measured (no device ops in the trace)"))
 
 
-def print_span_split(split: dict, log=print) -> None:
+def print_counters(counters, log=print) -> None:
+    if counters:
+        log("counters:")
+        for name, total in sorted(counters.items()):
+            log(f"  {name:<28s} {total:12d}")
+
+
+def print_span_split(split: dict, log=print, counters=None) -> None:
     log("span split, no profiler (CUDA events on the stream; host clock):")
     for name, (n, host_ms, dev_ms) in split.items():
         dev = "not measured" if dev_ms is None else f"{dev_ms:10.3f} ms"
         log(f"  {name:<28s} stream {dev}, host {host_ms:10.3f} ms  x{n}")
+    print_counters(counters, log)
 
 
 def trace_parts(fn, trace_dir: str, name: str, device, log=print) -> dict:
@@ -271,8 +313,10 @@ def trace_parts(fn, trace_dir: str, name: str, device, log=print) -> dict:
     once more under a :class:`SpanTimer` and print that split: the host ms
     per part without the profiler's cost per op, and on a card each part's
     stream ms.  Where a card's trace holds no device op, a line says so
-    first, and the split is the only device-side account.  Returns the
-    summary with the split under ``span_split``."""
+    first, and the split is the only device-side account.  Each run's
+    counter totals are printed after its parts.  Returns the summary with
+    the profiled run's counters under ``counters``, the split under
+    ``span_split`` and its counters under ``span_counters``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.device(device).type == "cuda"
@@ -281,13 +325,16 @@ def trace_parts(fn, trace_dir: str, name: str, device, log=print) -> dict:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     path = osp.join(trace_dir, f"{name}.trace.json")
+    t0 = time.time_ns()
     with profile(activities=activities) as prof:
         with record_function(WINDOW):
             fn()
             if cuda:
                 torch.cuda.synchronize()
+    t1 = time.time_ns()
     prof.export_chrome_trace(path)
     summary = summarize_trace(path)
+    summary["counters"] = counter_totals(t0, t1)
     print_trace_summary(summary, log)
     if cuda and not summary["device_events"]:
         log(NO_DEVICE_EVENTS)
@@ -297,5 +344,6 @@ def trace_parts(fn, trace_dir: str, name: str, device, log=print) -> dict:
             if cuda:
                 torch.cuda.synchronize()
     summary["span_split"] = timer.summary()
-    print_span_split(summary["span_split"], log)
+    summary["span_counters"] = timer.counters()
+    print_span_split(summary["span_split"], log, summary["span_counters"])
     return summary
