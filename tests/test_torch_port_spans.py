@@ -240,9 +240,11 @@ def test_counter_samples_are_bounded(monkeypatch):
 
 
 def test_loader_batch_spans(tmp_path):
-    """A TreeLoader batch is one loader.batch span holding each crop's
-    read, augmentation and offsets and the collate; the consumer's work
-    after the batch is handed over lies outside it."""
+    """A TreeLoader batch made in this process (``num_workers=0``) is one
+    loader.batch span holding each crop's read, augmentation and offsets and
+    the collate; the consumer's work after the batch is handed over lies
+    outside it.  (The producer process's route:
+    test_torch_port_loader_producer.py.)"""
     from treelearn_tpu_torch.data.dataset import TreeDataset, TreeLoader
     from treelearn_tpu_torch.data.synthetic import (make_crop_npz,
                                                     make_synthetic_forest,
@@ -260,7 +262,7 @@ def test_loader_batch_spans(tmp_path):
                      training=True, data_augmentations={"jitter": True,
                                                         "rot": True})
     loader = iter(TreeLoader(ds, batch_size=2, training=True, seed=1,
-                             min_bucket=2048))
+                             min_bucket=2048, num_workers=0))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         batch = next(loader)
         with span("test.consumer"):

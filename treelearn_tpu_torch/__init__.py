@@ -12,4 +12,12 @@ card they raise unless the caller asks for ``device="cpu"``.
 
 __version__ = "0.1.0"
 
-from .device import resolve_device  # noqa: F401
+
+def __getattr__(name):
+    # torch is imported on first use, so that a process that needs only the
+    # data modules (the loader's producer) starts without it
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

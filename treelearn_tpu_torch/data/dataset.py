@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..utils.trace import span
+from .producer import BatchProducer
 
 INSTANCE_LABEL_IGNORE_IN_RAW_DATA = -1  # unlabeled in raw data
 NON_TREE_CLASS_IN_RAW_DATA = 0          # non-tree instance label in raw data
@@ -224,11 +225,28 @@ def collate_dp(samples: Sequence[Dict[str, np.ndarray]], n_shards: int,
 
 
 class TreeLoader:
-    """Minimal host data loader: shuffling, batching, padded collate.
+    """Host data loader: shuffling, batching, padded collate.
 
-    Replaces the reference's torch DataLoader (util/train.py:125-141); no
-    worker processes — this host has one core and the loading is npz reads,
-    so the overlap win is on-device instead (donated buffers + async dispatch).
+    Replaces the reference's torch DataLoader (util/train.py:125-141).  One
+    generator makes the batches (:meth:`_batches`: the shuffle, each
+    sample, the collate).  With ``num_workers=0`` it runs in this process,
+    as the batches are asked for.  With ``num_workers >= 1`` it runs in one
+    producer process (:mod:`.producer`), which starts on the first iteration
+    and keeps up to two batches ahead, epoch after epoch, so that batch t+1's
+    reads, augmentation, offset labels and collate overlap the consumer's
+    step t.  Any value of 1 or more starts exactly one producer: the batches
+    are one sequence of the loader's and the dataset's generators.  The
+    default is 1 for a training loader and 0 otherwise.
+
+    Both routes give the same batches, bit for bit: each batch comes back
+    with the two generators' states right after it was made, and the
+    loader sets ``self.rng`` and ``self.dataset.rng`` to them as it hands
+    the batch out.  An iteration left before the end of its epoch stops the
+    producer; the next starts another from those states.  Only one
+    iteration reads from the producer: a new one ends the one before.
+    :meth:`close`, collecting the loader and the interpreter's exit stop the
+    producer.  The producer's own part times come back as the counters
+    ``loader.<part>_us``; the consumer's wait is the span ``loader.wait``.
 
     With ``n_shards > 1`` each yielded batch is a data-parallel stack of
     ``n_shards`` per-device batches of ``batch_size`` samples each (the config
@@ -239,7 +257,8 @@ class TreeLoader:
     def __init__(self, dataset: TreeDataset, batch_size: int = 1,
                  training: bool = True, seed: int = 0,
                  pad_to: Optional[int] = None, min_bucket: int = 1 << 14,
-                 drop_last: Optional[bool] = None, n_shards: int = 1):
+                 drop_last: Optional[bool] = None, n_shards: int = 1,
+                 num_workers: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.training = training
@@ -250,6 +269,14 @@ class TreeLoader:
         # sharded batches are always full (static per-device shapes)
         self.drop_last = (training if drop_last is None else drop_last) \
             or n_shards > 1
+        self.num_workers = (int(training) if num_workers is None
+                            else num_workers)
+        self._producer = None    # the producer process, while one runs
+        self._owner = None       # the iteration reading from it, mid-epoch
+
+    def __getstate__(self):
+        # what the producer process is sent: the loader without its producer
+        return dict(self.__dict__, _producer=None, _owner=None)
 
     @property
     def _global_batch(self):
@@ -260,7 +287,8 @@ class TreeLoader:
         gb = self._global_batch
         return n // gb if self.drop_last else (n + gb - 1) // gb
 
-    def __iter__(self):
+    def _batches(self):
+        """One epoch of batches, made here or in the producer process."""
         order = np.arange(len(self.dataset))
         if self.training:
             self.rng.shuffle(order)
@@ -283,9 +311,43 @@ class TreeLoader:
                                                self.min_bucket)
             yield batch
 
+    def __iter__(self):
+        if not self.num_workers or len(self) == 0:
+            yield from self._batches()
+            return
+        if self._owner is not None:     # an iteration left mid-epoch, open
+            self.close()
+        if self._producer is None:
+            self._producer = BatchProducer(self)
+        self._owner = me = object()
+        try:
+            for i in range(len(self)):
+                if self._owner is not me:       # a newer iteration took over
+                    return
+                batch, (loader_state, dataset_state) = \
+                    self._producer.receive()
+                self.rng.bit_generator.state = loader_state
+                self.dataset.rng.bit_generator.state = dataset_state
+                if i == len(self) - 1:   # the epoch is taken: the producer
+                    self._owner = None   # runs on into the next
+                yield batch
+        finally:
+            if self._owner is me:               # left mid-epoch
+                self.close()
 
-def build_dataloader(dataset, batch_size=1, num_workers=0, training=True,
+    def close(self):
+        """Stop the producer process, if one runs (see the class
+        docstring); the loader stays usable."""
+        producer, self._producer, self._owner = self._producer, None, None
+        if producer is not None:
+            producer.close()
+
+
+def build_dataloader(dataset, batch_size=1, num_workers=None, training=True,
                      **kwargs):
-    """Reference-named constructor (util/train.py:125-141); num_workers is
-    accepted for config compatibility and ignored (single-core host)."""
-    return TreeLoader(dataset, batch_size=batch_size, training=training, **kwargs)
+    """Reference-named constructor (util/train.py:125-141).  ``num_workers``
+    as configured: 0 makes the batches in this process, 1 or more in one
+    producer process (:class:`TreeLoader`); None takes the loader's
+    default."""
+    return TreeLoader(dataset, batch_size=batch_size, training=training,
+                      num_workers=num_workers, **kwargs)

@@ -124,6 +124,7 @@ def train_steps(args, dev, dtype) -> dict:
         batches = []
         while len(batches) < args.steps + 1:
             batches.extend(loader)
+        loader.close()      # its producer would read on in a removed folder
     losses, seconds = [], []
     for b in batches[:args.steps]:
         t0 = time.perf_counter()

@@ -202,6 +202,7 @@ def train_synthetic_checkpoint(
                         and time.time() - t0 > max_seconds):
                     out_of_time = True
                     break
+        loader.close()      # before its folder goes
     if info["losses"] and not np.isfinite(info["losses"][-1]):
         raise RuntimeError(f"selftrain diverged: losses {info['losses']}")
     if out_of_time:

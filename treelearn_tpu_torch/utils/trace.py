@@ -34,10 +34,9 @@ import json
 import os
 import os.path as osp
 import re
+import sys
 import time
 from contextlib import contextmanager
-
-import torch
 
 WINDOW = "window"          # the span around a traced call, its sync included
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -52,6 +51,13 @@ _TIMER = None              # the installed SpanTimer, if any
 _COUNTS = collections.deque(maxlen=MAX_COUNTS)   # (t_ns, name, n)
 
 
+def _profiling() -> bool:
+    """Whether ``torch.profiler`` records; a process that has not imported
+    torch (the loader's producer) runs no profiler."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
 @contextmanager
 def span(name: str):
     """A named part of the host's work (see the module docstring)."""
@@ -59,8 +65,8 @@ def span(name: str):
     if timer is not None:
         with timer.part(name):
             yield
-    elif torch.autograd._profiler_enabled():
-        with torch.profiler.record_function(name):
+    elif _profiling():
+        with sys.modules["torch"].profiler.record_function(name):
             yield
     else:
         yield
@@ -68,7 +74,7 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while a span would record."""
-    if _TIMER is not None or torch.autograd._profiler_enabled():
+    if _TIMER is not None or _profiling():
         _COUNTS.append((time.time_ns(), name, int(n)))
 
 
@@ -82,6 +88,12 @@ def counter_totals(lo_ns: int, hi_ns: int) -> dict:
     return out
 
 
+def _torch():
+    import torch
+
+    return torch
+
+
 class SpanTimer:
     """The CUDA-event split: while installed (``with SpanTimer(device):``)
     every span takes its host seconds and, on a card, a CUDA event before
@@ -89,7 +101,9 @@ class SpanTimer:
     span; :meth:`summary` synchronizes once, after the run."""
 
     def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
+        # "cpu" imports no torch: the loader's producer process times its
+        # parts under such a timer
+        self.cuda = device != "cpu" and _torch().device(device).type == "cuda"
         self.parts = []      # (name, host seconds, start event, end event)
         self.window_ns = (0, 0)  # time.time_ns() when installed, removed
 
@@ -108,7 +122,7 @@ class SpanTimer:
     def part(self, name):
         start = end = None
         if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
+            start = _torch().cuda.Event(enable_timing=True)
             start.record()
         t0 = time.perf_counter()
         try:
@@ -116,7 +130,7 @@ class SpanTimer:
         finally:
             host_s = time.perf_counter() - t0
             if self.cuda:
-                end = torch.cuda.Event(enable_timing=True)
+                end = _torch().cuda.Event(enable_timing=True)
                 end.record()
             self.parts.append((name, host_s, start, end))
 
@@ -124,7 +138,7 @@ class SpanTimer:
         """{name: [calls, host ms, stream ms or None]} in first-seen order;
         stream ms is the card's time between each span's two events."""
         if self.cuda:
-            torch.cuda.synchronize()
+            _torch().cuda.synchronize()
         out = {}
         for name, host_s, start, end in self.parts:
             row = out.setdefault(name, [0, 0.0, 0.0 if self.cuda else None])
@@ -317,6 +331,7 @@ def trace_parts(fn, trace_dir: str, name: str, device, log=print) -> dict:
     counter totals are printed after its parts.  Returns the summary with
     the profiled run's counters under ``counters``, the split under
     ``span_split`` and its counters under ``span_counters``."""
+    import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.device(device).type == "cuda"
