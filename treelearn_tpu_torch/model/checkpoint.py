@@ -110,7 +110,16 @@ def load_checkpoint(path: str, model, logger=None, strict: bool = False) -> int:
     """Load a native ``.npz`` (the JAX package's ``net/`` + ``state/``
     layout) or a reference ``.pth`` into ``model``; keys whose size does not
     match are skipped (transfer-learning parity, reference
-    util/train.py:77-84).  Returns epoch + 1."""
+    util/train.py:77-84).  Returns epoch + 1.  Both formats hold U-Net
+    weights: a model with another backbone is refused (its own checkpoints
+    load through :func:`resume_checkpoint`)."""
+    backbone = getattr(model, "backbone", "unet")
+    if backbone != "unet":
+        raise ValueError(
+            f"load_checkpoint imports U-Net weights (a JAX .npz or a "
+            f"reference .pth); this model's backbone is {backbone!r}, whose "
+            f"weights none of them holds: load a checkpoint this port saved "
+            f"with resume_checkpoint")
     target = model.state_dict()
     if path.endswith(".npz"):
         z = np.load(path, allow_pickle=False)

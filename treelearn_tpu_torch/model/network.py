@@ -6,6 +6,11 @@ Input SubMConv3d (dim_coord + dim_feat -> channels, k=3) -> UBlock over
 (semantic 2-way, offset 3-dim).  Same forward and output keys as
 ``TreeLearn.apply`` (network.py:210-385).
 
+``backbone="ptv3"`` puts Point Transformer V3 (model/ptv3.py, its keys in
+``ptv3``) in the U-Net's place: voxelize -> PTv3 -> per-point gather -> the
+same two heads, as wide as PTv3's output.  ``backbone="unet"`` (the
+default) is the U-Net above; any other value raises.
+
 PyTorch runs eagerly, so every level works on its exact voxel count.  The
 JAX package's static ``voxel_capacity`` / ``level_capacities`` padding, the
 banded ``level_windows``, the ``fast_conv`` program variants, and the
@@ -37,6 +42,10 @@ from ..utils.trace import span
 from .blocks import (MLP, BatchNorm, LevelPlan, UBlock, Weight, init_bn,
                      init_mlp, init_subm_conv, init_ublock)
 from .checkpoint import params_from_jax_numpy
+from .ptv3 import PTv3
+from .ptv3 import init_numpy as ptv3_init_numpy
+
+BACKBONES = ("unet", "ptv3")
 
 
 def analytic_model_flops(n_vox_per_level, n_points: int, channels: int = 32,
@@ -116,8 +125,13 @@ class TreeLearn(nn.Module):
                  use_coords: bool = False,
                  spatial_shape: Optional[Sequence[int]] = None,
                  max_num_points_per_voxel: int = 3, voxel_size: float = 0.1,
-                 block_reps: int = 2, **kwargs):
+                 block_reps: int = 2, backbone: str = "unet",
+                 ptv3: Optional[dict] = None, **kwargs):
         super().__init__()
+        if backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {backbone!r}; one of "
+                             f"{BACKBONES}")
+        self.backbone = backbone
         if kernel_size % 2 == 0 or kernel_size < 1:
             # the conv's input gradient mirrors the offsets (flip(0)), which
             # is the transpose only for a centred, odd kernel
@@ -137,6 +151,11 @@ class TreeLearn(nn.Module):
         self.block_reps = block_reps
         self.block_channels = [channels * (i + 1) for i in range(num_blocks)]
         self.in_channels = dim_coord + dim_feat
+        if backbone == "ptv3":
+            self._init_ptv3(dict(ptv3 or {}))
+            return
+        if ptv3:
+            raise ValueError("ptv3 keys given with backbone 'unet'")
 
         self.input_conv = nn.ModuleDict(
             {"0": Weight(kernel_size ** 3, self.in_channels, channels)})
@@ -148,6 +167,18 @@ class TreeLearn(nn.Module):
             for m in getattr(self, name).modules():
                 if isinstance(m, BatchNorm):
                     m.frozen = True
+
+    def _init_ptv3(self, cfg: dict):
+        if self.fixed_modules:
+            raise ValueError("fixed_modules is a U-Net option")
+        c_in = int(cfg.pop("in_channels", self.in_channels))
+        if c_in != self.in_channels:
+            raise ValueError(f"ptv3 in_channels {c_in}: the voxel features "
+                             f"have {self.in_channels}")
+        self.ptv3 = PTv3(self.in_channels, **cfg)
+        self.channels = self.ptv3.out_channels
+        self.semantic_linear = MLP(self.channels, 2)
+        self.offset_linear = MLP(self.channels, 3)
 
     def init_numpy(self, seed):
         """(params, state) numpy trees from the JAX package's initializers
@@ -171,7 +202,23 @@ class TreeLearn(nn.Module):
         return params, state
 
     def init(self, seed):
-        """Load the seed's parameters into this module; returns self."""
+        """Load the seed's parameters into this module; returns self.  The
+        PTv3 backbone takes the first child of the seed's sequence, the
+        heads the next two."""
+        if self.backbone == "ptv3":
+            ss = (seed if isinstance(seed, np.random.SeedSequence)
+                  else np.random.SeedSequence(int(seed)))
+            k0, k1, k2 = ss.spawn(3)
+            sd = {f"ptv3.{k}": torch.from_numpy(np.asarray(v))
+                  for k, v in ptv3_init_numpy(self.ptv3, k0).items()}
+            params, state = {}, {}
+            params["semantic_linear"], state["semantic_linear"] = init_mlp(
+                k1, self.channels, 2)
+            params["offset_linear"], state["offset_linear"] = init_mlp(
+                k2, self.channels, 3)
+            sd.update(params_from_jax_numpy(params, state))
+            self.load_state_dict(sd)
+            return self
         self.load_state_dict(params_from_jax_numpy(*self.init_numpy(seed)))
         return self
 
@@ -200,6 +247,9 @@ class TreeLearn(nn.Module):
                 spatial_shape=self.spatial_shape, use_coords=self.use_coords,
                 use_feats=self.use_feats)
             grid0 = grid_from_sorted_keys(vb.voxel_keys, vb.spatial_shape)
+        if self.backbone == "ptv3":
+            return self._forward_ptv3(vb, grid0, valid, batch_size,
+                                      compute_dtype, coords.device)
         with span("plans"):
             plans = build_level_plans(grid0, self.num_blocks,
                                       self.kernel_size)
@@ -226,6 +276,31 @@ class TreeLearn(nn.Module):
                 pin_memory=dev.type == "cuda").to(dev, non_blocking=True)
             rule_nnz_per_level = torch.stack(
                 [(p.rule >= 0).sum() for p in plans]).to(torch.int32)
+        return {
+            "semantic_prediction_logits": sem.float(),
+            "offset_predictions": off.float(),
+            "backbone_feats": backbone_feats.float(),
+            "n_voxels": vb.n_voxels,
+            "n_voxels_per_level": n_voxels_per_level,
+            "rule_nnz_per_level": rule_nnz_per_level,
+        }
+
+    def _forward_ptv3(self, vb, grid0, valid, batch_size, compute_dtype, dev):
+        """The forward's PTv3 branch: the same outputs, a level a stage
+        (tokens, xCPE rule pairs)."""
+        x, stages = self.ptv3(vb.voxel_feats, grid0, batch_size,
+                              compute_dtype)
+        with span("devoxelize"):
+            backbone_feats = devoxelize(x.to(compute_dtype), vb.v2p_map)
+        with span("heads"):
+            sem = self.semantic_linear(backbone_feats, valid)
+            off = self.offset_linear(backbone_feats, valid)
+        with span("counts"):
+            n_voxels_per_level = torch.tensor(
+                [st.n for st in stages], dtype=torch.int32,
+                pin_memory=dev.type == "cuda").to(dev, non_blocking=True)
+            rule_nnz_per_level = torch.stack(
+                [(st.rule >= 0).sum() for st in stages]).to(torch.int32)
         return {
             "semantic_prediction_logits": sem.float(),
             "offset_predictions": off.float(),

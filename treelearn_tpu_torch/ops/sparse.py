@@ -60,12 +60,14 @@ def build_subm_rulebook(grid: SparseGrid, kernel_size: int = 3) -> torch.Tensor:
     """
     offs = kernel_offsets(kernel_size, grid.keys.device)
     coords = grid.coords
+    v = coords.shape[0]
     rows = []
-    for k in range(offs.shape[0]):
-        nbr = coords.clone()
-        nbr[:, 1:] += offs[k][None, :]
-        rows.append(lookup(grid.keys, encode_keys(nbr, grid.spatial_shape)))
-    return torch.stack(rows, dim=0)
+    for chunk in offs.split(27):     # 27 offsets' probes a pass
+        nbr = coords[None].repeat(chunk.shape[0], 1, 1)
+        nbr[:, :, 1:] += chunk[:, None, :]
+        rows.append(lookup(grid.keys, encode_keys(
+            nbr.view(-1, 4), grid.spatial_shape)).view(chunk.shape[0], v))
+    return torch.cat(rows, dim=0)
 
 
 def build_subm_rulebook_banded(grid: SparseGrid) -> torch.Tensor:

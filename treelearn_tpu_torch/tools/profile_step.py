@@ -12,11 +12,13 @@ forward timed on the card (voxelize, + level plans, + U-Net and heads; CUDA
 events, two warm-up calls, then the mean of ``--reps``), so the differences
 say where the forward's time goes.
 
-With ``--train``: ``--steps`` training steps of ``train/loop.py`` on
-synthetic crops of the ``BENCH_RECIPE`` geometry (24 m crops, 10,000-16,000
-points a tree, 80 % hard forests, lr 1.5e-3, AdamW, warmup cosine, clip
-1.0), host clock around each step (it ends when its loss is read, which
-waits for the card); the first step apart from the median of steps 2..N.
+With ``--train``: ``--steps`` training steps of ``train/loop.py`` (of the
+U-Net, or with ``--backbone ptv3`` of Point Transformer V3 at its published
+widths under the same heads) on synthetic crops of the ``BENCH_RECIPE``
+geometry (24 m crops, 10,000-16,000 points a tree, 80 % hard forests, lr
+1.5e-3, AdamW, warmup cosine, clip 1.0), host clock around each step (it
+ends when its loss is read, which waits for the card); the first step apart
+from the median of steps 2..N.
 ``--trace DIR`` then traces the last timed step's batch once more
 (utils/trace.py), beside that batch's own step time.
 """
@@ -100,8 +102,14 @@ def train_steps(args, dev, dtype) -> dict:
     extent = args.crop_extent or BENCH_RECIPE["crop_extent"]
     ppt = tuple(args.ppt) if args.ppt else BENCH_RECIPE["ppt"]
     side = int(np.ceil((extent + 4) / 0.1 / 64)) * 64
-    model = TreeLearn(channels=args.channels, num_blocks=args.levels,
-                      spatial_shape=[side, side, 256])
+    if args.backbone == "ptv3":
+        from ..model.ptv3 import PUBLISHED
+
+        model = TreeLearn(backbone="ptv3", ptv3=dict(PUBLISHED),
+                          spatial_shape=[side, side, 256])
+    else:
+        model = TreeLearn(channels=args.channels, num_blocks=args.levels,
+                          spatial_shape=[side, side, 256])
     model = model.init(np.random.SeedSequence(SEED)).to(dev)
     lr = BENCH_RECIPE["lr"]
     optimizer, scheduler = build_optimizer(
@@ -141,6 +149,9 @@ def train_steps(args, dev, dtype) -> dict:
           f"median of steps 2..{args.steps} "
           + (f"{res['median_step_s']:.4f} s" if len(seconds) > 1 else "-"))
     print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
+    if dev.type == "cuda":
+        res["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        print(f"  peak device memory {res['peak_bytes']} B", flush=True)
     if not np.isfinite(losses).all():
         raise AssertionError(f"training losses {losses}")
     if args.trace:
@@ -164,6 +175,9 @@ def main(argv=None) -> dict:
                     help="the plot's first N points (default all)")
     ap.add_argument("--levels", type=int, default=7)
     ap.add_argument("--channels", type=int, default=32)
+    ap.add_argument("--backbone", choices=("unet", "ptv3"), default="unet",
+                    help="with --train: the model's backbone (ptv3: the "
+                    "published widths; --levels and --channels unused)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--crops", type=int, default=4)
