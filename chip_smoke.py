@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero; nothing is swallowed):
 
 1. card:     name and power limit as nvidia-smi reports them;
-2. build:    the ten CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
+2. build:    the eleven CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
              source, all started together), build seconds and each kernel's
              ptxas registers / shared memory;
 3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
@@ -116,6 +116,17 @@ Phases (any failure exits nonzero; nothing is swallowed):
              lower), timed with CUDA events (means of 10 launches; a
              redesigned kernel and the one it replaced in turns, the least
              of 3 to 5 such means each);
+4b. devox:   both kernels of ``csrc/devoxelize.cu`` at the training cells'
+             shapes (2^20 rows, 580,000 live points in 400,000 voxels, the
+             rest padded; 32 and 64 bf16 channels) against the plain
+             versions on CPU copies, bit for bit, the repeat launch too;
+             each timed beside its bound, the plain version on the card and,
+             for the backward, the autograd backward of the gather it
+             replaced (``library_ms``): the ``devoxelize_fwd`` and
+             ``devoxelize_bwd`` rows of the ``kernels`` line (``problem``:
+             the cell; ``launches``: phase 3's pipeline count for the
+             forward, phase 6's training count for the backward;
+             ``max_abs_err``: the kernel against the plain version);
 5. check:    the port's pipeline on a small plot in float32, on the card and
              with the plain versions on the CPU, must give the same
              partition (ARI >= 0.999) and tree count; the card run's counts,
@@ -157,8 +168,9 @@ Phases (any failure exits nonzero; nothing is swallowed):
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
              16000 points per tree, hard_frac 0.8), 4 crops, 20 steps, counts
-             zeroed just before: the rulebook and the tensor-core conv and
-             dW kernels must launch, every loss be finite and the mean of
+             zeroed just before: the rulebook, the tensor-core conv and
+             dW kernels and both devoxelize kernels must launch, every loss
+             be finite and the mean of
              the last 5 losses below that of the first 5; the first step's
              seconds apart from the median of the others, steps/s, peak
              memory;
@@ -309,7 +321,12 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 REPO = osp.dirname(osp.abspath(__file__))
 TRAIN_STEPS = 20
 CARD = "cuda"
-MAIN_PATH_KERNELS = ("rulebook", "subm_conv_wgmma", "vert", "cc")
+MAIN_PATH_KERNELS = ("rulebook", "subm_conv_wgmma", "vert", "cc",
+                     "devoxelize_fwd")
+# phase 4b: the training cells' devoxelize shapes, (cell, channels) at
+# 2^20 rows of which DEVOX_LIVE are points in DEVOX_VOXELS voxels
+DEVOX_CELLS = (("train_crops_35m", 32), ("train_ptv3_crops_35m", 64))
+DEVOX_ROWS, DEVOX_LIVE, DEVOX_VOXELS = 1 << 20, 580_000, 400_000
 SLOWER_LIMIT = 1.1            # a redesigned kernel vs the one it replaced,
                               # per shape or pass
 DATAGEN_CROPS = 32            # gen_train_data's n_samples_total (shipped 25,000)
@@ -1049,6 +1066,94 @@ def check_knn(knn_rec, lib_rows, launches):
         library_ms=None, **total))
 
 
+def devoxelize_problem(n_rows, n_live, n_voxels, seed=0):
+    """(v2p int64, p_order, v_start int32) on the card: the first ``n_live``
+    of ``n_rows`` points in ``n_voxels`` voxels (each at least one point),
+    in shuffled order, the rest padded (v2p = V) as a collated training
+    batch is; the CSR ``voxel_point_csr`` builds from a stable sort of v2p,
+    as voxelize_points orders the points."""
+    import torch
+
+    from treelearn_tpu_torch.ops.voxelize import voxel_point_csr
+
+    gen = torch.Generator().manual_seed(seed)
+    live = torch.cat([torch.arange(n_voxels), torch.randint(
+        0, n_voxels, (n_live - n_voxels,), generator=gen)])
+    v2p = torch.full((n_rows,), n_voxels, dtype=torch.int64)
+    v2p[:n_live] = live[torch.randperm(n_live, generator=gen)]
+    v2p = v2p.to(CARD)
+    order = torch.sort(v2p, stable=True).indices
+    return (v2p,) + voxel_point_csr(order, v2p, n_voxels)
+
+
+def check_devoxelize(lib_rows):
+    """Phase 4b: both devoxelize kernels at the training cells' shapes.  The
+    rows' ``launches`` are left to the main-path runs (phases 3 and 6)."""
+    import torch
+
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.voxelize import (devoxelize_backward_cuda,
+                                                  devoxelize_backward_plain,
+                                                  devoxelize_cuda,
+                                                  devoxelize_plain)
+
+    v, n, live = DEVOX_VOXELS, DEVOX_ROWS, DEVOX_LIVE
+    v2p, p_order, v_start = devoxelize_problem(n, live, v)
+    for cell, c in DEVOX_CELLS:
+        gen = torch.Generator().manual_seed(c)
+        feats = torch.randn(v, c, generator=gen).to(CARD, torch.bfloat16)
+        grad = torch.randn(n, c, generator=gen).to(CARD, torch.bfloat16)
+        before = dict(_cuda.LAUNCHES)
+        out = devoxelize_cuda(feats, v2p)
+        dfeats = devoxelize_backward_cuda(grad, p_order, v_start)
+        torch.cuda.synchronize()
+        launched = {k: _cuda.LAUNCHES[k] - before[k]
+                    for k in ("devoxelize_fwd", "devoxelize_bwd")}
+        if launched != {"devoxelize_fwd": 1, "devoxelize_bwd": 1}:
+            raise AssertionError(f"devoxelize {cell}: launches {launched}")
+        errs = {
+            "devoxelize_fwd": float((out.cpu().float() - devoxelize_plain(
+                feats.cpu(), v2p.cpu()).float()).abs().max()),
+            "devoxelize_bwd": float((dfeats.cpu().float()
+                                     - devoxelize_backward_plain(
+                                         grad.cpu(), v2p.cpu(), v).float()
+                                     ).abs().max())}
+        if (any(errs.values())
+                or not torch.equal(devoxelize_cuda(feats, v2p), out)
+                or not torch.equal(devoxelize_backward_cuda(
+                    grad, p_order, v_start), dfeats)):
+            raise AssertionError(f"devoxelize {cell}: kernel and plain "
+                                 f"versions differ ({errs}) or a repeat "
+                                 "launch does")
+        x = feats.clone().requires_grad_(True)
+        old = devoxelize_plain(x, v2p)
+        times = {
+            "devoxelize_fwd": (
+                cuda_ms(lambda: devoxelize_cuda(feats, v2p)),
+                cuda_ms(lambda: devoxelize_plain(feats, v2p)), None,
+                bound(8 * n + 2 * c * (v + n))[0]),
+            "devoxelize_bwd": (
+                cuda_ms(lambda: devoxelize_backward_cuda(grad, p_order,
+                                                         v_start)),
+                cuda_ms(lambda: devoxelize_backward_plain(grad, v2p, v)),
+                cuda_ms(lambda: torch.autograd.grad(old, x, grad,
+                                                    retain_graph=True),
+                        reps=3, warmup=1),
+                bound(4 * (v + 1) + 4 * live + 2 * c * (live + v))[0])}
+        for name, (ms, plain, library, b) in times.items():
+            lib = "" if library is None else (
+                f", autograd backward of the old gather {library:.3f} ms")
+            log(f"  {name} {cell} (N {n}, {live} live, V {v}, C {c}, bf16): "
+                f"exact, kernel {ms:.4f} ms, bound {b:.4f} ms (bytes), plain "
+                f"{plain:.3f} ms{lib}")
+            lib_rows.append(dict(
+                name=name, route="cuda", problem=cell,
+                source="treelearn_tpu_torch/csrc/devoxelize.cu",
+                replaces=None, launches=None, max_abs_err=errs[name],
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by="bytes",
+                library_ms=library, previous_ms=None))
+
+
 def train_phase(tmp):
     """Phase 6: full-width bf16 self-training; returns (info, launches,
     recorder)."""
@@ -1092,7 +1197,8 @@ def train_phase(tmp):
         raise AssertionError(f"loss did not fall: first 5 mean "
                              f"{losses[:5].mean()}, last 5 mean "
                              f"{losses[-5:].mean()}")
-    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv_dw_wgmma")
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv_dw_wgmma",
+                        "devoxelize_fwd", "devoxelize_bwd")
             if launches[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched in training: {zero}")
@@ -3461,6 +3567,12 @@ def main():
                 r["ladder_per_hdbscan_call"] = ladder
         check_knn(knn_rec, rows, knn_launches)
         del rec, knn_rec
+        # 4b. devoxelize at the training cells' shapes; the forward's
+        # launches are phase 3's (the backward's phase 6's, below)
+        check_devoxelize(rows)
+        for r in rows:
+            if r["name"] == "devoxelize_fwd":
+                r["launches"] = launches["devoxelize_fwd"]
 
         # 5. end-to-end agreement on a small plot, float32
         small_plot_check(tmp)
@@ -3475,6 +3587,9 @@ def main():
         info, train_launches, grad_rec = train_phase(tmp)
         check_grads(grad_rec, rows, train_launches, len(info["losses"]))
         del grad_rec
+        for r in rows:
+            if r["name"] == "devoxelize_bwd":
+                r["launches"] = train_launches["devoxelize_bwd"]
 
         # 8. one float32 training step, card against CPU
         train_step_check(tmp)

@@ -1059,3 +1059,108 @@ def test_inference_loop_pinned_side_stream_equals_serial(cuda, mode, dtype):
     assert staged["h2d"] is not None
     assert all(t.device.type == "cuda" for t in staged["tensors"])
     staged["h2d"][1].synchronize()
+
+
+def _devoxelize_problem(device, n_rows, n_live, n_voxels, seed=0):
+    """(v2p int64, order int64, p_order, v_start int32) on ``device``: the
+    first ``n_live`` of ``n_rows`` points in ``n_voxels`` voxels (each at
+    least one point, voxel 0 also a run of 300), in shuffled order, the rest
+    padded (v2p = V); ``order`` a stable sort of v2p, as voxelize_points
+    orders the points, and the CSR ``voxel_point_csr`` builds from it."""
+    from treelearn_tpu_torch.ops.voxelize import voxel_point_csr
+
+    gen = torch.Generator().manual_seed(seed)
+    extra = torch.randint(0, n_voxels, (n_live - n_voxels - 300,),
+                          generator=gen)
+    live = torch.cat([torch.arange(n_voxels), extra,
+                      torch.zeros(300, dtype=torch.int64)])
+    v2p = torch.full((n_rows,), n_voxels, dtype=torch.int64)
+    v2p[:n_live] = live[torch.randperm(n_live, generator=gen)]
+    v2p = v2p.to(device)
+    order = torch.sort(v2p, stable=True).indices
+    return (v2p, order) + voxel_point_csr(order, v2p, n_voxels)
+
+
+@pytest.mark.parametrize("c,dtype,n_rows,n_live,n_voxels", [
+    (32, torch.bfloat16, 1 << 20, 580_000, 400_000),   # train_crops_35m
+    (64, torch.bfloat16, 1 << 20, 580_000, 400_000),   # train_ptv3_crops_35m
+    (16, torch.bfloat16, 1 << 16, 40_000, 25_000),
+    (16, torch.float32, 1 << 16, 40_000, 25_000),
+    (8, torch.float32, 1 << 16, 40_000, 25_000),       # chip_smoke phase 8
+    (64, torch.float32, 1 << 16, 40_000, 25_000),
+])
+def test_devoxelize_kernels_equal_plain(cuda, c, dtype, n_rows, n_live,
+                                        n_voxels):
+    """Both kernels of csrc/devoxelize.cu equal the plain versions run on CPU
+    copies, bit for bit; a second launch gives the same bits; each wrapper
+    counts its launch."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.voxelize import (devoxelize_backward_cuda,
+                                                  devoxelize_backward_plain,
+                                                  devoxelize_cuda,
+                                                  devoxelize_plain)
+
+    v2p, _, p_order, v_start = _devoxelize_problem(cuda, n_rows, n_live,
+                                                   n_voxels)
+    gen = torch.Generator().manual_seed(c)
+    feats = torch.randn(n_voxels, c, generator=gen).to(cuda, dtype)
+    grad = torch.randn(n_rows, c, generator=gen).to(cuda, dtype)
+    before = dict(_cuda.LAUNCHES)
+    out = devoxelize_cuda(feats, v2p)
+    dfeats = devoxelize_backward_cuda(grad, p_order, v_start)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["devoxelize_fwd"] == before["devoxelize_fwd"] + 1
+    assert _cuda.LAUNCHES["devoxelize_bwd"] == before["devoxelize_bwd"] + 1
+    assert out.dtype == dtype and dfeats.dtype == dtype
+    assert torch.equal(out.cpu(), devoxelize_plain(feats.cpu(), v2p.cpu()))
+    assert torch.equal(dfeats.cpu(), devoxelize_backward_plain(
+        grad.cpu(), v2p.cpu(), n_voxels))
+    assert torch.equal(devoxelize_cuda(feats, v2p), out)
+    assert torch.equal(devoxelize_backward_cuda(grad, p_order, v_start),
+                       dfeats)
+
+
+def test_devoxelize_autograd_on_card_takes_the_kernels(cuda):
+    """devoxelize under autograd on the card: the gradient is the backward
+    kernel's over the CSR built from the sort, and the counter takes the
+    cuda route once."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.voxelize import (DevoxelizeFn,
+                                                  devoxelize_backward_plain)
+    from treelearn_tpu_torch.utils.trace import SpanTimer
+
+    v2p, order, _, _ = _devoxelize_problem(cuda, 1 << 14, 9000, 5000)
+    gen = torch.Generator().manual_seed(1)
+    feats = torch.randn(5000, 32, generator=gen).to(cuda, torch.bfloat16)
+    grad = torch.randn(1 << 14, 32, generator=gen).to(cuda, torch.bfloat16)
+    x = feats.clone().requires_grad_(True)
+    before = dict(_cuda.LAUNCHES)
+    with SpanTimer(cuda) as timer:
+        DevoxelizeFn.apply(x, v2p, order).backward(grad)
+    torch.cuda.synchronize()
+    assert timer.counters() == {"devoxelize.bwd.cuda": 1}
+    assert _cuda.LAUNCHES["devoxelize_fwd"] == before["devoxelize_fwd"] + 1
+    assert _cuda.LAUNCHES["devoxelize_bwd"] == before["devoxelize_bwd"] + 1
+    assert torch.equal(x.grad.cpu(), devoxelize_backward_plain(
+        grad.cpu(), v2p.cpu(), 5000))
+
+
+@pytest.mark.parametrize("c,dtype,error", [
+    (32, torch.float16, TypeError),
+    (32, torch.float64, TypeError),
+    (24, torch.bfloat16, ValueError),     # 3 lanes of 16 bytes
+    (4, torch.bfloat16, ValueError),      # half a lane
+    (12, torch.float32, ValueError),
+    (256, torch.float32, ValueError),     # 64 lanes
+])
+def test_devoxelize_kernels_refuse_other_rows(cuda, c, dtype, error):
+    from treelearn_tpu_torch.ops.voxelize import (devoxelize_backward_cuda,
+                                                  devoxelize_cuda)
+
+    v2p, _, p_order, v_start = _devoxelize_problem(cuda, 1 << 12, 2000, 1000)
+    feats = torch.zeros(1000, c, dtype=dtype, device=cuda)
+    grad = torch.zeros(1 << 12, c, dtype=dtype, device=cuda)
+    with pytest.raises(error):
+        devoxelize_cuda(feats, v2p)
+    with pytest.raises(error):
+        devoxelize_backward_cuda(grad, p_order, v_start)

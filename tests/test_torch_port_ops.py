@@ -92,7 +92,7 @@ def test_voxelize_matches_jax(use_coords, use_feats, batch):
                                   np.asarray(jv.v2p_map)[valid])
     assert (pv.v2p_map.numpy()[~valid] == nv).all()
     x = torch.arange(nv * 2, dtype=torch.float32).reshape(nv, 2)
-    back = devoxelize(x, pv.v2p_map).numpy()
+    back = devoxelize(x, pv).numpy()
     assert (back[~valid] == 0).all()
     np.testing.assert_array_equal(back[valid], x.numpy()[pv.v2p_map.numpy()[valid]])
 

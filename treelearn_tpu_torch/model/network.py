@@ -262,7 +262,7 @@ class TreeLearn(nn.Module):
         with span("heads"):
             x = torch.relu(self.output_layer["0"](x))
         with span("devoxelize"):
-            backbone_feats = devoxelize(x, vb.v2p_map)
+            backbone_feats = devoxelize(x, vb)
         with span("heads"):
             sem = self.semantic_linear(backbone_feats, valid)
             off = self.offset_linear(backbone_feats, valid)
@@ -291,7 +291,7 @@ class TreeLearn(nn.Module):
         x, stages = self.ptv3(vb.voxel_feats, grid0, batch_size,
                               compute_dtype)
         with span("devoxelize"):
-            backbone_feats = devoxelize(x.to(compute_dtype), vb.v2p_map)
+            backbone_feats = devoxelize(x.to(compute_dtype), vb)
         with span("heads"):
             sem = self.semantic_linear(backbone_feats, valid)
             off = self.offset_linear(backbone_feats, valid)

@@ -29,14 +29,16 @@ CSRC = osp.join(_PKG, "csrc")
 BUILD_ROOT = osp.join(_PKG, "_build")
 SOURCES = ("rulebook.cu", "subm_conv.cu", "subm_conv_wgmma.cu",
            "subm_conv_tf32.cu", "subm_conv_dw.cu", "subm_conv_dw_wgmma.cu",
-           "subm_conv_dw_tf32.cu", "vert.cu", "cc.cu", "knn.cu")
+           "subm_conv_dw_tf32.cu", "vert.cu", "cc.cu", "knn.cu",
+           "devoxelize.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rulebook": 0, "subm_conv": 0, "subm_conv_wgmma": 0,
             "subm_conv_tf32": 0, "subm_conv_dw": 0, "subm_conv_dw_wgmma": 0,
-            "subm_conv_dw_tf32": 0, "vert": 0, "cc": 0, "knn": 0}
+            "subm_conv_dw_tf32": 0, "vert": 0, "cc": 0, "knn": 0,
+            "devoxelize_fwd": 0, "devoxelize_bwd": 0}
 
 # optional observer of kernel inputs: recorder(name, args_dict)
 _RECORDER = None
@@ -92,6 +94,10 @@ _SIGNATURES = {
     "tl_knn_vote": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # refs, labels, q, ranges, nq, k, winner, n_found, stream
     "tl_knn_vote_serial": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # feats, v2p, out, n, v, lanes, stream
+    "tl_devoxelize_fwd": [_P, _P, _P, _I, _I, _I, _P],
+    # grad, p_order, v_start, dfeats, v, lanes, bf16, stream
+    "tl_devoxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

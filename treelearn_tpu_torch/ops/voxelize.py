@@ -14,7 +14,10 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
+from ..utils.trace import count
+from . import _cuda
 from .hashing import SENTINEL, decode_keys, encode_keys
 
 
@@ -27,6 +30,10 @@ class VoxelizedBatch(NamedTuple):
     v2p_map: torch.Tensor        # (N,) int64 point -> voxel slot; V for invalid points
     n_voxels: int
     spatial_shape: tuple         # (X, Y, Z) grid extent used for keys
+    # the stable sort of the points' keys: each voxel's points in ascending
+    # point index, invalid points last; devoxelize's backward on the card
+    # builds its voxel -> point CSR from it (voxel_point_csr)
+    order: torch.Tensor          # (N,) int64
 
 
 def compute_voxel_ijk(coords: torch.Tensor, batch_ids: torch.Tensor,
@@ -124,17 +131,138 @@ def voxelize_points(coords: torch.Tensor, feats: torch.Tensor,
         v2p_map=v2p_map,
         n_voxels=n_voxels,
         spatial_shape=spatial_shape,
+        order=order,
     )
 
 
-def devoxelize(voxel_feats: torch.Tensor, v2p_map: torch.Tensor) -> torch.Tensor:
-    """Gather per-voxel features back to points (reference tree_learn.py:99);
-    invalid points (v2p == V) receive zeros."""
+def voxel_point_csr(order: torch.Tensor, v2p_map: torch.Tensor,
+                    n_voxels: int):
+    """The voxel -> point CSR (p_order (N,) int32, v_start (V + 1,) int32)
+    of a :class:`VoxelizedBatch`'s ``order`` and ``v2p_map``: voxel v's
+    points are ``p_order[v_start[v]:v_start[v + 1]]``, in ascending point
+    index, and ``v_start[V]`` is the live point count.  No sort and no host
+    read: the voxel ids ascend along ``order`` (invalid points, id V, last),
+    so each voxel's run starts where its id is first reached."""
+    v_start = torch.searchsorted(
+        v2p_map[order], torch.arange(n_voxels + 1, device=order.device),
+        out_int32=True)
+    return order.to(torch.int32), v_start
+
+
+def devoxelize_plain(voxel_feats: torch.Tensor,
+                     v2p_map: torch.Tensor) -> torch.Tensor:
+    """The gather of :func:`devoxelize` in plain torch ops."""
     v = voxel_feats.shape[0]
     if v == 0:
         return voxel_feats.new_zeros((v2p_map.shape[0], voxel_feats.shape[1]))
     out = voxel_feats[v2p_map.clamp(0, v - 1)]
     return torch.where((v2p_map < v)[:, None], out, torch.zeros_like(out))
+
+
+def devoxelize_backward_plain(grad: torch.Tensor, v2p_map: torch.Tensor,
+                              n_voxels: int) -> torch.Tensor:
+    """Each voxel's sum of its live points' gradient rows, taken in float32
+    (float64 stays float64) in ascending point order and rounded once to
+    the gradient's dtype: the arithmetic of ``csrc/devoxelize.cu``'s
+    backward."""
+    acc_dtype = torch.float64 if grad.dtype == torch.float64 else torch.float32
+    live = v2p_map < n_voxels
+    acc = torch.zeros((n_voxels, grad.shape[1]), dtype=acc_dtype,
+                      device=grad.device)
+    acc.index_add_(0, v2p_map[live], grad[live].to(acc_dtype))
+    return acc.to(grad.dtype)
+
+
+def _lanes(t: torch.Tensor, name: str) -> int:
+    """16-byte lanes a row of ``t`` for the kernels of
+    ``csrc/devoxelize.cu``; raises on what they do not take."""
+    _cuda.require(t, name, (torch.bfloat16, torch.float32), 2)
+    lanes, rest = divmod(t.shape[1] * t.element_size(), 16)
+    if rest or lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"{name}: rows of {t.shape[1]} {t.dtype} channels "
+                         f"are not 1, 2, 4, 8, 16 or 32 lanes of 16 bytes")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+    return lanes
+
+
+def devoxelize_cuda(voxel_feats: torch.Tensor,
+                    v2p_map: torch.Tensor) -> torch.Tensor:
+    """The gather of :func:`devoxelize` on the card (``tl_devoxelize_fwd``)."""
+    feats = voxel_feats.contiguous()
+    lanes = _lanes(feats, "devoxelize feats")
+    _cuda.require(v2p_map, "devoxelize v2p_map", torch.int64, 1)
+    n, v = v2p_map.shape[0], feats.shape[0]
+    out = feats.new_empty((n, feats.shape[1]))
+    if n == 0:
+        return out
+    if v == 0:
+        return out.zero_()
+    code = _cuda.library().tl_devoxelize_fwd(
+        feats.data_ptr(), v2p_map.data_ptr(), out.data_ptr(), n, v, lanes,
+        _cuda.stream_ptr(feats))
+    _cuda.check(code, "tl_devoxelize_fwd")
+    _cuda.LAUNCHES["devoxelize_fwd"] += 1
+    return out
+
+
+def devoxelize_backward_cuda(grad: torch.Tensor, p_order: torch.Tensor,
+                             v_start: torch.Tensor) -> torch.Tensor:
+    """:func:`devoxelize_backward_plain` on the card
+    (``tl_devoxelize_bwd``), walking the voxel -> point CSR of
+    :class:`VoxelizedBatch`."""
+    grad = grad.contiguous()
+    lanes = _lanes(grad, "devoxelize grad")
+    _cuda.require(p_order, "devoxelize p_order", torch.int32, 1)
+    _cuda.require(v_start, "devoxelize v_start", torch.int32, 1)
+    v = v_start.shape[0] - 1
+    dfeats = grad.new_empty((v, grad.shape[1]))
+    if v == 0:
+        return dfeats
+    code = _cuda.library().tl_devoxelize_bwd(
+        grad.data_ptr(), p_order.data_ptr(), v_start.data_ptr(),
+        dfeats.data_ptr(), v, lanes, int(grad.dtype == torch.bfloat16),
+        _cuda.stream_ptr(grad))
+    _cuda.check(code, "tl_devoxelize_bwd")
+    _cuda.LAUNCHES["devoxelize_bwd"] += 1
+    return dfeats
+
+
+class DevoxelizeFn(torch.autograd.Function):
+    """The gather and, as its backward, each voxel's sum of its own points'
+    gradient rows.  CPU tensors take the plain versions; CUDA tensors launch
+    the kernels of ``csrc/devoxelize.cu`` or raise, the backward over the
+    CSR of :func:`voxel_point_csr`, built only when a backward runs.  The
+    counter ``devoxelize.bwd.<route>`` (``cuda`` or ``plain``) takes one a
+    backward."""
+
+    @staticmethod
+    def forward(ctx, voxel_feats, v2p_map, order):
+        ctx.n_voxels = voxel_feats.shape[0]
+        ctx.save_for_backward(v2p_map, order)
+        if voxel_feats.is_cuda:
+            return devoxelize_cuda(voxel_feats, v2p_map)
+        return devoxelize_plain(voxel_feats, v2p_map)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        v2p_map, order = ctx.saved_tensors
+        if not grad.is_cuda:
+            count("devoxelize.bwd.plain")
+            return (devoxelize_backward_plain(grad, v2p_map, ctx.n_voxels),
+                    None, None)
+        count("devoxelize.bwd.cuda")
+        p_order, v_start = voxel_point_csr(order, v2p_map, ctx.n_voxels)
+        return devoxelize_backward_cuda(grad, p_order, v_start), None, None
+
+
+def devoxelize(voxel_feats: torch.Tensor, vb: VoxelizedBatch) -> torch.Tensor:
+    """Gather per-voxel features (``vb.n_voxels`` rows) back to the points of
+    ``vb`` (reference tree_learn.py:99); invalid points (v2p == V) receive
+    zeros.  The gradient is each voxel's sum of its points' gradient
+    rows."""
+    return DevoxelizeFn.apply(voxel_feats, vb.v2p_map, vb.order)
 
 
 def voxel_downsample_trace_np(points, voxel_size: float, round_decimals: int = 2):

@@ -99,7 +99,7 @@ def main(argv=None) -> dict:
     bench("BN+ReLU (V, 32) f32, batch statistics",
           lambda: torch.relu(bn(x32)))
     bench(f"devoxelize gather ({len(pts)} pts from (V, 32))",
-          lambda: devoxelize(x32, vb.v2p_map))
+          lambda: devoxelize(x32, vb))
     return {"card": card_line(dev), "voxels": v, "rows_ms": rows,
             "convs": convs}
 
