@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero; nothing is swallowed):
 
 1. card:     name and power limit as nvidia-smi reports them;
-2. build:    the eleven CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
+2. build:    the nine CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
              source, all started together), build seconds and each kernel's
              ptxas registers / shared memory;
 3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
@@ -16,10 +16,8 @@ Phases (any failure exits nonzero; nothing is swallowed):
              counts are zeroed just before and read just after, and every
              kernel of the path must have launched (the rulebook, the
              tensor-core conv, verticality, found bits; the 3xTF32 kernels'
-             path is the float32 one of phases 5, 5b, 8 and 8b; no shipped
-             path reaches the SIMT kernels, which stay as the yardstick
-             every tensor-core route is raced against); the wrappers'
-             inputs are recorded (first call of each shape) for phase 4;
+             path is the float32 one of phases 5, 5b, 8 and 8b); the
+             wrappers' inputs are recorded (first call of each shape) for phase 4;
              CUDA events around each model forward give the card's
              milliseconds beside the inference stage's host seconds; its
              pointwise dump is kept for phase 14; the inference loop's packed
@@ -86,36 +84,26 @@ Phases (any failure exits nonzero; nothing is swallowed):
              before an overlapped run: rulebook and tensor-core conv
              launches per tile;
 4. kernels:  each kernel against its plain PyTorch version on the inputs its
-             path gave it (rulebook exact, timed beside the 27-probe kernel
-             it replaced; subm conv in float32 with rtol 1e-4 on the route
-             float32 takes (3xTF32) and in bf16 within 2e-2 of the output's
-             max magnitude on the tensor-core route, also timed beside the
-             SIMT kernel at the same shape (``previous_ms``; the SIMT output
-             held to the same gate), its repeat launch bit-equal, and its
-             gather traffic printed beside the compulsory bytes; the 4 -> 32
-             input conv in bf16 zero-padded onto the tensor cores beside the
-             SIMT kernel over the first 1024 .. all rows of its shape, the
-             pad's time counted;
+             path gave it (rulebook exact; subm conv in float32 with rtol
+             1e-4 on the route float32 takes (3xTF32) and in bf16 within
+             2e-2 of the output's max magnitude on the tensor-core route,
+             its repeat launch bit-equal, and its gather traffic printed
+             beside the compulsory bytes;
              verticality counts exact, moments within 1e-4 of each column's
              scale, |dvert| <= 1e-3 after the float16 rounding but on a 1e-3
              share of ill-conditioned neighborhoods, repeat launch bit-equal,
-             timed beside the one-thread-a-query kernel on the xy table of
-             the same points, candidates per query under both tables, the
-             whole ``verticality()`` call's wall seconds; found bits exact on
-             the plot's problem and on a trained-like grouping input
-             (``data/synthetic.py:trained_like_xy``: every tree point's xy on
-             its tree's position plus sigma 0.05 m noise, numpy seed 0, the
-             dense clumps a trained offset head makes), each timed
-             beside the one-thread-a-point kernel, with cells, points per
-             cell, neighbor-cell candidates before and after the box test
-             and the whole ``cc_labels()`` call's wall seconds: two ``cc``
-             rows, ``problem`` plot and trained-like; every
-             recorded k-NN pass: winners and found counts exact, timed
-             beside the one-thread-a-query kernel it replaced
-             (``previous_ms``), no pass more than 1.1x slower and the total
-             lower), timed with CUDA events (means of 10 launches; a
-             redesigned kernel and the one it replaced in turns, the least
-             of 3 to 5 such means each);
+             candidates per query under the 3-D and the xy table of the
+             same points, the whole ``verticality()`` call's wall seconds;
+             found bits exact on the plot's problem and on a trained-like
+             grouping input (``data/synthetic.py:trained_like_xy``: every
+             tree point's xy on its tree's position plus sigma 0.05 m noise,
+             numpy seed 0, the dense clumps a trained offset head makes),
+             with cells, points per cell, neighbor-cell candidates before
+             and after the box test and the whole ``cc_labels()`` call's
+             wall seconds: two ``cc`` rows, ``problem`` plot and
+             trained-like; every recorded k-NN pass: winners and found
+             counts exact), timed with CUDA events (means of 10 launches;
+             the kernels' the least of 3 to 5 such means);
 4b. devox:   both kernels of ``csrc/devoxelize.cu`` at the training cells'
              shapes (2^20 rows, 580,000 live points in 400,000 voxels, the
              rest padded; 32 and 64 bf16 channels) against the plain
@@ -134,36 +122,34 @@ Phases (any failure exits nonzero; nothing is swallowed):
 5b. k=5:     the same small plot with a ``kernel_size: 5`` model (2 levels,
              channels 32, float32, seed-0 weights), card against CPU as in
              phase 5; the card run's counts, zeroed just before it, must
-             show the 3xTF32 conv (K = 125 offsets) and no rulebook, SIMT or
-             bf16 tensor-core launch; each recorded conv shape: the 3xTF32
-             and the SIMT kernel held to the plain conv (rtol 1e-4), timed
-             in turns; then one float32 training step of that model on
-             phase 8's crop, counts zeroed just before it: the 3xTF32 dW
-             must launch, each of its shapes held likewise (1e-4 of max
-             |dW|); then the same plot and step in bf16 on the card, counts
-             zeroed just before each: the bf16 tensor-core conv and dW must
-             launch at K = 125 and no SIMT, rulebook or 3xTF32 kernel; each
-             conv, dx and dW shape held to the plain version (2e-2 of max
-             |out|, 1e-3 of max |dW|), its repeat launch bit-equal, raced
-             against the SIMT kernel (none more than 1.1x slower, the
-             totals lower); the totals printed beside the 3xTF32 ones; the
-             ``kernel_size 5`` rows of the ``kernels`` line (``problem``),
-             timed per run and per step;
+             show one 3xTF32 conv launch (K = 125 offsets) per conv call and
+             no rulebook or bf16 tensor-core launch; each recorded conv
+             shape: the 3xTF32 kernel held to the plain conv (rtol 1e-4),
+             timed; then one float32 training step of that model on phase
+             8's crop, counts zeroed just before it: every conv, dx and dW
+             call on the 3xTF32 kernels, each dW shape held likewise (1e-4
+             of max |dW|); then the same plot and step in bf16 on the card,
+             counts zeroed just before each: every conv, dx and dW call on
+             the bf16 tensor-core kernels at K = 125 and no rulebook or
+             3xTF32 kernel; each conv, dx and dW shape held to the plain
+             version (2e-2 of max |out|, 1e-3 of max |dW|), its repeat
+             launch bit-equal, timed; the totals printed beside the 3xTF32
+             ones; the ``kernel_size 5`` rows of the ``kernels`` line
+             (``problem``), timed per run and per step;
 5c. narrow:  bf16 widths that are no multiple of 32: phase 3's plot with a
              ``channels: 16`` model (levels 16..112, seed-0 weights), counts
-             zeroed just before: the rulebook and the bf16 tensor-core conv
-             must launch and no SIMT conv; the same plot with the SIMT route
-             forced in-process (every conv, and the widths it took before):
-             the same tree count and ARI >= 0.999, or at least the ARI of
-             the shipped channels 32 model between its tensor-core and SIMT
-             routes where bf16 summation order moves that one further; each
-             conv shape held and raced as in 5b, its outputs off the
-             once-rounded exact sum counted for both routes, at Cin = 16
+             zeroed just before: the rulebook must launch and every conv
+             call the bf16 tensor-core conv; the same plot with the plain
+             convs forced in-process: the same tree count and ARI >= 0.999,
+             or at least the ARI of the shipped channels 32 model between
+             its tensor-core and plain routes where bf16 summation order
+             moves that one further; each conv shape held as in 5b, its
+             outputs off the once-rounded exact sum counted, at Cin = 16
              (mod 32) also the design that zero-pads to full 32-channel
              slices in the call; then 3 bf16 training steps of that model on
-             phase 6's crops: dx and dW on the tensor cores, no SIMT launch,
-             each shape held and raced as in phase 7; the ``channels 16``
-             rows of the ``kernels`` line;
+             phase 6's crops: every conv, dx and dW call on the tensor
+             cores, each shape held as in phase 7; the ``channels 16`` rows
+             of the ``kernels`` line;
 6. train:    ``train_synthetic_checkpoint`` at full width (configs/_modular/
              model.yaml: channels 32, 7 levels, block_reps 2), bf16, batch 1,
              the JAX package's BENCH_RECIPE crop geometry (24 m crops, 10000-
@@ -177,17 +163,12 @@ Phases (any failure exits nonzero; nothing is swallowed):
 7. grads:    on the first training step's inputs, one per shape: the dW
              kernels against the plain dW (float32, 3xTF32 route: rtol 1e-4
              of max |dW|; bf16 on the tensor-core route: 1e-3 of max |dW|,
-             repeat launch bit-equal), the tensor-core route timed beside
-             the SIMT kernel at the same shape (``previous_ms``, the SIMT
-             output held to the same gate; no shape more than 1.1x slower,
-             the per-step total lower) with its TFLOP/s and gathered bytes;
-             the input conv's dW padded beside SIMT over the first 1024 ..
-             all rows; the conv's dx (kernel 2 with the
+             repeat launch bit-equal), the tensor-core route timed with its
+             TFLOP/s and gathered bytes; the conv's dx (kernel 2 with the
              mirrored weights) in float32 against autograd through the plain
              conv (1e-4 of max |dx|) and in bf16 against the plain conv with
-             the mirrored weights (2e-2), timed beside its bound, its plain
-             version and the SIMT kernel; the forward convs timed at the
-             training shapes;
+             the mirrored weights (2e-2), timed beside its bound and its
+             plain version; the forward convs timed at the training shapes;
 8. step:     one float32 training step at small width (channels 8, 3
              levels), card against CPU from the same seed weights and batch:
              the loss within rtol 1e-5, each parameter's gradient within
@@ -200,21 +181,19 @@ Phases (any failure exits nonzero; nothing is swallowed):
              3xTF32 kernels;
 8b. float32: the float32 route at full width (channels 32, 7 levels,
              ``fp16: False``): phase 3's plot, counts zeroed just before:
-             the rulebook, the 3xTF32 conv, verticality and found bits must
-             launch and no other conv; at each recorded conv shape the
-             3xTF32 kernel and the SIMT kernel it replaced held to the plain
-             conv (rtol 1e-4), the tf32 pack to the torch pack exactly,
-             timed in turns (``previous_ms``: no shape more than 1.1x
-             slower, the total lower): the ``subm_conv_tf32`` row, per run
-             and per shape; the plot again warm, then with the SIMT route
-             forced in-process: the same partition (ARI >= 0.999) and tree
-             count, wall time and the forward's CUDA-event ms of each beside
-             the bf16 plot's; then phase 6's training in float32 (20 steps,
-             counts zeroed just before): the rulebook and both 3xTF32
-             kernels must launch, every loss be finite and the last 5 below
-             the first 5, the median step beside the bf16 one; each dW shape
-             held as phase 5b holds them (the ``subm_conv_dw_tf32`` row, per
-             step) and each dx shape, the 3xTF32 and the SIMT kernel, to
+             the rulebook, verticality and found bits must launch and every
+             conv call the 3xTF32 conv; at each recorded conv shape the
+             3xTF32 kernel held to the plain conv (rtol 1e-4), the tf32 pack
+             to the torch pack exactly, timed: the ``subm_conv_tf32`` row,
+             per run and per shape; the plot again warm, then with the plain
+             convs forced in-process: the same partition (ARI >= 0.999) and
+             tree count, wall time and the forward's CUDA-event ms of each
+             beside the bf16 plot's; then phase 6's training in float32 (20
+             steps, counts zeroed just before): the rulebook must launch and
+             every conv, dx and dW call the 3xTF32 kernels, every loss be
+             finite and the last 5 below the first 5, the median step beside
+             the bf16 one; each dW shape held as phase 5b holds them (the
+             ``subm_conv_dw_tf32`` row, per step) and each dx shape to
              autograd through the plain conv (1e-4 of max |dx|; the row's
              ``dx_*`` fields);
 9. datagen:  phase 3's plot written as ``train/forests/plot.npz`` and
@@ -252,8 +231,8 @@ Phases (any failure exits nonzero; nothing is swallowed):
              width (channels 32, 7 levels), warm: voxelize / plans / full
              forward in ms (CUDA events), voxels per level, forward MFU
              (``analytic_model_flops`` with the exact rule nnz over the bf16
-             peak), each level's conv through kernel 2's routed plan, the
-             SIMT kernel and the plain gather conv (a kernel that disagrees
+             peak), each level's conv through kernel 2's routed plan and
+             the plain gather conv (a kernel that disagrees
              with the plain conv beyond phase 4's tolerance fails the
              phase); then ``tools/profile_step.py --train --bf16 --trace``
              (6 steps on ``BENCH_RECIPE`` crops, the first apart); for one
@@ -327,8 +306,6 @@ MAIN_PATH_KERNELS = ("rulebook", "subm_conv_wgmma", "vert", "cc",
 # 2^20 rows of which DEVOX_LIVE are points in DEVOX_VOXELS voxels
 DEVOX_CELLS = (("train_crops_35m", 32), ("train_ptv3_crops_35m", 64))
 DEVOX_ROWS, DEVOX_LIVE, DEVOX_VOXELS = 1 << 20, 580_000, 400_000
-SLOWER_LIMIT = 1.1            # a redesigned kernel vs the one it replaced,
-                              # per shape or pass
 DATAGEN_CROPS = 32            # gen_train_data's n_samples_total (shipped 25,000)
 DP_WORLD = 2                  # data-parallel ranks, sharing the one card
 DP_EXAMPLES = 16              # examples_per_epoch of phase 10a: 4 steps a rank
@@ -358,17 +335,22 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def race(new_fn, old_fn, rounds=3, reps=10):
-    """(new ms, old ms) of a redesigned kernel and the one it replaced: each
-    the least of ``rounds`` means over ``reps`` launches, taken in turns
-    (new, old, new, old, ...).  Kernels of a few hundredths of a millisecond
-    run as fast as the host can launch them, so one mean of ten carries the
-    host's hiccups; the least of several does not."""
-    new_ms, old_ms = [], []
+def least_ms(fn, rounds=3, reps=10):
+    """The least of ``rounds`` means over ``reps`` launches of ``fn``.
+    Kernels of a few hundredths of a millisecond run as fast as the host can
+    launch them, so one mean of ten carries the host's hiccups; the least of
+    several does not."""
+    return min(cuda_ms(fn, reps) for _ in range(rounds))
+
+
+def race(a_fn, b_fn, rounds=3, reps=10):
+    """(a ms, b ms) of two designs of one kernel, each as :func:`least_ms`
+    takes it, the means taken in turns (a, b, a, b, ...)."""
+    a_ms, b_ms = [], []
     for _ in range(rounds):
-        new_ms.append(cuda_ms(new_fn, reps))
-        old_ms.append(cuda_ms(old_fn, reps))
-    return min(new_ms), min(old_ms)
+        a_ms.append(cuda_ms(a_fn, reps))
+        b_ms.append(cuda_ms(b_fn, reps))
+    return min(a_ms), min(b_ms)
 
 
 def bound(bytes_moved, flops=0.0, dtype="float32"):
@@ -462,13 +444,11 @@ def check_rulebook(rec, lib_rows):
 
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.hashing import encode_keys
-    from treelearn_tpu_torch.ops.rulebook import (subm_rulebook,
-                                                  subm_rulebook_probes)
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
     from treelearn_tpu_torch.ops.sparse import build_subm_rulebook, kernel_offsets
 
     keys = sorted(k for k in rec.inputs if k[0] == "rulebook")
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                 previous_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     err = 0
     for key in keys:
         grid = rec.inputs[key]["grid"]
@@ -478,7 +458,7 @@ def check_rulebook(rec, lib_rows):
         torch.cuda.synchronize()
         mism = int((got != want).sum())
         err = max(err, mism)
-        if mism or not torch.equal(subm_rulebook_probes(grid), want):
+        if mism:
             raise AssertionError(f"rulebook V={key[1]}: {mism} entries differ")
         offs = kernel_offsets(3, grid.keys.device)
         probes = torch.stack([
@@ -486,17 +466,15 @@ def check_rulebook(rec, lib_rows):
                                    grid.coords[:, 1:] + offs[k]], 1),
                         grid.spatial_shape) for k in range(27)])
         ms = cuda_ms(lambda: subm_rulebook(grid))
-        previous = cuda_ms(lambda: subm_rulebook_probes(grid))
         plain = cuda_ms(lambda: build_subm_rulebook(grid, 3), reps=3)
         library = cuda_ms(lambda: torch.searchsorted(grid.keys, probes))
         v = key[1]
         b, _ = bound(4 * v + 27 * 4 * v)
-        log(f"  rulebook V={v}: exact, kernel {ms:.4f} ms, 27-probe kernel "
-            f"{previous:.4f} ms, plain {plain:.4f} ms, searchsorted "
-            f"{library:.4f} ms, bound {b:.4f} ms (bytes), {calls} call(s) on "
-            f"the main path")
+        log(f"  rulebook V={v}: exact, kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, searchsorted {library:.4f} ms, bound {b:.4f} ms (bytes), "
+            f"{calls} call(s) on the main path")
         for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
-                          ("library_ms", library), ("previous_ms", previous)):
+                          ("library_ms", library)):
             total[name] += val * calls
     lib_rows.append(dict(
         name="rulebook", route="cuda",
@@ -504,6 +482,30 @@ def check_rulebook(rec, lib_rows):
         replaces="treelearn_tpu/ops/pallas_rd.py:145",
         launches=_cuda.LAUNCHES["rulebook"], max_abs_err=float(err),
         bound_by="bytes", **total))
+
+
+def tensor_core_only(launches, rec, dtype, what):
+    """Fails unless every conv, dx and dW call that ``rec`` saw launched
+    the tensor-core kernel of ``dtype`` (``launches``: the run's counts):
+    one ``subm_conv_<route>`` launch per conv and dx call, one
+    ``subm_conv_dw_<route>`` per dW call, none of the other dtype's."""
+    import torch
+
+    calls = {"conv": 0, "dw": 0}
+    for key, n in rec.calls.items():
+        if key[0] in ("subm_conv", "subm_conv_dx"):
+            calls["conv"] += n
+        elif key[0] == "subm_conv_dw":
+            calls["dw"] += n
+    route, other = (("wgmma", "tf32") if dtype == torch.bfloat16
+                    else ("tf32", "wgmma"))
+    want = {f"subm_conv_{route}": calls["conv"],
+            f"subm_conv_dw_{route}": calls["dw"],
+            f"subm_conv_{other}": 0, f"subm_conv_dw_{other}": 0}
+    got = {k: launches[k] for k in want}
+    if got != want or not calls["conv"]:
+        raise AssertionError(f"{what}: conv launches {got}, the wrappers' "
+                             f"calls {want}")
 
 
 def conv_bound(feats, weight, rule, tf32x3=False):
@@ -561,49 +563,6 @@ def held(what, got, want, limit):
     return float((got.float() - want.float()).abs().max())
 
 
-def pad_sweep(feats, weight, rule, g=None):
-    """The 4 -> 32 input conv (with ``g`` its weight gradient) in bf16 on
-    the SIMT kernel and zero-padded onto the tensor-core route, the pad's
-    own time counted, over the first v rows of the recorded shape: the
-    measurement behind padding it at any row count
-    (``ops/subm_conv.py:tensor_core_pad``), the SIMT kernel held to the
-    plain version at each size (bf16 gates).  Measurement only."""
-    import torch
-    import torch.nn.functional as F
-
-    from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
-    from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import (subm_conv, subm_conv_dw,
-                                                   subm_conv_dw_simt,
-                                                   subm_conv_simt)
-
-    pad = 32 - feats.shape[1]
-    full = rule.shape[1]
-    what = "conv" if g is None else "dW"
-    for v in sorted({min(n, full) for n in (1024, 4096, 8192, 16384, 65536,
-                                            full)}):
-        r = rule[:, :v]
-        r = torch.where(r < v, r, -1).contiguous()
-        x = feats[:v].contiguous()
-        if g is None:
-            held(f"SIMT input conv V={v}", subm_conv_simt(x, weight, r),
-                 plain_conv(x, weight, r), 2e-2)
-            new, old = race(
-                lambda: subm_conv(F.pad(x, (0, pad)),
-                                  F.pad(weight, (0, 0, 0, pad)), r),
-                lambda: subm_conv_simt(x, weight, r))
-        else:
-            gv = g[:v].contiguous()
-            held(f"SIMT input dW V={v}", subm_conv_dw_simt(x, gv, r),
-                 plain_dw(x, gv, r), 1e-3)
-            new, old = race(
-                lambda: subm_conv_dw(F.pad(x, (0, pad)), gv,
-                                     r)[:, :x.shape[1]].contiguous(),
-                lambda: subm_conv_dw_simt(x, gv, r))
-        log(f"    input {what} bf16 V={v}: padded onto the tensor cores "
-            f"{new:.4f} ms (pad included), SIMT {old:.4f} ms")
-
-
 def check_subm_conv(rec, lib_rows):
     """The recorded conv shapes: float32 on the route float32 takes (the
     3xTF32 kernel; its row comes from phase 8b's float32 plot), the working
@@ -614,8 +573,7 @@ def check_subm_conv(rec, lib_rows):
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, pack_weight,
-                                                   subm_conv, subm_conv_simt,
-                                                   tensor_core_pad)
+                                                   subm_conv, tensor_core_pad)
 
     keys = sorted((k for k in rec.inputs if k[0] == "subm_conv"),
                   key=lambda k: (k[1][0], k[2]))
@@ -623,7 +581,6 @@ def check_subm_conv(rec, lib_rows):
     sources = {"subm_conv_wgmma": csrc + "subm_conv_wgmma.cu"}
     totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, by_ops=0,
                       shapes=0) for n in sources}
-    totals["subm_conv_wgmma"]["previous_ms"] = 0.0
     for key in keys:
         a = rec.inputs[key]
         feats, weight, rule = a["feats"], a["weight"], a["rule"]
@@ -638,8 +595,6 @@ def check_subm_conv(rec, lib_rows):
                 r32.abs().max().clamp(min=1e-6))):
             raise AssertionError(f"subm_conv f32 {cin}->{cout}: max err "
                                  f"{float((f32 - r32).abs().max())}")
-        if cin < 32:
-            pad_sweep(feats, weight, rule)
         del x32, w32, f32, r32
         # working type: bf16 inputs and output, float32 sums in both; the
         # outputs differ by summation order before the final bf16 rounding
@@ -662,10 +617,7 @@ def check_subm_conv(rec, lib_rows):
             raise AssertionError(f"subm_conv {feats.dtype} {cin}->{cout}: "
                                  f"max err {rel} of max |out|")
         tot["err"] = max(tot["err"], abs_err)
-        held(f"SIMT conv {cin}->{cout}", subm_conv_simt(feats, weight, rule),
-             want, 2e-2)
-        ms, previous = race(lambda: subm_conv(feats, weight, rule),
-                            lambda: subm_conv_simt(feats, weight, rule))
+        ms = least_ms(lambda: subm_conv(feats, weight, rule))
         plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
         b, by, flops, compulsory, gathered = conv_bound(feats, weight, rule)
         tot["by_ops"] += by == "operations"
@@ -686,12 +638,6 @@ def check_subm_conv(rec, lib_rows):
                     pack_weight(w_in.cpu(), 32, mirror)):
                 raise AssertionError(f"pack_weight {cin}->{cout} "
                                      f"mirror={mirror} differs")
-        tot["previous_ms"] += previous * calls
-        line += f", SIMT kernel {previous:.4f} ms"
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(
-                f"subm_conv {cin}->{cout} V={feats.shape[0]}: the wgmma "
-                f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
         log(line)
         for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * calls
@@ -748,49 +694,42 @@ def vert_against_plain(p):
     return m, err, far, mom_err, plain, b, by, pairs
 
 
+def candidates_per_query(p):
+    """(Q,) float32 candidate refs of each query of problem ``p``: the sum
+    of its group's 9 ranges."""
+    import torch
+
+    per_group = (p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum(1)
+    return torch.repeat_interleave(
+        per_group, (p.groups[1:] - p.groups[:-1]).long()).float()
+
+
 def check_vert(rec, lib_rows):
-    """Kernel 4 on the main path's own problem: against its plain version,
-    raced against the first kernel on the xy table of the same points."""
+    """Kernel 4 on the main path's own problem, against its plain version;
+    the candidates a query of the same points meets under the 3-D and the
+    xy table."""
     import torch
 
     from treelearn_tpu_torch.ops import _cuda
-    from treelearn_tpu_torch.ops.vert import (moments, moments_serial,
-                                              prepare_xy, verticality)
+    from treelearn_tpu_torch.ops.vert import moments, prepare, verticality
 
     p = rec.inputs[("vert",)]["problem"]
     if p.table != "xyz":
         raise AssertionError(f"the plot's verticality table is {p.table}")
     m, err, far, mom_err, plain, b, by, pairs = vert_against_plain(p)
-    # the first kernel, on the xy table of the same points
-    refs = p.refs4[:, :3].contiguous()
-    pxy = prepare_xy(refs, p.queries, p.radius)
-    old = torch.empty_like(m)
-    old[pxy.q_order] = moments_serial(pxy)    # p.queries' order
-    if not torch.equal(old[:, 0], m[:, 0]):
-        raise AssertionError("verticality: the first kernel's counts differ")
-    ms, previous = race(lambda: moments(p), lambda: moments_serial(pxy))
+    ms = least_ms(lambda: moments(p))
     nq, nr = p.queries.shape[0], p.refs4.shape[0]
-    # candidates a query: the 9 ranges of the 3-D table, the 3 x 3 whole
-    # columns of the xy table
-    per_group = (p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum(1)
-    new_cand = torch.repeat_interleave(
-        per_group, (p.groups[1:] - p.groups[:-1]).long()).float()
-    cs = pxy.cell_start.long()
-    qi, qj = pxy.q_cell[:, 0].long(), pxy.q_cell[:, 1].long()
-    old_cand = torch.zeros(nq, device=cs.device)
-    for di in (-1, 0, 1):
-        row = torch.clamp(qi + di, 0, pxy.ni - 1) * pxy.nj
-        span = (cs[row + torch.clamp(qj + 1, max=pxy.nj - 1) + 1]
-                - cs[row + torch.clamp(qj - 1, min=0)])
-        old_cand += torch.where((qi + di >= 0) & (qi + di < pxy.ni), span, 0)
+    refs = p.refs4[:, :3].contiguous()
+    new_cand = candidates_per_query(p)
+    old_cand = candidates_per_query(prepare(refs, p.queries, p.radius,
+                                            table="xy"))
     t0 = time.time()
     verticality(refs, p.queries, p.radius)
     torch.cuda.synchronize()
     whole = time.time() - t0
     log(f"  vert Q={nq} R={nr}: counts exact, moments within {mom_err:.1e} of "
         f"scale, max |dvert| {err:.2e} ({far} > 1e-3), kernel "
-        f"{ms:.4f} ms, one-thread-a-query kernel {previous:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b:.4f} ms ({by}), {pairs:.0f} in-radius "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), {pairs:.0f} in-radius "
         f"pairs; {p.groups.shape[0] - 1} cell groups, {p.items.shape[0]} "
         f"work items; candidates per query 3-D table median "
         f"{int(new_cand.median())}, max {int(new_cand.max())}, sum "
@@ -798,34 +737,30 @@ def check_vert(rec, lib_rows):
         f"{int(old_cand.median())}, max {int(old_cand.max())}, sum "
         f"{float(old_cand.sum()):.4g}; whole verticality() call "
         f"{whole:.4f} s")
-    if ms > SLOWER_LIMIT * previous:
-        raise AssertionError(f"vert: {ms:.4f} ms, the kernel it replaced "
-                             f"{previous:.4f} ms")
     lib_rows.append(dict(
         name="vert", route="cuda", source="treelearn_tpu_torch/csrc/vert.cu",
         replaces="treelearn_tpu/ops/pallas_vert.py:137",
         launches=_cuda.LAUNCHES["vert"], max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        previous_ms=previous, whole_call_s=whole))
+        whole_call_s=whole))
 
 
 def check_cc_problem(p, what, plain_reps):
-    """Kernel 5 on one problem: exact against the plain version, raced
-    against the first kernel; returns the row's numbers."""
+    """Kernel 5 on one problem: exact against the plain version; returns the
+    row's numbers."""
     import torch
 
     from treelearn_tpu_torch.ops.cc import (box_rejects, found_bits,
                                             found_bits_plain,
-                                            found_bits_serial,
                                             neighbor_cells_banded)
 
     got = found_bits(p)
     want = found_bits_plain(p)
     torch.cuda.synchronize()
     mism = int((got != want).sum())
-    if mism or not torch.equal(found_bits_serial(p), want):
+    if mism:
         raise AssertionError(f"cc {what}: found bits differ for {mism} points")
-    ms, previous = race(lambda: found_bits(p), lambda: found_bits_serial(p))
+    ms = least_ms(lambda: found_bits(p))
     plain = cuda_ms(lambda: found_bits_plain(p), reps=plain_reps,
                     warmup=plain_reps - 1)
     n, c = p.pts.shape[0], p.cell_keys.shape[0]
@@ -840,17 +775,13 @@ def check_cc_problem(p, what, plain_reps):
     offered = torch.where(nbr >= 0, sizes[nbr.clamp(min=0)], 0)[cell]
     kept = torch.where(box_rejects(p, nbr), 0, offered)
     log(f"  cc {what} N={n}: found bits exact, kernel {ms:.4f} ms, "
-        f"one-thread-a-point kernel {previous:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b:.4f} ms ({by}); {c} cells, points per cell median "
+        f"plain {plain:.4f} ms, bound {b:.4f} ms ({by}); {c} cells, points per cell median "
         f"{int(sizes.median())}, max {int(sizes.max())}; "
         f"{p.items.shape[0]} work items; neighbor-cell candidates "
         f"{float(offered.sum()):.4g}, after the box test "
         f"{float(kept.sum()):.4g}")
-    if ms > SLOWER_LIMIT * previous:
-        raise AssertionError(f"cc {what}: {ms:.4f} ms, the kernel it "
-                             f"replaced {previous:.4f} ms")
     return dict(max_abs_err=float(mism), ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=None, previous_ms=previous)
+                bound_by=by, library_ms=None)
 
 
 def check_cc(rec, lib_rows, trained_xy, eps):
@@ -992,21 +923,12 @@ def whole_problem_routes(prob):
     t0 = time.time()
     want = vote(labels[kdtree_knn(refs, queries, k)])
     kd_s = time.time() - t0
-    kept = os.environ.get("TL_KNN_KDTREE_MIN_PAIRS")
-    os.environ["TL_KNN_KDTREE_MIN_PAIRS"] = "1e30"
-    try:
-        info = {}
-        t0 = time.time()
-        got = banded_knn_classify(refs, labels, queries, k=k,
-                                  small_refs_kdtree=False, device=CARD,
-                                  log=info)
-        torch.cuda.synchronize()
-        banded_s = time.time() - t0
-    finally:
-        if kept is None:
-            del os.environ["TL_KNN_KDTREE_MIN_PAIRS"]
-        else:
-            os.environ["TL_KNN_KDTREE_MIN_PAIRS"] = kept
+    info = {}
+    t0 = time.time()
+    got = banded_knn_classify(refs, labels, queries, k=k, min_pairs=1e30,
+                              device=CARD, log=info)
+    torch.cuda.synchronize()
+    banded_s = time.time() - t0
     bad = int((np.asarray(got) != want).sum())
     log(f"  whole problem ({len(refs)} refs x {len(queries)} queries): "
         f"banded route {banded_s:.3f} s ({len(info['rounds'])} rounds, "
@@ -1020,10 +942,9 @@ def whole_problem_routes(prob):
 def check_knn(knn_rec, lib_rows, launches):
     import torch
 
-    from treelearn_tpu_torch.ops.knn import (knn_pass, knn_pass_plain,
-                                             knn_pass_serial)
+    from treelearn_tpu_torch.ops.knn import knn_pass, knn_pass_plain
 
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, previous_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     by_ops = 0
     keys = sorted(k for k in knn_rec.inputs if k[0] == "knn")
     for key in keys:
@@ -1035,29 +956,17 @@ def check_knn(knn_rec, lib_rows, launches):
         if mism:
             raise AssertionError(f"knn pass Q={key[1]}: {mism} winners or "
                                  "found counts differ")
-        ws, fs = knn_pass_serial(p)
-        torch.cuda.synchronize()
-        off = int((w != ws).sum() + (f != fs).sum())
-        ms, previous = race(lambda: knn_pass(p), lambda: knn_pass_serial(p))
+        ms = least_ms(lambda: knn_pass(p))
         plain = cuda_ms(lambda: knn_pass_plain(p), reps=2, warmup=1)
         nq, nr = p.queries.shape[0], p.refs.shape[0]
         cand = float((p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum())
         b, by = bound(16 * nr + 12 * nq + 24 * nq + 8 * nq, 10.0 * cand)
         by_ops += by == "operations"
         log(f"  knn pass Q={nq} R={nr}: winners and found counts exact, "
-            f"kernel {ms:.4f} ms, one-thread-a-query kernel {previous:.4f} "
-            f"ms ({off} of its answers differ), plain {plain:.4f} ms, bound "
-            f"{b:.4f} ms ({by}), {cand:.0f} candidate refs, "
-            f"{p.items.shape[0]} blocks")
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(f"knn pass Q={nq}: {ms:.4f} ms, the kernel "
-                                 f"it replaced {previous:.4f} ms")
-        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
-                          ("previous_ms", previous)):
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+            f"({by}), {cand:.0f} candidate refs, {p.items.shape[0]} blocks")
+        for name, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             total[name] += val
-    if not total["ms"] < total["previous_ms"]:
-        raise AssertionError(f"knn: {total['ms']:.4f} ms a call, the kernel "
-                             f"it replaced {total['previous_ms']:.4f} ms")
     lib_rows.append(dict(
         name="knn", route="cuda", source="treelearn_tpu_torch/csrc/knn.cu",
         replaces="treelearn_tpu/ops/pallas_knn.py:125", launches=launches,
@@ -1151,7 +1060,7 @@ def check_devoxelize(lib_rows):
                 source="treelearn_tpu_torch/csrc/devoxelize.cu",
                 replaces=None, launches=None, max_abs_err=errs[name],
                 ms=ms, plain_ms=plain, bound_ms=b, bound_by="bytes",
-                library_ms=library, previous_ms=None))
+                library_ms=library))
 
 
 def train_phase(tmp):
@@ -1216,14 +1125,11 @@ def check_grads(rec, lib_rows, launches, n_steps):
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
     from treelearn_tpu_torch.ops.subm_conv import (dw_plan, mirrored,
                                                    subm_conv, subm_conv_dw,
-                                                   subm_conv_dw_simt,
                                                    subm_conv_dx,
-                                                   subm_conv_simt,
                                                    tensor_core_pad)
 
     name = "subm_conv_dw_wgmma"
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, shapes=0,
-               previous_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, shapes=0)
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
         a = rec.inputs[key]
         x, g, rule = a["x"], a["g"], a["rule"]
@@ -1238,8 +1144,6 @@ def check_grads(rec, lib_rows, launches, n_steps):
         x32, g32 = x.float(), g.float()
         got = subm_conv_dw(x32, g32, rule)
         want = plain_dw(x32, g32, rule)
-        if cin < 32:
-            pad_sweep(x, None, rule, g=g)
         del x32, g32
         got16 = subm_conv_dw(x, g, rule)
         if not torch.equal(got16, subm_conv_dw(x, g, rule)):
@@ -1253,12 +1157,9 @@ def check_grads(rec, lib_rows, launches, n_steps):
         if err32 > 1e-4 or abs16 > 1e-3 * scale16:
             raise AssertionError(f"subm_conv_dw {key}: f32 err {err32}, "
                                  f"bf16 err {abs16 / scale16} of max |dW|")
-        held(f"SIMT dW {key}", subm_conv_dw_simt(x, g, rule), want16, 1e-3)
         tot["err"] = max(tot["err"], abs16)
         tot["shapes"] += 1
-        ms, previous = race(lambda: subm_conv_dw(x, g, rule),
-                            lambda: subm_conv_dw_simt(x, g, rule),
-                            rounds=5)
+        ms = least_ms(lambda: subm_conv_dw(x, g, rule), rounds=5)
         plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
         nnz = int((rule >= 0).sum())
         b, _, flops = dw_bound(x, g, rule)
@@ -1269,31 +1170,20 @@ def check_grads(rec, lib_rows, launches, n_steps):
                 f"plain {plain:.4f} ms, bound {b:.4f} ms, gathered "
                 f"{nnz * cin * x.element_size() / 1e6:.2f} MB, "
                 f"{per_step:.1f} call(s) per step, {plan.n_chunks} chunk(s) "
-                f"of {plan.rows_per_chunk} rows, SIMT kernel "
-                f"{previous:.4f} ms")
-        tot["previous_ms"] += previous * per_step
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(
-                f"subm_conv_dw {cin}x{cout} V={x.shape[0]}: the wgmma "
-                f"route takes {ms:.4f} ms, the SIMT kernel {previous:.4f}")
+                f"of {plan.rows_per_chunk} rows")
         log(line)
         for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * per_step
     if not tot.pop("shapes"):
         raise AssertionError(f"no recorded dW shape took {name}")
-    totals = {name: tot}
+    log(f"  dW per training step on the tensor-core route: "
+        f"{tot['ms']:.4f} ms")
     lib_rows.append(dict(
         name=name, route="cuda",
         source="treelearn_tpu_torch/csrc/subm_conv_dw_wgmma.cu",
         replaces="treelearn_tpu/ops/pallas_conv.py:438",
         launches=launches[name], max_abs_err=tot.pop("err"),
         bound_by="operations", library_ms=None, **tot))
-    new, old = (totals["subm_conv_dw_wgmma"][c] for c in ("ms",
-                                                          "previous_ms"))
-    log(f"  dW per training step on the tensor-core route: {new:.4f} ms, "
-        f"the SIMT kernel at the same shapes {old:.4f} ms")
-    if not new < old:
-        raise AssertionError("the wgmma dW route is not faster per step")
     fwd = 0.0
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv"):
         a = rec.inputs[key]
@@ -1306,8 +1196,8 @@ def check_grads(rec, lib_rows, launches, n_steps):
             f"bound {b:.4f} ms ({by}), {per_step:.1f} call(s) per step")
         fwd += ms * per_step
     log(f"  forward convs per training step: {fwd:.4f} ms")
-    dx = dict(dx_ms=0.0, dx_bound_ms=0.0, dx_previous_ms=0.0,
-              dx_plain_ms=0.0, dx_launches_per_step=0.0)
+    dx = dict(dx_ms=0.0, dx_bound_ms=0.0, dx_plain_ms=0.0,
+              dx_launches_per_step=0.0)
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
         a = rec.inputs[key]
         g, w, rule = a["g"], a["weight"], a["rule"]
@@ -1330,21 +1220,16 @@ def check_grads(rec, lib_rows, launches, n_steps):
             if err > tol:
                 raise AssertionError(f"dx {key}: err {err} of max, limit "
                                      f"{tol}")
-        held(f"SIMT dx {key}", subm_conv_simt(g, w, rule, mirror=True),
-             want, 2e-2)
-        ms, previous = race(
-            lambda: subm_conv_dx(g, w, rule),
-            lambda: subm_conv_simt(g, w, rule, mirror=True))
+        ms = least_ms(lambda: subm_conv_dx(g, w, rule))
         wm = mirrored(w)
         plain = cuda_ms(lambda: plain_conv(g, wm, rule), reps=3)
         b, by, flops, _, gathered = conv_bound(g, wm, rule)
         log(f"  dx {key[3]} V={g.shape[0]} {key[1]}<-{key[2]}: matches "
             f"the plain versions, kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), SIMT kernel {previous:.4f} "
-            f"ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), gathered "
-            f"{gathered / 1e6:.2f} MB, {per_step:.1f} call(s) per step")
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+            f"bound {b:.4f} ms ({by}), gathered {gathered / 1e6:.2f} MB, "
+            f"{per_step:.1f} call(s) per step")
         for col, val in (("dx_ms", ms), ("dx_bound_ms", b),
-                         ("dx_previous_ms", previous),
                          ("dx_plain_ms", plain),
                          ("dx_launches_per_step", 1.0)):
             dx[col] += val * per_step
@@ -1525,23 +1410,20 @@ K5_CFG = dict(channels=32, num_blocks=2, kernel_size=5)   # phase 5b's model
 
 def tf32_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
     """The ``subm_conv_tf32`` row of a float32 path's recorded conv shapes:
-    at each, the 3xTF32 kernel (repeat launch bit-equal) and the SIMT kernel
-    it replaced each held to the plain conv (rtol 1e-4, atol 1e-4 of max
-    |out|: the SIMT row's float32 tolerance), the tf32 pack kernel to the
-    torch pack exactly, both kernels timed in turns (``previous_ms``), none
-    more than ``SLOWER_LIMIT`` slower, the total lower; ms per run
-    (weighted by calls over ``n_runs``), per shape in ``per_shape``.
-    ``launches``: the path's counts.  Returns the row."""
+    at each, the 3xTF32 kernel (repeat launch bit-equal) held to the plain
+    conv (rtol 1e-4, atol 1e-4 of max |out|: the float32 tolerance of the
+    other rows), the tf32 pack kernel to the torch pack exactly, the kernel
+    timed; ms per run (weighted by calls over ``n_runs``), per shape in
+    ``per_shape``.  ``launches``: the path's counts.  Returns the row."""
     import torch
     import torch.nn.functional as F
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan,
                                                    pack_weight_tf32,
-                                                   subm_conv, subm_conv_simt,
-                                                   tensor_core_pad)
+                                                   subm_conv, tensor_core_pad)
 
-    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     err, by_ops, shapes = 0.0, 0, []
     for key in sorted((k for k in rec.inputs if k[0] == "subm_conv"),
                       key=lambda k: (-k[1][0], k[2])):
@@ -1559,21 +1441,18 @@ def tf32_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
             raise AssertionError(f"{problem}: subm_conv_tf32 {key}: two "
                                  "launches differ")
         want = plain_conv(feats, weight, rule)
-        simt = subm_conv_simt(feats, weight, rule)
         torch.cuda.synchronize()
         scale = float(want.abs().max().clamp(min=1e-6))
-        for what, out in (("3xTF32", got), ("SIMT", simt)):
-            if not torch.allclose(out, want, rtol=1e-4, atol=1e-4 * scale):
-                raise AssertionError(
-                    f"{problem}: {what} conv K={k} {cin}->{cout} V={v}: max "
-                    f"err {float((out - want).abs().max())}")
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+            raise AssertionError(
+                f"{problem}: 3xTF32 conv K={k} {cin}->{cout} V={v}: max "
+                f"err {float((got - want).abs().max())}")
         wp = F.pad(weight, (0, 0, 0, pad)).contiguous()
         if not torch.equal(pack_weight_tf32(wp, plan.bn, plan.bk).cpu(),
                            pack_weight_tf32(wp.cpu(), plan.bn, plan.bk)):
             raise AssertionError(f"{problem}: pack_weight_tf32 {key} differs")
         err = max(err, float((got - want).abs().max()))
-        ms, previous = race(lambda: subm_conv(feats, weight, rule),
-                            lambda: subm_conv_simt(feats, weight, rule))
+        ms = least_ms(lambda: subm_conv(feats, weight, rule))
         plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
         b, by, flops, _, gathered = conv_bound(feats, weight, rule,
                                                tf32x3=True)
@@ -1582,24 +1461,16 @@ def tf32_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
             f"{f' (+{pad} zero channels)' if pad else ''} {plan.bm}x"
             f"{plan.bn}, {plan.bk}-channel slots: err "
             f"{rel_err(got, want):.1e} of max|out|, kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), SIMT kernel "
-            f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-            f"({by}), gathered {gathered / 1e6:.2f} MB, {calls:g} call(s)")
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(
-                f"{problem}: subm_conv_tf32 {cin}->{cout} V={v}: {ms:.4f} ms, "
-                f"the SIMT kernel {previous:.4f}")
+            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}), gathered "
+            f"{gathered / 1e6:.2f} MB, {calls:g} call(s)")
         shapes.append(dict(k=k, v=v, cin=cin, cout=cout, calls=calls, ms=ms,
-                           previous_ms=previous, plain_ms=plain, bound_ms=b))
-        for col, val in (("ms", ms), ("previous_ms", previous),
-                         ("plain_ms", plain), ("bound_ms", b)):
+                           plain_ms=plain, bound_ms=b))
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * calls
     if not shapes:
         raise AssertionError(f"{problem}: no conv recorded")
-    log(f"  {problem}: 3xTF32 convs {tot['ms']:.4f} ms a run, the SIMT "
-        f"kernel at the same shapes {tot['previous_ms']:.4f} ms")
-    if not tot["ms"] < tot["previous_ms"]:
-        raise AssertionError(f"{problem}: the 3xTF32 convs are not faster")
+    log(f"  {problem}: 3xTF32 convs {tot['ms']:.4f} ms a run")
     row = dict(name="subm_conv_tf32", route="cuda",
                source="treelearn_tpu_torch/csrc/subm_conv_tf32.cu",
                replaces="treelearn_tpu/ops/pallas_conv.py:355",
@@ -1613,18 +1484,15 @@ def tf32_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
 
 def tf32_dw_rows(rec, launches, lib_rows, problem, n_steps):
     """The ``subm_conv_dw_tf32`` row of a float32 training path's recorded
-    dW shapes: the 3xTF32 kernel (repeat launch bit-equal) and the SIMT
-    kernel each within 1e-4 of max |dW| of the plain dW (the SIMT row's
-    float32 tolerance), timed in turns, none more than ``SLOWER_LIMIT``
-    slower, the total lower; ms per step."""
+    dW shapes: the 3xTF32 kernel (repeat launch bit-equal) within 1e-4 of
+    max |dW| of the plain dW, timed; ms per step."""
     import torch
 
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
     from treelearn_tpu_torch.ops.subm_conv import (dw_plan, subm_conv_dw,
-                                                   subm_conv_dw_simt,
                                                    tensor_core_pad)
 
-    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     err, by_ops, shapes = 0.0, 0, []
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
         a = rec.inputs[key]
@@ -1642,37 +1510,25 @@ def tf32_dw_rows(rec, launches, lib_rows, problem, n_steps):
         want = plain_dw(x, g, rule)
         held(f"{problem}: 3xTF32 dW K={k} {cin}x{cout} V={v}", got, want,
              1e-4)
-        held(f"{problem}: SIMT dW K={k} {cin}x{cout} V={v}",
-             subm_conv_dw_simt(x, g, rule), want, 1e-4)
         err = max(err, float((got - want).abs().max()))
-        ms, previous = race(lambda: subm_conv_dw(x, g, rule),
-                            lambda: subm_conv_dw_simt(x, g, rule), rounds=5)
+        ms = least_ms(lambda: subm_conv_dw(x, g, rule), rounds=5)
         plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
         b, by, flops = dw_bound(x, g, rule, tf32x3=True)
         by_ops += by == "operations"
         log(f"  subm_conv_dw_tf32 K={k} V={v} {cin}x{cout}"
             f"{f' (+{pad} zero channels)' if pad else ''}: err "
             f"{rel_err(got, want):.1e} of max|dW|, kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), SIMT kernel "
-            f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-            f"({by}), {plan.n_chunks} chunk(s) of {plan.rows_per_chunk} "
-            f"rows, {per_step:g} call(s) per step")
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(
-                f"{problem}: subm_conv_dw_tf32 {cin}x{cout} V={v}: "
-                f"{ms:.4f} ms, the SIMT kernel {previous:.4f}")
+            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}), {plan.n_chunks} "
+            f"chunk(s) of {plan.rows_per_chunk} rows, {per_step:g} call(s) "
+            f"per step")
         shapes.append(dict(k=k, v=v, cin=cin, cout=cout, per_step=per_step,
-                           ms=ms, previous_ms=previous, plain_ms=plain,
-                           bound_ms=b))
-        for col, val in (("ms", ms), ("previous_ms", previous),
-                         ("plain_ms", plain), ("bound_ms", b)):
+                           ms=ms, plain_ms=plain, bound_ms=b))
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * per_step
     if not shapes:
         raise AssertionError(f"{problem}: no dW recorded")
-    log(f"  {problem}: 3xTF32 dW {tot['ms']:.4f} ms a step, the SIMT kernel "
-        f"at the same shapes {tot['previous_ms']:.4f} ms")
-    if not tot["ms"] < tot["previous_ms"]:
-        raise AssertionError(f"{problem}: the 3xTF32 dW is not faster")
+    log(f"  {problem}: 3xTF32 dW {tot['ms']:.4f} ms a step")
     row = dict(name="subm_conv_dw_tf32", route="cuda",
                source="treelearn_tpu_torch/csrc/subm_conv_dw_tf32.cu",
                replaces="treelearn_tpu/ops/pallas_conv.py:438",
@@ -1686,21 +1542,19 @@ def tf32_dw_rows(rec, launches, lib_rows, problem, n_steps):
 
 def tf32_dx_fields(rec, row, n_steps):
     """dx of a float32 training path (the conv with the mirrored weights on
-    the 3xTF32 kernel, tiles packed mirrored): at each recorded shape held,
-    and the SIMT kernel with it, to autograd through the plain conv (1e-4
-    of max |dx|), the mirrored pack to the torch pack exactly, both timed in
-    turns, none more than ``SLOWER_LIMIT`` slower, the total lower; the
-    per-step sums go into ``row`` as ``dx_*``."""
+    the 3xTF32 kernel, tiles packed mirrored): at each recorded shape held
+    to autograd through the plain conv (1e-4 of max |dx|), the mirrored pack
+    to the torch pack exactly, timed; the per-step sums go into ``row`` as
+    ``dx_*``."""
     import torch
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, mirrored,
                                                    pack_weight_tf32,
-                                                   subm_conv_dx,
-                                                   subm_conv_simt)
+                                                   subm_conv_dx)
 
-    dx = dict(dx_ms=0.0, dx_previous_ms=0.0, dx_plain_ms=0.0,
-              dx_bound_ms=0.0, dx_launches_per_step=0.0)
+    dx = dict(dx_ms=0.0, dx_plain_ms=0.0, dx_bound_ms=0.0,
+              dx_launches_per_step=0.0)
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
         a = rec.inputs[key]
         g, w, rule = a["g"], a["weight"], a["rule"]
@@ -1714,31 +1568,22 @@ def tf32_dx_fields(rec, row, n_steps):
         (want,) = torch.autograd.grad((plain_conv(x0, w, rule) * g).sum(),
                                       x0)
         held(f"3xTF32 dx {key}", subm_conv_dx(g, w, rule), want, 1e-4)
-        held(f"SIMT dx {key}", subm_conv_simt(g, w, rule, mirror=True), want,
-             1e-4)
         if not torch.equal(
                 pack_weight_tf32(w, plan.bn, plan.bk, mirror=True).cpu(),
                 pack_weight_tf32(w.cpu(), plan.bn, plan.bk, mirror=True)):
             raise AssertionError(f"mirrored pack_weight_tf32 {key} differs")
-        ms, previous = race(lambda: subm_conv_dx(g, w, rule),
-                            lambda: subm_conv_simt(g, w, rule, mirror=True))
+        ms = least_ms(lambda: subm_conv_dx(g, w, rule))
         wm = mirrored(w)
         plain = cuda_ms(lambda: plain_conv(g, wm, rule), reps=3)
         b, by, flops, _, _ = conv_bound(g, wm, rule, tf32x3=True)
         log(f"  dx 3xTF32 V={g.shape[0]} {cin}<-{cout}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), SIMT kernel "
-            f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-            f"({by}), {per_step:g} call(s) per step")
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(f"dx {key}: {ms:.4f} ms, the SIMT kernel "
-                                 f"{previous:.4f}")
-        for col, val in (("dx_ms", ms), ("dx_previous_ms", previous),
-                         ("dx_plain_ms", plain), ("dx_bound_ms", b),
-                         ("dx_launches_per_step", 1.0)):
+            f"({flops / ms / 1e9:.1f} TFLOP/s of float32 work), plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}), {per_step:g} call(s) "
+            f"per step")
+        for col, val in (("dx_ms", ms), ("dx_plain_ms", plain),
+                         ("dx_bound_ms", b), ("dx_launches_per_step", 1.0)):
             dx[col] += val * per_step
     log(f"  dx per float32 training step: {json.dumps(dx)}")
-    if not dx["dx_ms"] < dx["dx_previous_ms"]:
-        raise AssertionError("the 3xTF32 dx is not faster per step")
     row.update(dx)
 
 
@@ -1760,15 +1605,13 @@ def rounded_sum(feats, weight, rule):
 
 
 def bf16_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
-    """The ``subm_conv_wgmma`` row of a bf16 path's recorded conv shapes
-    beside the SIMT kernel: at each, the tensor-core route (repeat launch
-    bit-equal) and the SIMT kernel held to the plain conv (2e-2 of max
-    |out|), the pack kernel to the torch pack exactly, both timed in turns,
-    none more than ``SLOWER_LIMIT`` slower, the total lower; ms per run
-    (weighted by calls over ``n_runs``), per shape in ``per_shape``, with
-    the outputs of each route that differ from the once-rounded exact sum
-    (:func:`rounded_sum`: ``flips``, ``simt_flips``, and how many of the
-    route's are smaller in magnitude, ``flips_smaller``).  Where
+    """The ``subm_conv_wgmma`` row of a bf16 path's recorded conv shapes: at
+    each, the tensor-core route (repeat launch bit-equal) held to the plain
+    conv (2e-2 of max |out|), the pack kernel to the torch pack exactly,
+    the kernel timed; ms per run (weighted by calls over ``n_runs``), per
+    shape in ``per_shape``, with the outputs that differ from the
+    once-rounded exact sum (:func:`rounded_sum`: ``flips``, and how many of
+    them are smaller in magnitude, ``flips_smaller``).  Where
     Cin % 32 is 16 the other design for such a Cin, feats zero-padded to
     full 32-channel slices in the call (the pad's time counted), is held
     and timed beside the 16-channel tail slice (``tail_ms``, ``pad_ms``).
@@ -1779,11 +1622,9 @@ def bf16_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, cout_pad,
                                                    pack_weight, subm_conv,
-                                                   subm_conv_simt,
                                                    tensor_core_pad)
 
-    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               tail_ms=0.0, pad_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, tail_ms=0.0, pad_ms=0.0)
     err, by_ops, shapes = 0.0, 0, []
     for key in sorted((k for k in rec.inputs if k[0] == "subm_conv"),
                       key=str):
@@ -1805,21 +1646,17 @@ def bf16_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
         what = f"K={k} {cin}->{cout} V={v}"
         err = max(err, held(f"{problem}: wgmma conv {what}", got, want,
                             2e-2))
-        simt = subm_conv_simt(feats, weight, rule)
-        held(f"{problem}: SIMT conv {what}", simt, want, 2e-2)
         exact = rounded_sum(feats, weight, rule)
         off = got != exact
         flips = dict(flips=int(off.sum()),
-                     simt_flips=int((simt != exact).sum()),
                      flips_smaller=int((off & (got.float().abs()
                                                < exact.float().abs())).sum()))
-        del simt, exact, off
+        del exact, off
         wp = F.pad(weight, (0, pad_out, 0, pad_in)).contiguous()
         if not torch.equal(pack_weight(wp, plan.bn).cpu(),
                            pack_weight(wp.cpu(), plan.bn)):
             raise AssertionError(f"{problem}: pack_weight {key} differs")
-        ms, previous = race(lambda: subm_conv(feats, weight, rule),
-                            lambda: subm_conv_simt(feats, weight, rule))
+        ms = least_ms(lambda: subm_conv(feats, weight, rule))
         plain = cuda_ms(lambda: plain_conv(feats, weight, rule), reps=3)
         b, by, flops, _, gathered = conv_bound(feats, weight, rule)
         by_ops += by == "operations"
@@ -1827,15 +1664,13 @@ def bf16_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
             pad_in or pad_out) else ""
         line = (f"  subm_conv_wgmma bf16 {what}{pads} {plan.bm}x{plan.bn}: "
                 f"err {rel_err(got, want):.1e} of max|out|, kernel {ms:.4f} "
-                f"ms ({flops / ms / 1e9:.1f} TFLOP/s), SIMT kernel "
-                f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-                f"({by}), gathered {gathered / 1e6:.2f} MB, {calls:g} "
-                f"call(s); of {got.numel()} outputs off the rounded exact "
-                f"sum: wgmma {flips['flips']} ({flips['flips_smaller']} "
-                f"smaller), SIMT {flips['simt_flips']}")
+                f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                f"bound {b:.4f} ms ({by}), gathered {gathered / 1e6:.2f} MB, "
+                f"{calls:g} call(s); of {got.numel()} outputs off the rounded "
+                f"exact sum: {flips['flips']} ({flips['flips_smaller']} "
+                f"smaller)")
         shape = dict(k=k, v=v, cin=cin, cout=cout, calls=calls, ms=ms,
-                     previous_ms=previous, plain_ms=plain, bound_ms=b,
-                     outputs=got.numel(), **flips)
+                     plain_ms=plain, bound_ms=b, outputs=got.numel(), **flips)
         if cin % 32 == 16:
             w16 = F.pad(weight, (0, 0, 0, 16))
             held(f"{problem}: padded-design conv {what}",
@@ -1849,24 +1684,15 @@ def bf16_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
             tot["tail_ms"] += tail * calls
             tot["pad_ms"] += padded * calls
         log(line)
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(
-                f"{problem}: subm_conv_wgmma {what}: {ms:.4f} ms, the SIMT "
-                f"kernel {previous:.4f}")
         shapes.append(shape)
-        for col, val in (("ms", ms), ("previous_ms", previous),
-                         ("plain_ms", plain), ("bound_ms", b)):
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * calls
     if not shapes:
         raise AssertionError(f"{problem}: no conv recorded")
-    log(f"  {problem}: bf16 tensor-core convs {tot['ms']:.4f} ms a run, the "
-        f"SIMT kernel at the same shapes {tot['previous_ms']:.4f} ms"
+    log(f"  {problem}: bf16 tensor-core convs {tot['ms']:.4f} ms a run"
         + (f"; the shapes with Cin % 32 = 16: tail slices "
            f"{tot['tail_ms']:.4f} ms, padded in the call {tot['pad_ms']:.4f}"
            f" ms" if tot["pad_ms"] else ""))
-    if not tot["ms"] < tot["previous_ms"]:
-        raise AssertionError(f"{problem}: the bf16 tensor-core convs are not "
-                             "faster")
     if not tot["pad_ms"]:
         del tot["tail_ms"], tot["pad_ms"]
     row = dict(name="subm_conv_wgmma", route="cuda",
@@ -1882,22 +1708,19 @@ def bf16_conv_rows(rec, launches, lib_rows, problem, n_runs=1):
 
 def bf16_dw_rows(rec, launches, lib_rows, problem, n_steps):
     """The ``subm_conv_dw_wgmma`` row of a bf16 training path's recorded dW
-    shapes: the tensor-core kernel (repeat launch bit-equal) and the SIMT
-    kernel each within 1e-3 of max |dW| of the plain dW, timed in turns,
-    none more than ``SLOWER_LIMIT`` slower, the total lower; where Cin % 32
-    is 16 the design that zero-pads x to full slabs in the call (dW's extra
-    rows dropped) held and timed beside the native one; ms per step."""
+    shapes: the tensor-core kernel (repeat launch bit-equal) within 1e-3 of
+    max |dW| of the plain dW, timed; where Cin % 32 is 16 the design that
+    zero-pads x to full slabs in the call (dW's extra rows dropped) held
+    and timed beside the native one; ms per step."""
     import torch
     import torch.nn.functional as F
 
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
     from treelearn_tpu_torch.ops.subm_conv import (cout_pad, dw_plan,
                                                    subm_conv_dw,
-                                                   subm_conv_dw_simt,
                                                    tensor_core_pad)
 
-    tot = dict(ms=0.0, previous_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               tail_ms=0.0, pad_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, tail_ms=0.0, pad_ms=0.0)
     err, by_ops, shapes = 0.0, 0, []
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dw"):
         a = rec.inputs[key]
@@ -1916,22 +1739,18 @@ def bf16_dw_rows(rec, launches, lib_rows, problem, n_steps):
         want = plain_dw(x, g, rule)
         what = f"K={k} {cin}x{cout} V={v}"
         err = max(err, held(f"{problem}: wgmma dW {what}", got, want, 1e-3))
-        held(f"{problem}: SIMT dW {what}", subm_conv_dw_simt(x, g, rule),
-             want, 1e-3)
-        ms, previous = race(lambda: subm_conv_dw(x, g, rule),
-                            lambda: subm_conv_dw_simt(x, g, rule), rounds=5)
+        ms = least_ms(lambda: subm_conv_dw(x, g, rule), rounds=5)
         plain = cuda_ms(lambda: plain_dw(x, g, rule), reps=3)
         b, by, flops = dw_bound(x, g, rule)
         by_ops += by == "operations"
         line = (f"  subm_conv_dw_wgmma bf16 {what}"
                 f"{f' (+{pad_in} zero channels)' if pad_in else ''}: err "
                 f"{rel_err(got, want):.1e} of max|dW|, kernel {ms:.4f} ms "
-                f"({flops / ms / 1e9:.1f} TFLOP/s), SIMT kernel "
-                f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-                f"({by}), {plan.n_chunks} chunk(s) of {plan.rows_per_chunk} "
-                f"rows, {per_step:g} call(s) per step")
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                f"bound {b:.4f} ms ({by}), {plan.n_chunks} chunk(s) of "
+                f"{plan.rows_per_chunk} rows, {per_step:g} call(s) per step")
         shape = dict(k=k, v=v, cin=cin, cout=cout, per_step=per_step, ms=ms,
-                     previous_ms=previous, plain_ms=plain, bound_ms=b)
+                     plain_ms=plain, bound_ms=b)
         if cin % 32 == 16:
             def padded_dw():
                 return subm_conv_dw(F.pad(x, (0, 16)), g,
@@ -1947,24 +1766,15 @@ def bf16_dw_rows(rec, launches, lib_rows, problem, n_steps):
             tot["tail_ms"] += tail * per_step
             tot["pad_ms"] += padded * per_step
         log(line)
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(
-                f"{problem}: subm_conv_dw_wgmma {what}: {ms:.4f} ms, the "
-                f"SIMT kernel {previous:.4f}")
         shapes.append(shape)
-        for col, val in (("ms", ms), ("previous_ms", previous),
-                         ("plain_ms", plain), ("bound_ms", b)):
+        for col, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
             tot[col] += val * per_step
     if not shapes:
         raise AssertionError(f"{problem}: no dW recorded")
-    log(f"  {problem}: bf16 tensor-core dW {tot['ms']:.4f} ms a step, the "
-        f"SIMT kernel at the same shapes {tot['previous_ms']:.4f} ms"
+    log(f"  {problem}: bf16 tensor-core dW {tot['ms']:.4f} ms a step"
         + (f"; the shapes with Cin % 32 = 16: native {tot['tail_ms']:.4f} "
            f"ms, padded in the call {tot['pad_ms']:.4f} ms"
            if tot["pad_ms"] else ""))
-    if not tot["ms"] < tot["previous_ms"]:
-        raise AssertionError(f"{problem}: the bf16 tensor-core dW is not "
-                             "faster")
     if not tot["pad_ms"]:
         del tot["tail_ms"], tot["pad_ms"]
     row = dict(name="subm_conv_dw_wgmma", route="cuda",
@@ -1980,21 +1790,19 @@ def bf16_dw_rows(rec, launches, lib_rows, problem, n_steps):
 
 def bf16_dx_fields(rec, row, n_steps):
     """dx of a bf16 training path (the conv with the mirrored weights on the
-    tensor-core kernel, tiles packed mirrored): at each recorded shape held,
-    and the SIMT kernel with it, to the plain conv with the mirrored
-    weights (2e-2 of max |dx|), repeat launch bit-equal, both timed in
-    turns, none more than ``SLOWER_LIMIT`` slower, the total lower; the
-    per-step sums go into ``row`` as ``dx_*``."""
+    tensor-core kernel, tiles packed mirrored): at each recorded shape held
+    to the plain conv with the mirrored weights (2e-2 of max |dx|), repeat
+    launch bit-equal, timed; the per-step sums go into ``row`` as
+    ``dx_*``."""
     import torch
 
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain_conv
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, cout_pad,
                                                    mirrored, subm_conv_dx,
-                                                   subm_conv_simt,
                                                    tensor_core_pad)
 
-    dx = dict(dx_ms=0.0, dx_previous_ms=0.0, dx_plain_ms=0.0,
-              dx_bound_ms=0.0, dx_launches_per_step=0.0)
+    dx = dict(dx_ms=0.0, dx_plain_ms=0.0, dx_bound_ms=0.0,
+              dx_launches_per_step=0.0)
     for key in sorted(k for k in rec.inputs if k[0] == "subm_conv_dx"):
         a = rec.inputs[key]
         g, w, rule = a["g"], a["weight"], a["rule"]
@@ -2011,26 +1819,17 @@ def bf16_dx_fields(rec, row, n_steps):
         wm = mirrored(w)
         want = plain_conv(g, wm, rule)
         held(f"bf16 dx {key}", got, want, 2e-2)
-        held(f"SIMT dx {key}", subm_conv_simt(g, w, rule, mirror=True), want,
-             2e-2)
-        ms, previous = race(lambda: subm_conv_dx(g, w, rule),
-                            lambda: subm_conv_simt(g, w, rule, mirror=True))
+        ms = least_ms(lambda: subm_conv_dx(g, w, rule))
         plain = cuda_ms(lambda: plain_conv(g, wm, rule), reps=3)
         b, by, flops, _, _ = conv_bound(g, wm, rule)
         log(f"  dx bf16 K={k} V={v} {cin}<-{cout} {plan.bm}x{plan.bn}: "
-            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SIMT "
-            f"kernel {previous:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} "
-            f"ms ({by}), {per_step:g} call(s) per step")
-        if ms > SLOWER_LIMIT * previous:
-            raise AssertionError(f"dx {key}: {ms:.4f} ms, the SIMT kernel "
-                                 f"{previous:.4f}")
-        for col, val in (("dx_ms", ms), ("dx_previous_ms", previous),
-                         ("dx_plain_ms", plain), ("dx_bound_ms", b),
-                         ("dx_launches_per_step", 1.0)):
+            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}), {per_step:g} call(s) "
+            f"per step")
+        for col, val in (("dx_ms", ms), ("dx_plain_ms", plain),
+                         ("dx_bound_ms", b), ("dx_launches_per_step", 1.0)):
             dx[col] += val * per_step
     log(f"  dx per bf16 training step: {json.dumps(dx)}")
-    if not dx["dx_ms"] < dx["dx_previous_ms"]:
-        raise AssertionError("the bf16 tensor-core dx is not faster per step")
     row.update(dx)
 
 
@@ -2084,15 +1883,15 @@ def kernel_size5_check(tmp, lib_rows):
     """Phase 5b: a kernel_size 5 model (2 levels, channels 32, seed-0
     weights) on the small plot.  float32, card against CPU as phase 5 holds
     them; the card run's counts, zeroed just before it, must show the 3xTF32
-    conv with K = 125 and no other conv kernel; its shapes make a
-    ``subm_conv_tf32`` row.  One float32 training step, counts zeroed just
-    before it: the 3xTF32 dW must launch (a ``subm_conv_dw_tf32`` row).
-    Then bf16: the same plot and one step on the card, counts zeroed just
-    before each: the bf16 tensor-core conv and dW must launch at K = 125
-    and no SIMT, rulebook or 3xTF32 kernel; their shapes, held and raced
-    against the SIMT kernels, make the ``subm_conv_wgmma`` (with the dx
-    fields) and ``subm_conv_dw_wgmma`` rows of the problem, their totals
-    printed beside the 3xTF32 ones of this process."""
+    conv with K = 125 for every conv call and no rulebook or bf16 kernel;
+    its shapes make a ``subm_conv_tf32`` row.  One float32 training step,
+    counts zeroed just before it: every dW call on the 3xTF32 dW (a
+    ``subm_conv_dw_tf32`` row).  Then bf16: the same plot and one step on
+    the card, counts zeroed just before each: every conv, dx and dW call on
+    the bf16 tensor-core kernels at K = 125, no rulebook or 3xTF32 kernel;
+    their shapes, held to the plain versions, make the ``subm_conv_wgmma``
+    (with the dx fields) and ``subm_conv_dw_wgmma`` rows of the problem,
+    their totals printed beside the 3xTF32 ones of this process."""
     import torch
 
     t0 = time.time()
@@ -2107,48 +1906,39 @@ def kernel_size5_check(tmp, lib_rows):
         f"{json.dumps(launches)}")
     if ari < 0.999 or card[1] != cpu[1]:
         raise AssertionError("kernel_size 5: card and CPU pipelines disagree")
-    if (launches["subm_conv_tf32"] == 0 or launches["subm_conv_wgmma"]
-            or launches["subm_conv"] or launches["rulebook"]):
+    tensor_core_only(launches, rec, torch.float32, "kernel_size 5")
+    if launches["rulebook"]:
         raise AssertionError(f"kernel_size 5 launches {launches}")
     tf32_conv = tf32_conv_rows(rec, launches, lib_rows, problem)
     rec = GradRecorder()
     loss, step_launches = k5_step(tmp, torch.float32, rec)
     log(f"  kernel_size 5 float32 training step on the card: loss "
         f"{loss:.5f}, launches {json.dumps(step_launches)}")
-    if (step_launches["subm_conv_dw_tf32"] == 0
-            or step_launches["subm_conv_dw_wgmma"]
-            or step_launches["subm_conv_dw"]):
-        raise AssertionError(f"kernel_size 5 step launches {step_launches}")
+    tensor_core_only(step_launches, rec, torch.float32,
+                     "kernel_size 5 float32 step")
     tf32_dw = tf32_dw_rows(rec, step_launches, lib_rows, problem, 1)
-    # bf16: the tensor-core kernels at K = 125, no SIMT launch
+    # bf16: the tensor-core kernels at K = 125
     problem = "kernel_size 5, bf16 (phase 5b)"
     rec = Recorder()
     _, n_trees, launches, _ = k5_small_plot(tmp, CARD, True, rec)
     log(f"kernel_size 5 small plot, bf16, on the card: n_trees {n_trees}, "
         f"launches {json.dumps(launches)}")
-    if (launches["subm_conv_wgmma"] == 0 or launches["subm_conv"]
-            or launches["subm_conv_tf32"] or launches["rulebook"]):
+    tensor_core_only(launches, rec, torch.bfloat16, "kernel_size 5 bf16")
+    if launches["rulebook"]:
         raise AssertionError(f"kernel_size 5 bf16 launches {launches}")
     conv = bf16_conv_rows(rec, launches, lib_rows, problem)
     rec = GradRecorder()
     loss, step_launches = k5_step(tmp, torch.bfloat16, rec)
     log(f"  kernel_size 5 bf16 training step on the card: loss {loss:.5f}, "
         f"launches {json.dumps(step_launches)}")
-    if (step_launches["subm_conv_dw_wgmma"] == 0
-            or step_launches["subm_conv_wgmma"] == 0
-            or step_launches["subm_conv_dw"] or step_launches["subm_conv"]
-            or step_launches["subm_conv_dw_tf32"]
-            or step_launches["subm_conv_tf32"]):
-        raise AssertionError(f"kernel_size 5 bf16 step launches "
-                             f"{step_launches}")
+    tensor_core_only(step_launches, rec, torch.bfloat16,
+                     "kernel_size 5 bf16 step")
     dw = bf16_dw_rows(rec, step_launches, lib_rows, problem, 1)
     bf16_dx_fields(rec, conv, 1)
     log(f"  kernel_size 5, K = 125, this process: convs per run bf16 "
-        f"{conv['ms']:.4f} ms, 3xTF32 {tf32_conv['ms']:.4f} ms, SIMT (bf16) "
-        f"{conv['previous_ms']:.4f} ms; dW per step bf16 {dw['ms']:.4f} ms, "
-        f"3xTF32 {tf32_dw['ms']:.4f} ms, SIMT (bf16) "
-        f"{dw['previous_ms']:.4f} ms; dx per step bf16 {conv['dx_ms']:.4f} "
-        f"ms, SIMT (bf16) {conv['dx_previous_ms']:.4f} ms")
+        f"{conv['ms']:.4f} ms, 3xTF32 {tf32_conv['ms']:.4f} ms; dW per step "
+        f"bf16 {dw['ms']:.4f} ms, 3xTF32 {tf32_dw['ms']:.4f} ms; dx per step "
+        f"bf16 {conv['dx_ms']:.4f} ms")
     conv.update(tf32_ms=tf32_conv["ms"])
     dw.update(tf32_ms=tf32_dw["ms"])
     log(f"  phase 5b: {time.time() - t0:.1f} s")
@@ -2159,36 +1949,25 @@ NARROW_STEPS = 3       # phase 5c's training steps
 
 
 @contextlib.contextmanager
-def bf16_simt(every_width):
-    """Within the block, bf16 convs take the SIMT kernel, unpadded: with
-    ``every_width`` all of them; else the widths that took it before the
-    bf16 tensor-core conv took every width, i.e. all but K = 27 with Cin
-    and Cout in multiples of 32 (and the 4 -> 32 input conv from 32,768
-    rows, padded onto the tensor cores), which keep the wgmma route
-    (``ops/subm_conv.py``'s routing functions swapped in-process; float32
-    keeps its routes)."""
-    import torch
-
+def plain_convs(dtype):
+    """Within the block, convs in ``dtype`` take the plain version on the
+    card's tensors, unpadded, as a conv of more than 343 offsets does
+    (``ops/subm_conv.py``'s routing functions swapped in-process; the other
+    dtype keeps its routes)."""
     from treelearn_tpu_torch.ops import subm_conv as sc
 
     plan, pad, pad_out = sc.conv_plan, sc.tensor_core_pad, sc.cout_pad
-    bf = torch.bfloat16
 
-    def conv_plan(cin, cout, v, dtype=bf, n_offsets=sc.N_OFFSETS):
-        if dtype == bf and (every_width or n_offsets != 27 or cin <= 0
-                            or cout <= 0 or cin % 32 or cout % 32):
-            return sc.ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
-        return plan(cin, cout, v, dtype, n_offsets)
+    def conv_plan(cin, cout, v, dt=dtype, n_offsets=sc.N_OFFSETS):
+        if dt == dtype:
+            return sc.ConvPlan("plain", 0, 0, 0, 0, 0, 0, 0)
+        return plan(cin, cout, v, dt, n_offsets)
 
-    def tensor_core_pad(cin, cout, v, dtype, n_offsets=sc.N_OFFSETS):
-        if dtype == bf:
-            return (32 - cin if not every_width and n_offsets == 27
-                    and 0 < cin < 32 and cout and not cout % 32
-                    and v >= 32768 else 0)
-        return pad(cin, cout, v, dtype, n_offsets)
+    def tensor_core_pad(cin, cout, v, dt, n_offsets=sc.N_OFFSETS):
+        return 0 if dt == dtype else pad(cin, cout, v, dt, n_offsets)
 
-    def cout_pad(cout, dtype, n_offsets=sc.N_OFFSETS):
-        return 0 if dtype == bf else pad_out(cout, dtype, n_offsets)
+    def cout_pad(cout, dt, n_offsets=sc.N_OFFSETS):
+        return 0 if dt == dtype else pad_out(cout, dt, n_offsets)
 
     sc.conv_plan, sc.tensor_core_pad, sc.cout_pad = (conv_plan,
                                                      tensor_core_pad,
@@ -2203,21 +1982,19 @@ def narrow_phase(tmp, path, lib_rows):
     """Phase 5c: bf16 widths that are no multiple of 32.  (a) Phase 3's
     plot with a ``channels: 16`` model (levels 16..112, decoder convs of
     32..224 input channels; seed-0 weights), counts zeroed just before: the
-    rulebook and the bf16 tensor-core conv must launch, no SIMT or 3xTF32
-    conv; (b) the same plot with the SIMT route forced in-process
-    (:func:`bf16_simt`), for every conv and for the widths that took it
-    before: the same tree count, and the same partition as far as bf16
-    summation order lets two correct routes agree: ARI >= 0.999, or, where
-    the shipped ``channels: 32`` model (whose bf16 routes are unchanged)
-    already moves further between its tensor-core route and the SIMT one
-    on the same plot, ARI at least that model's (the seed-0 model's
-    semantic logits sit within bf16 rounding of the threshold); the
-    recorded conv shapes make the ``subm_conv_wgmma`` row of the
-    problem (held and raced against SIMT, the zero-pad design timed at
-    Cin = 16 mod 32).  (c) ``NARROW_STEPS`` bf16 steps of
-    ``train_synthetic_checkpoint`` of that model as phase 6 runs them (its
-    crops), counts zeroed just before: the tensor-core conv and dW must
-    launch and no SIMT kernel; its dW shapes make the
+    rulebook must launch and every conv call the bf16 tensor-core conv;
+    (b) the same plot with the plain convs forced in-process
+    (:func:`plain_convs`): the same tree count, and the same partition as
+    far as bf16 summation order lets two correct routes agree: ARI >=
+    0.999, or, where the shipped ``channels: 32`` model already moves
+    further between its tensor-core route and the plain one on the same
+    plot, ARI at least that model's (the seed-0 model's semantic logits sit
+    within bf16 rounding of the threshold); the recorded conv shapes make
+    the ``subm_conv_wgmma`` row of the problem (held to the plain conv, the
+    zero-pad design timed at Cin = 16 mod 32).  (c) ``NARROW_STEPS`` bf16
+    steps of ``train_synthetic_checkpoint`` of that model as phase 6 runs
+    them (its crops), counts zeroed just before: every conv, dx and dW call
+    on the tensor-core kernels; its dW shapes make the
     ``subm_conv_dw_wgmma`` row, its dx shapes the conv row's ``dx_*``
     fields."""
     import numpy as np
@@ -2237,46 +2014,40 @@ def narrow_phase(tmp, path, lib_rows):
     _cuda.set_recorder(None)
     log_plot(f"channels {NARROW_CHANNELS} plot, bf16 (recorder installed)",
              res, wall, launches, fwd)
-    zero = [k for k in ("rulebook", "subm_conv_wgmma", "vert", "cc")
-            if launches[k] == 0]
-    if zero or launches["subm_conv"] or launches["subm_conv_tf32"]:
+    zero = [k for k in ("rulebook", "vert", "cc") if launches[k] == 0]
+    if zero:
         raise AssertionError(f"channels {NARROW_CHANNELS} plot launches "
                              f"{launches}")
+    tensor_core_only(launches, rec, torch.bfloat16,
+                     f"channels {NARROW_CHANNELS} plot")
     labels = load_data(res["output_path"])[:, 3].copy()
 
-    def forced(every_width, channels):
-        with bf16_simt(every_width):
+    def forced(channels):
+        with plain_convs(torch.bfloat16):
             out = run_plot(path, channels=channels)
-        what = "every conv" if every_width else "the widths it took before"
-        log_plot(f"channels {channels} plot, bf16, SIMT route forced for "
-                 f"{what}", *out)
-        if out[2]["subm_conv"] == 0 or (every_width
-                                        and out[2]["subm_conv_wgmma"]):
-            raise AssertionError(f"SIMT-forced plot launches {out[2]}")
+        log_plot(f"channels {channels} plot, bf16, plain convs forced", *out)
+        if out[2]["subm_conv_wgmma"] or out[2]["subm_conv_tf32"]:
+            raise AssertionError(f"plain-forced plot launches {out[2]}")
         return out, load_data(out[0]["output_path"])[:, 3].copy()
 
     # how far bf16 summation order alone moves the shipped model's partition
     ship = load_data(run_plot(path)[0]["output_path"])[:, 3].copy()
-    ari_ship = adjusted_rand(ship, forced(True, 32)[1])
+    ari_ship = adjusted_rand(ship, forced(32)[1])
     limit = min(0.999, ari_ship)
-    log(f"channels 32 plot (the shipped width, its bf16 routes unchanged), "
-        f"tensor-core vs SIMT convs: ARI {ari_ship:.6f}; the limit for "
-        f"channels {NARROW_CHANNELS}: {limit:.6f}")
+    log(f"channels 32 plot (the shipped width), tensor-core vs plain convs: "
+        f"ARI {ari_ship:.6f}; the limit for channels {NARROW_CHANNELS}: "
+        f"{limit:.6f}")
+    out, other = forced(NARROW_CHANNELS)
+    ari = adjusted_rand(labels, other)
+    share = float((labels != other).mean())
+    log(f"channels {NARROW_CHANNELS} plot, tensor-core vs plain convs: ARI "
+        f"{ari:.6f}, labels differing {share:.6f}, n_trees "
+        f"{res['n_trees']} / {out[0]['n_trees']}")
+    if ari < limit or res["n_trees"] != out[0]["n_trees"]:
+        raise AssertionError("the tensor-core and plain bf16 plots disagree")
     plot = dict(plot_forward_ms=sum(fwd.device_ms()),
-                plot_ari_shipped_width=ari_ship)
-    for every_width, col in ((True, "simt"), (False, "before")):
-        out, other = forced(every_width, NARROW_CHANNELS)
-        ari = adjusted_rand(labels, other)
-        share = float((labels != other).mean())
-        log(f"channels {NARROW_CHANNELS} plot, tensor-core vs SIMT convs "
-            f"({'every width' if every_width else 'the widths before'}): "
-            f"ARI {ari:.6f}, labels differing {share:.6f}, n_trees "
-            f"{res['n_trees']} / {out[0]['n_trees']}")
-        if ari < limit or res["n_trees"] != out[0]["n_trees"]:
-            raise AssertionError("the tensor-core and SIMT bf16 plots "
-                                 "disagree")
-        plot[f"plot_ari_{col}"] = ari
-        plot[f"plot_{col}_forward_ms"] = sum(out[3].device_ms())
+                plot_ari_shipped_width=ari_ship, plot_ari_plain=ari,
+                plot_plain_forward_ms=sum(out[3].device_ms()))
     row = bf16_conv_rows(rec, launches, lib_rows, problem)
     row.update(plot)
     del rec
@@ -2302,62 +2073,32 @@ def narrow_phase(tmp, path, lib_rows):
         f"{json.dumps(train_launches)}")
     if len(losses) != NARROW_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"channels {NARROW_CHANNELS} losses {losses}")
-    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv_dw_wgmma")
-            if train_launches[k] == 0]
-    if zero or any(train_launches[k] for k in (
-            "subm_conv", "subm_conv_dw", "subm_conv_tf32",
-            "subm_conv_dw_tf32")):
+    if train_launches["rulebook"] == 0:
         raise AssertionError(f"channels {NARROW_CHANNELS} training launches "
                              f"{train_launches}")
+    tensor_core_only(train_launches, rec, torch.bfloat16,
+                     f"channels {NARROW_CHANNELS} training")
     n_steps = len(losses)
     bf16_dw_rows(rec, train_launches, lib_rows, problem, n_steps)
     bf16_dx_fields(rec, row, n_steps)
     log(f"  phase 5c: {time.time() - t0:.1f} s")
 
 
-@contextlib.contextmanager
-def simt_float32():
-    """Within the block, float32 convs take the SIMT kernel, unpadded, as
-    they did before the 3xTF32 route (``ops/subm_conv.py``'s routing
-    functions swapped in-process; bf16 keeps its routes)."""
-    import torch
-
-    from treelearn_tpu_torch.ops import subm_conv as sc
-
-    plan, pad = sc.conv_plan, sc.tensor_core_pad
-
-    def conv_plan(cin, cout, v, dtype=torch.bfloat16,
-                  n_offsets=sc.N_OFFSETS):
-        if dtype == torch.float32:
-            return sc.ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
-        return plan(cin, cout, v, dtype, n_offsets)
-
-    def tensor_core_pad(cin, cout, v, dtype, n_offsets=sc.N_OFFSETS):
-        if dtype == torch.float32:
-            return 0
-        return pad(cin, cout, v, dtype, n_offsets)
-
-    sc.conv_plan, sc.tensor_core_pad = conv_plan, tensor_core_pad
-    try:
-        yield
-    finally:
-        sc.conv_plan, sc.tensor_core_pad = plan, pad
-
-
 def float32_phase(tmp, path, bf16_plot, bf16_step_s, lib_rows):
     """Phase 8b: the float32 route at full width (channels 32, 7 levels,
     ``fp16: False``).  (a) The plot, counts zeroed just before: the
-    rulebook, the 3xTF32 conv, verticality and found bits must launch, no
-    other conv; its conv shapes make the ``subm_conv_tf32`` row (problem
-    "plot, float32").  (b) The same run warm, then with the SIMT route
-    forced in-process: the same partition (ARI >= 0.999) and tree count;
-    wall time and the forward's CUDA-event ms of each beside the bf16
-    plot's (``bf16_plot``: wall s, forward ms).  (c) ``TRAIN_STEPS`` float32
-    steps of ``train_synthetic_checkpoint`` as phase 6 runs them, counts
-    zeroed just before: the rulebook and both 3xTF32 kernels must launch,
-    every loss be finite and the last 5 below the first 5; the median step
-    beside the bf16 one (``bf16_step_s``); its dW shapes make the
-    ``subm_conv_dw_tf32`` row, its dx shapes the row's ``dx_*`` fields."""
+    rulebook, verticality and found bits must launch and every conv call
+    the 3xTF32 conv; its conv shapes make the ``subm_conv_tf32`` row
+    (problem "plot, float32").  (b) The same run warm, then with the plain
+    convs forced in-process (:func:`plain_convs`): the same partition (ARI
+    >= 0.999) and tree count; wall time and the forward's CUDA-event ms of
+    each beside the bf16 plot's (``bf16_plot``: wall s, forward ms).  (c)
+    ``TRAIN_STEPS`` float32 steps of ``train_synthetic_checkpoint`` as
+    phase 6 runs them, counts zeroed just before: the rulebook must launch
+    and every conv, dx and dW call the 3xTF32 kernels, every loss be finite
+    and the last 5 below the first 5; the median step beside the bf16 one
+    (``bf16_step_s``); its dW shapes make the ``subm_conv_dw_tf32`` row, its
+    dx shapes the row's ``dx_*`` fields."""
     import numpy as np
     import torch
 
@@ -2375,19 +2116,19 @@ def float32_phase(tmp, path, bf16_plot, bf16_step_s, lib_rows):
     _cuda.set_recorder(None)
     log_plot("float32 plot (cold, recorder installed)", *cold)
     launches = cold[2]
-    zero = [k for k in ("rulebook", "subm_conv_tf32", "vert", "cc")
-            if launches[k] == 0]
-    if zero or launches["subm_conv"] or launches["subm_conv_wgmma"]:
+    zero = [k for k in ("rulebook", "vert", "cc") if launches[k] == 0]
+    if zero:
         raise AssertionError(f"float32 plot launches {launches}")
+    tensor_core_only(launches, rec, torch.float32, "float32 plot")
     row = tf32_conv_rows(rec, launches, lib_rows, problem)
     del rec
     runs = {}
-    for what in ("3xTF32", "SIMT"):
-        if what == "SIMT":
-            with simt_float32():
+    for what in ("3xTF32", "plain"):
+        if what == "plain":
+            with plain_convs(torch.float32):
                 res, wall, counts, fwd = run_plot(path, fp16=False)
-            if counts["subm_conv"] == 0 or counts["subm_conv_tf32"]:
-                raise AssertionError(f"SIMT-forced plot launches {counts}")
+            if counts["subm_conv_tf32"] or counts["subm_conv_wgmma"]:
+                raise AssertionError(f"plain-forced plot launches {counts}")
         else:
             res, wall, counts, fwd = run_plot(path, fp16=False)
         labels = load_data(res["output_path"])[:, 3]
@@ -2395,19 +2136,19 @@ def float32_phase(tmp, path, bf16_plot, bf16_step_s, lib_rows):
                       sum(fwd.device_ms()), sum(fwd.host_s))
         log_plot(f"float32 plot (warm, {what} convs)", res, wall, counts,
                  fwd)
-    ari = adjusted_rand(runs["3xTF32"][0], runs["SIMT"][0])
-    log(f"float32 plot, 3xTF32 vs SIMT convs: ARI {ari:.6f}, n_trees "
-        f"{runs['3xTF32'][1]} / {runs['SIMT'][1]}")
-    if ari < 0.999 or runs["3xTF32"][1] != runs["SIMT"][1]:
-        raise AssertionError("the 3xTF32 and SIMT float32 plots disagree")
+    ari = adjusted_rand(runs["3xTF32"][0], runs["plain"][0])
+    log(f"float32 plot, 3xTF32 vs plain convs: ARI {ari:.6f}, n_trees "
+        f"{runs['3xTF32'][1]} / {runs['plain'][1]}")
+    if ari < 0.999 or runs["3xTF32"][1] != runs["plain"][1]:
+        raise AssertionError("the 3xTF32 and plain float32 plots disagree")
     log(f"plot warm wall / forward (CUDA events): float32 3xTF32 "
         f"{runs['3xTF32'][2]:.2f} s / {runs['3xTF32'][3]:.2f} ms, float32 "
-        f"SIMT {runs['SIMT'][2]:.2f} s / {runs['SIMT'][3]:.2f} ms, bf16 "
+        f"plain {runs['plain'][2]:.2f} s / {runs['plain'][3]:.2f} ms, bf16 "
         f"{bf16_plot[0]:.2f} s / {bf16_plot[1]:.2f} ms")
     row.update(plot_warm_s=runs["3xTF32"][2],
                plot_forward_ms=runs["3xTF32"][3],
-               plot_simt_warm_s=runs["SIMT"][2],
-               plot_simt_forward_ms=runs["SIMT"][3],
+               plot_plain_warm_s=runs["plain"][2],
+               plot_plain_forward_ms=runs["plain"][3],
                plot_bf16_warm_s=bf16_plot[0],
                plot_bf16_forward_ms=bf16_plot[1])
     # (c) float32 training
@@ -2440,11 +2181,9 @@ def float32_phase(tmp, path, bf16_plot, bf16_step_s, lib_rows):
         raise AssertionError(f"float32 loss did not fall: first 5 mean "
                              f"{losses[:5].mean()}, last 5 mean "
                              f"{losses[-5:].mean()}")
-    zero = [k for k in ("rulebook", "subm_conv_tf32", "subm_conv_dw_tf32")
-            if train_launches[k] == 0]
-    if zero or train_launches["subm_conv_dw"] or train_launches[
-            "subm_conv_dw_wgmma"]:
+    if train_launches["rulebook"] == 0:
         raise AssertionError(f"float32 training launches {train_launches}")
+    tensor_core_only(train_launches, rec, torch.float32, "float32 training")
     n_steps = len(losses)
     dw_row = tf32_dw_rows(rec, train_launches, lib_rows,
                           "training, float32 (phase 8b)", n_steps)
@@ -2470,8 +2209,8 @@ def profile_phase(trace_dir):
     model = profile_model.main(["--bf16", "--trace", trace_dir])
     step = profile_step.main(["--train", "--bf16", "--trace", trace_dir])
     launches = dict(_cuda.LAUNCHES)
-    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv",
-                        "subm_conv_dw_wgmma") if launches[k] == 0]
+    zero = [k for k in ("rulebook", "subm_conv_wgmma", "subm_conv_dw_wgmma")
+            if launches[k] == 0]
     if zero:
         raise AssertionError(f"phase 12: kernels not launched: {zero}")
     counts_waits = model["trace"]["syncs"].get("counts", [0, 0.0])
@@ -2490,7 +2229,7 @@ def profile_phase(trace_dir):
         "mfu": model["mfu"], "voxelize_ms": model["voxelize_ms"],
         "plans_ms": model["plans_ms"],
         "levels": [{k: r[k] for k in ("level", "v", "c", "routed_ms",
-                                      "simt_ms", "plain_ms")}
+                                      "plain_ms")}
                    for r in model["levels"]],
         "forward_trace": parts(model["trace"]),
         "first_step_s": step["first_step_s"],
@@ -2522,9 +2261,8 @@ def ship_check(mt, cols):
 
 def serial_yardstick(model, loader, dtype, need_backbone, tm):
     """The inference loop as it ran before the overlap was ported: the
-    yardstick phase 3g races the port's loop against, as ``bf16_simt`` is
-    for the convs.  One thread, per batch: the cut (the loader's next), the
-    inputs' pageable H2D and the forward with its counts read by ``int()``,
+    yardstick phase 3g races the port's loop against.  One thread, per
+    batch: the cut (the loader's next), the inputs' pageable H2D and the forward with its counts read by ``int()``,
     the kept rows rounded through float16 and widened back on the card,
     their pageable D2H, the numpy harvest.  Returns the arrays
     ``get_pointwise_preds`` returns; ``tm`` takes its timing keys."""
@@ -3593,8 +3331,8 @@ def main():
 
         # 8. one float32 training step, card against CPU
         train_step_check(tmp)
-        # 8b. the float32 route at full width: the plot against the SIMT
-        # route, 20 training steps, the 3xTF32 kernels' rows
+        # 8b. the float32 route at full width: the plot against the plain
+        # convs, 20 training steps, the 3xTF32 kernels' rows
         float32_phase(tmp, path, bf16_plot,
                       float(np.median(info["step_seconds"][1:])), rows)
 

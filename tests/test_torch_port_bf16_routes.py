@@ -56,14 +56,14 @@ def _check_conv_plan(cin, cout, v, k):
 def test_bf16_conv_and_dx_plans_take_wgmma(cin, cout, k):
     """Every bf16 conv and its dx (the conv with Cin and Cout swapped) at
     K = 27, 125, 343 and these widths takes the tensor-core route at every
-    level size, inside a block's shared memory; beyond K = 343 the SIMT
-    kernel keeps it."""
+    level size, inside a block's shared memory; beyond K = 343 the plain
+    version takes it."""
     from treelearn_tpu_torch.ops.subm_conv import conv_plan
 
     for v in VS:
         _check_conv_plan(cin, cout, v, k)
         _check_conv_plan(cout, cin, v, k)
-    assert conv_plan(cin + cin % 8, cout, 1000, BF, 729).route == "simt"
+    assert conv_plan(cin + cin % 8, cout, 1000, BF, 729).route == "plain"
 
 
 @pytest.mark.parametrize("k", KS)
@@ -98,7 +98,7 @@ def test_bf16_dw_plans_take_wgmma(cin, cout, k):
 def test_float32_odd_widths_pad_onto_tf32x3(cin, cout):
     """float32 widths that are no multiple of 8 are zero-padded, in Cin and
     in Cout, onto the 3xTF32 conv and dW; the unpadded shape's plan is the
-    SIMT kernel's, which the wrappers never reach with it."""
+    plain version, which the wrappers never reach with it."""
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, cout_pad,
                                                    dw_plan, tensor_core_pad)
 
@@ -110,7 +110,7 @@ def test_float32_odd_widths_pad_onto_tf32x3(cin, cout):
             assert cin_p == -(-cin // 8) * 8 and cout_p == -(-cout // 8) * 8
             assert conv_plan(cin_p, cout_p, v, f32, k).route == "tf32x3"
             assert dw_plan(cin_p, cout_p, v, f32, k).route == "tf32x3"
-            assert conv_plan(cin, cout, v, f32, k).route == "simt"
+            assert conv_plan(cin, cout, v, f32, k).route == "plain"
 
 
 def _unpack(packed, k, cin, cout, bn):

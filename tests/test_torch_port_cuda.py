@@ -32,6 +32,15 @@ def _grid(device, seed=0, n=5000, ss=(40, 40, 30), batch=2):
         torch.from_numpy(keys.astype(np.int32)).to(device), ss)
 
 
+def _launched(before):
+    """Kernel launches counted since ``before`` (a copy of LAUNCHES), the
+    kernels that launched nothing left out."""
+    from treelearn_tpu_torch.ops import _cuda
+
+    return {n: c - before[n] for n, c in _cuda.LAUNCHES.items()
+            if c != before[n]}
+
+
 def test_rulebook_kernel_exact(cuda):
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.rulebook import subm_rulebook
@@ -54,10 +63,9 @@ def test_rulebook_kernel_exact(cuda):
     (list(range(27)), (3, 3, 3)),            # dense block
 ])
 def test_band_rulebook_kernel_small_cases(cuda, keys, ss):
-    """The band-form kernel, the 27-probe kernel it replaced and both plain
-    versions give the same rule, exactly."""
-    from treelearn_tpu_torch.ops.rulebook import (subm_rulebook,
-                                                  subm_rulebook_probes)
+    """The band-form kernel and both plain versions give the same rule,
+    exactly."""
+    from treelearn_tpu_torch.ops.rulebook import subm_rulebook
     from treelearn_tpu_torch.ops.sparse import (build_subm_rulebook,
                                                 build_subm_rulebook_banded,
                                                 grid_from_sorted_keys)
@@ -66,7 +74,6 @@ def test_band_rulebook_kernel_small_cases(cuda, keys, ss):
         torch.tensor(keys, dtype=torch.int32, device=cuda), ss)
     want = build_subm_rulebook(g, 3)
     assert torch.equal(subm_rulebook(g), want)
-    assert torch.equal(subm_rulebook_probes(g), want)
     assert torch.equal(build_subm_rulebook_banded(g), want)
 
 
@@ -143,8 +150,7 @@ def test_subm_conv_wgmma_matches_plain(cuda, cin, cout, v):
     got = subm_conv(x, w, rule)
     again = subm_conv(x, w, rule)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"] + 2
-    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"]
+    assert _launched(before) == {"subm_conv_wgmma": 2}
     assert torch.equal(got, again)
     want = plain(x, w, rule).float()
     scale = float(want.abs().max())
@@ -192,24 +198,6 @@ def test_pack_weight_kernel_matches_plain(cuda, cin, cout, bn):
                        pack_weight(mirrored(w), bn_m))
 
 
-def test_subm_conv_simt_entry_matches_plain(cuda):
-    """The SIMT kernel at a shape the routing gives to the tensor cores (the
-    yardstick entry), same limit."""
-    from treelearn_tpu_torch.ops import _cuda
-    from treelearn_tpu_torch.ops.sparse import subm_conv as plain
-    from treelearn_tpu_torch.ops.subm_conv import subm_conv_simt
-
-    gen = torch.Generator(device="cpu").manual_seed(3)
-    x = torch.randn(500, 64, generator=gen).to(cuda, torch.bfloat16)
-    w = (torch.randn(27, 64, 32, generator=gen) * 0.1).to(cuda, torch.bfloat16)
-    rule = _random_rule(gen, 500, 500, 0.4).to(cuda)
-    before = _cuda.LAUNCHES["subm_conv"]
-    got = subm_conv_simt(x, w, rule).float()
-    assert _cuda.LAUNCHES["subm_conv"] == before + 1
-    want = plain(x, w, rule).float()
-    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
-
-
 def test_subm_conv_wrapper_checks(cuda):
     from treelearn_tpu_torch.ops.subm_conv import subm_conv
 
@@ -246,11 +234,11 @@ def test_vert_kernel_matches_plain(cuda):
 @pytest.mark.parametrize("table", ["xyz", "xy"])
 @pytest.mark.parametrize("kind", ["random", "forest", "lattice", "single_cell",
                                   "empty_cells", "apart", "cloud"])
-def test_vert_group_kernel_matches_plain_and_serial(cuda, kind, table):
-    """The cell-group kernel on both tables against its plain version and
-    the one-thread-a-query kernel it replaced: counts exact (the same
-    rounded distance test), moments within 1e-4 of each column's scale
-    (float32 sums in another order); two launches give the same bits."""
+def test_vert_group_kernel_matches_plain(cuda, kind, table):
+    """The cell-group kernel on both tables against its plain version:
+    counts exact (the same rounded distance test), moments within 1e-4 of
+    each column's scale (float32 sums in another order); two launches give
+    the same bits."""
     from test_torch_port_redesign3 import _vert_cloud
 
     from treelearn_tpu_torch.ops import _cuda, vert
@@ -272,15 +260,6 @@ def test_vert_group_kernel_matches_plain_and_serial(cuda, kind, table):
     assert torch.equal(m[:, 0], mp[:, 0])
     scale = mp.abs().amax(0).clamp(min=1e-12)
     assert float(((m - mp).abs() / scale).max()) <= 1e-4
-    pxy = vert.prepare_xy(refs, queries, 0.6)
-    ms = vert.moments_serial(pxy)
-    assert _cuda.LAUNCHES["vert"] == before + 2
-    got = torch.empty_like(m)
-    got[p.q_order] = m
-    old = torch.empty_like(ms)
-    old[pxy.q_order] = ms
-    assert torch.equal(got[:, 0], old[:, 0])
-    assert float(((got - old).abs() / scale).max()) <= 1e-4
 
 
 def test_vert_group_kernel_lone_queries_split_their_candidates(cuda):
@@ -311,11 +290,11 @@ def test_cc_kernel_matches_plain(cuda):
 
 @pytest.mark.parametrize("kind", ["random", "clumped", "edge", "one_cell",
                                   "single", "ring", "dense"])
-def test_cc_cell_kernel_matches_plain_and_serial(cuda, kind):
+def test_cc_cell_kernel_matches_plain(cuda, kind):
     """The cell-group kernel against the plain found bits (25 searches, full
-    walks), its own route in PyTorch (band lookup, box prune) and the
-    one-thread-a-point kernel it replaced: exact.  ring: partners on the eps
-    circle; dense: clumps of thousands of points a cell, sigma 0.05 m."""
+    walks) and its own route in PyTorch (band lookup, box prune): exact.
+    ring: partners on the eps circle; dense: clumps of thousands of points a
+    cell, sigma 0.05 m."""
     from test_torch_port_redesign3 import _cc_points
 
     from treelearn_tpu_torch.ops import _cuda, cc
@@ -340,8 +319,6 @@ def test_cc_cell_kernel_matches_plain_and_serial(cuda, kind):
     want = cc.found_bits_plain(p)
     assert torch.equal(got, want)
     assert torch.equal(cc.found_bits_plain(p, banded=True), want)
-    assert torch.equal(cc.found_bits_serial(p), want)
-    assert _cuda.LAUNCHES["cc"] == before + 1
     assert torch.equal(cc.neighbor_cells_banded(p.cell_keys),
                        cc.neighbor_cells_probes(p.cell_keys))
 
@@ -366,9 +343,7 @@ def test_input_conv_padded_route_matches_plain(cuda, v):
     out = subm_conv(x, w, rule)
     dw = subm_conv_dw(x, g, rule)
     torch.cuda.synchronize()
-    for name in ("subm_conv", "subm_conv_dw"):
-        assert _cuda.LAUNCHES[name] == before[name]
-        assert _cuda.LAUNCHES[name + "_wgmma"] == before[name + "_wgmma"] + 1
+    assert _launched(before) == {"subm_conv_wgmma": 1, "subm_conv_dw_wgmma": 1}
     want = plain(x, w, rule).float()
     assert out.shape == (v, 32) and dw.shape == (27, 4, 32)
     assert float((out.float() - want).abs().max()) <= 2e-2 * float(
@@ -453,10 +428,9 @@ def _knn_case(device, kind, k):
                                   "lone"])
 def test_knn_group_kernel_exact(cuda, kind, k):
     """The cooperative kernel against the plain pass and its own plain twin,
-    exactly; against the one-thread-a-query kernel it replaced wherever
-    distances do not tie (that kernel orders by distance alone)."""
+    exactly."""
     from treelearn_tpu_torch.ops.knn import (knn_pass, knn_pass_grouped_plain,
-                                             knn_pass_plain, knn_pass_serial)
+                                             knn_pass_plain)
 
     p = _knn_case(cuda, kind, k)
     qs = p.items[:, 2]
@@ -470,10 +444,6 @@ def test_knn_group_kernel_exact(cuda, kind, k):
     assert torch.equal(w, wp)
     if kind == "sparse":
         assert int((f < k).sum()) > 0
-    ws, fs = knn_pass_serial(p)
-    assert torch.equal(fs, f)
-    if kind != "ties":
-        assert torch.equal(ws, w)
     if kind in ("sparse", "ties"):
         wt, ft = knn_pass_grouped_plain(p)
         assert torch.equal(ft, f) and torch.equal(wt, w)
@@ -545,11 +515,10 @@ def test_subm_conv_dw_wgmma_matches_plain(cuda, cin, cout, v):
     guard the transposed operands, 192 -> 384 the Cout split, 32 -> 32 and
     224 -> 224 the slab pairs that straddle two offsets; V covers a lone
     row, ragged K steps and slots, and several chunks.  Two launches give
-    the same bits; the SIMT kernel agrees within the same limit."""
+    the same bits."""
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
-    from treelearn_tpu_torch.ops.subm_conv import (dw_plan, subm_conv_dw,
-                                                   subm_conv_dw_simt)
+    from treelearn_tpu_torch.ops.subm_conv import dw_plan, subm_conv_dw
 
     assert dw_plan(cin, cout, v).route == "wgmma"
     gen = torch.Generator(device="cpu").manual_seed(cin * 7 + cout + v)
@@ -563,16 +532,11 @@ def test_subm_conv_dw_wgmma_matches_plain(cuda, cin, cout, v):
     got = subm_conv_dw(x, g, rule)
     again = subm_conv_dw(x, g, rule)
     torch.cuda.synchronize()
-    assert (_cuda.LAUNCHES["subm_conv_dw_wgmma"]
-            == before["subm_conv_dw_wgmma"] + 2)
-    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"]
+    assert _launched(before) == {"subm_conv_dw_wgmma": 2}
     assert torch.equal(got, again)
     want = plain(x, g, rule)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-3 * scale
-    simt = subm_conv_dw_simt(x, g, rule)
-    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"] + 1
-    assert float((simt - want).abs().max()) <= 1e-3 * scale
 
 
 @pytest.mark.parametrize("v", [136, 8300])
@@ -701,22 +665,23 @@ def test_hdbscan_cluster_card_equals_cpu(cuda, monkeypatch):
     assert knot_recovery(card, 9)[2]
 
 
-@pytest.mark.parametrize("k_size", [3, 5])
+@pytest.mark.parametrize("k_size", [3, 5, 9])
 @pytest.mark.parametrize("dtype,cin,cout", [
     (torch.float32, 4, 32), (torch.float32, 32, 32), (torch.bfloat16, 32, 64),
     (torch.bfloat16, 96, 96)])
-def test_simt_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
-    """The SIMT conv, its dx and the SIMT dW at K = 27 and K = 125 (kernel
-    size 5, the route every bf16 K != 27 takes) against their
-    plain versions: the conv f32 rtol 1e-4 / bf16 2e-2 of max |out|, dW
-    1e-4 / 1e-3 of max |dW|; two dW launches give the same bits."""
+def test_routed_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
+    """The routed conv, its dx and its dW at K = 27, 125 and 729 against
+    their plain versions: the conv f32 rtol 1e-4 / bf16 2e-2 of max |out|,
+    dW 1e-4 / 1e-3 of max |dW|; two dW launches give the same bits.  At
+    K = 729 (kernel size 9) no conv kernel takes the shape: the conv and dx
+    count no launch, and the dW kernels, which take any offset count, count
+    theirs only where both widths are multiples of 8."""
     from treelearn_tpu_torch.model.network import level_rule
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain_dw
-    from treelearn_tpu_torch.ops.subm_conv import (mirrored,
-                                                   subm_conv_dw_simt,
-                                                   subm_conv_simt)
+    from treelearn_tpu_torch.ops.subm_conv import (mirrored, subm_conv,
+                                                   subm_conv_dw, subm_conv_dx)
 
     g_ = _grid(cuda, seed=4, n=3000)
     rule = level_rule(g_, k_size)
@@ -728,14 +693,22 @@ def test_simt_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
     w = (torch.randn(k, cin, cout, generator=gen) * 0.1).to(cuda, dtype)
     go = torch.randn(v, cout, generator=gen).to(cuda, dtype)
     before = dict(_cuda.LAUNCHES)
-    out = subm_conv_simt(x, w, rule)
-    dx = subm_conv_simt(go, w, rule, mirror=True)
-    dw = subm_conv_dw_simt(x, go, rule)
-    again = subm_conv_dw_simt(x, go, rule)
+    out = subm_conv(x, w, rule)
+    dx = subm_conv_dx(go, w, rule)
+    conv_launches = _launched(before)
+    before = dict(_cuda.LAUNCHES)
+    dw = subm_conv_dw(x, go, rule)
+    again = subm_conv_dw(x, go, rule)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"] + 2
-    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"] + 2
-    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"]
+    dw_launches = _launched(before)
+    suffix = "tf32" if dtype == torch.float32 else "wgmma"
+    if k_size == 9:
+        assert conv_launches == {}
+        assert dw_launches == ({} if cin % 8 else
+                               {"subm_conv_dw_" + suffix: 2})
+    else:
+        assert conv_launches == {"subm_conv_" + suffix: 2}
+        assert dw_launches == {"subm_conv_dw_" + suffix: 2}
     assert torch.equal(dw, again) and dw.shape == (k, cin, cout)
     for got, want in ((out, plain(x, w, rule)),
                       (dx, plain(go, mirrored(w), rule))):
@@ -753,7 +726,7 @@ def test_simt_conv_and_dw_any_kernel_size(cuda, k_size, dtype, cin, cout):
 
 def test_kernel_size_5_routes_and_counts(cuda):
     """At K = 125 the routed wrappers take the bf16 tensor-core kernels
-    (the 4 -> 32 input conv padded to 32 channels, no SIMT launch) and
+    (the 4 -> 32 input conv padded to 32 channels, no other launch) and
     agree with the plain versions."""
     from treelearn_tpu_torch.model.network import level_rule
     from treelearn_tpu_torch.ops import _cuda
@@ -773,9 +746,7 @@ def test_kernel_size_5_routes_and_counts(cuda):
     out = subm_conv(x, w, rule).float()
     dw = subm_conv_dw(x, go, rule)
     torch.cuda.synchronize()
-    for name in ("subm_conv", "subm_conv_dw"):
-        assert _cuda.LAUNCHES[name] == before[name]
-        assert _cuda.LAUNCHES[name + "_wgmma"] == before[name + "_wgmma"] + 1
+    assert _launched(before) == {"subm_conv_wgmma": 1, "subm_conv_dw_wgmma": 1}
     want = plain(x, w, rule).float()
     assert float((out - want).abs().max()) <= 2e-2 * float(want.abs().max())
     want = plain_dw(x, go, rule)
@@ -818,12 +789,8 @@ def test_bf16_wgmma_any_kernel_size_and_width(cuda, k_size, cin, cout, v):
     dx, dx2 = subm_conv_dx(go, w, rule), subm_conv_dx(go, w, rule)
     dw, dw2 = subm_conv_dw(x, go, rule), subm_conv_dw(x, go, rule)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"] + 4
-    assert (_cuda.LAUNCHES["subm_conv_dw_wgmma"]
-            == before["subm_conv_dw_wgmma"] + 2)
-    for name in ("subm_conv", "subm_conv_dw", "subm_conv_tf32",
-                 "subm_conv_dw_tf32"):
-        assert _cuda.LAUNCHES[name] == before[name], name
+    assert _launched(before) == {"subm_conv_wgmma": 4,
+                                 "subm_conv_dw_wgmma": 2}
     assert torch.equal(out, out2) and torch.equal(dx, dx2)
     assert torch.equal(dw, dw2)
     assert out.shape == (v, cout) and dx.shape == (v, cin)
@@ -860,7 +827,7 @@ def test_pack_weight_kernel_tail_slices(cuda, k, cin, cout, bn):
 
 
 # ---- the 3xTF32 float32 route (csrc/subm_conv_tf32.cu,
-# csrc/subm_conv_dw_tf32.cu): every tolerance is the SIMT rows' float32 one
+# csrc/subm_conv_dw_tf32.cu): the float32 tolerances of the rows above
 
 
 def _f32_case(gen, v, cin, cout, k=27, present=0.4):
@@ -894,8 +861,7 @@ def test_subm_conv_tf32_matches_plain(cuda, cin, cout, v):
     got = subm_conv(x, w, rule)
     again = subm_conv(x, w, rule)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["subm_conv_tf32"] == before["subm_conv_tf32"] + 2
-    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"]
+    assert _launched(before) == {"subm_conv_tf32": 2}
     assert torch.equal(got, again)
     want = plain(x, w, rule)
     scale = float(want.abs().max().clamp(min=1e-6))
@@ -950,9 +916,7 @@ def test_subm_conv_dw_tf32_matches_plain(cuda, cin, cout, k, v):
     got = subm_conv_dw(x, g, rule)
     again = subm_conv_dw(x, g, rule)
     torch.cuda.synchronize()
-    assert (_cuda.LAUNCHES["subm_conv_dw_tf32"]
-            == before["subm_conv_dw_tf32"] + 2)
-    assert _cuda.LAUNCHES["subm_conv_dw"] == before["subm_conv_dw"]
+    assert _launched(before) == {"subm_conv_dw_tf32": 2}
     assert torch.equal(got, again)
     want = plain(x, g, rule)
     assert got.shape == (k, cin, cout)
@@ -1018,11 +982,8 @@ def test_subm_conv_fn_float32_grads_through_tf32(cuda, k_size, cin, cout):
         res.append((out, xx.grad, ww.grad))
         if i == 0:
             torch.cuda.synchronize()
-            launched = {n: _cuda.LAUNCHES[n] - before[n] for n in before}
-    assert launched["subm_conv_tf32"] == 2
-    assert launched["subm_conv"] == 0
-    assert launched["subm_conv_dw_tf32"] == 1
-    assert launched["subm_conv_dw"] == 0
+            launched = _launched(before)
+    assert launched == {"subm_conv_tf32": 2, "subm_conv_dw_tf32": 1}
     for got, want in zip(*res):
         assert float((got - want).abs().max()) <= 1e-4 * float(
             want.abs().max())

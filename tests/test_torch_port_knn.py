@@ -42,8 +42,8 @@ def test_banded_matches_pallas_interpret_and_oracle(case, share, monkeypatch):
     monkeypatch.setattr(pk, "_INTERPRET", True)
     refs, labels, queries = case()
     log = {}
-    got = banded_knn_classify(refs, labels, queries, k=5,
-                              small_refs_kdtree=False, device="cpu", log=log)
+    got = banded_knn_classify(refs, labels, queries, k=5, device="cpu",
+                              log=log)
     jax_vote = pk.banded_knn_classify(refs, labels, queries, k=5,
                                       small_refs_kdtree=False)
     oracle = _oracle_vote(refs, labels, queries, 5)
@@ -123,6 +123,60 @@ def test_knn_classify_route_selection(env, route, monkeypatch):
     assert (call.route, call.n_refs, call.n_queries) == (route, 1600, 300)
     assert bool(call.rounds) == (route == "banded")
     assert (got == _oracle_vote(refs, labels, queries, 5)).mean() >= 0.998
+
+
+@pytest.mark.parametrize("env,route", [
+    ({}, "kdtree_small_refs"),
+    ({"TL_KNN_SMALL_REFS": "100", "TL_KNN_KDTREE_MIN_PAIRS": "1e5"},
+     "kdtree_backstop"),
+    ({"TL_KNN_SMALL_REFS": "100"}, "banded"),
+])
+def test_knn_classify_routes_are_logged_and_counted(env, route, monkeypatch):
+    """Under a span timer each route of knn_classify names itself three
+    ways: its KNN_LOG entry, its spans (knn.banded, or knn.kdtree and
+    knn.vote) and the counter knn.queries.<route>, which takes the call's
+    queries and no other route's counter does."""
+    from treelearn_tpu_torch.ops import cluster as pc
+    from treelearn_tpu_torch.utils.trace import SpanTimer
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    refs, labels, queries = _data(seed=7, n_ref=1200, n_q=200)
+    del pc.KNN_LOG[:]
+    with SpanTimer("cpu") as timer:
+        pc.knn_classify(refs, labels, queries, k=5, device="cpu")
+    assert [c.route for c in pc.KNN_LOG] == [route]
+    assert timer.counters() == {f"knn.queries.{route}": 200}
+    assert set(timer.summary()) == ({"knn.banded"} if route == "banded"
+                                    else {"knn.kdtree", "knn.vote"})
+
+
+def test_banded_knn_classify_reads_no_thresholds(monkeypatch):
+    """The port's banded_knn_classify leaves the route to knn_classify: the
+    environment's thresholds do not reach it, and its pair threshold is an
+    argument.  Below the problem's query x ref pairs it sends every query
+    to the host KD-tree backstop, with no banded round and no brute pass."""
+    from treelearn_tpu_torch.ops import cluster as pc
+    from treelearn_tpu_torch.ops.knn import banded_knn_classify
+
+    monkeypatch.setenv("TL_KNN_SMALL_REFS", str(1 << 30))
+    monkeypatch.setenv("TL_KNN_KDTREE_MIN_PAIRS", "1")
+    refs, labels, queries = _data(seed=8, n_ref=1200, n_q=200)
+    want = _oracle_vote(refs, labels, queries, 5)
+    log = {}
+    got = banded_knn_classify(refs, labels, queries, k=5, device="cpu",
+                              log=log)
+    assert log["rounds"] and (got == want).mean() >= 0.99
+
+    def no_brute(*args, **kwargs):
+        raise AssertionError("the backstop above min_pairs is the KD-tree")
+
+    monkeypatch.setattr(pc, "brute_knn", no_brute)
+    log = {}
+    got = banded_knn_classify(refs, labels, queries, k=5, min_pairs=1e3,
+                              device="cpu", log=log)
+    assert log["rounds"] == [] and log["n_brute"] == 200
+    assert (got == want).mean() >= 0.99
 
 
 def test_banded_route_label_guard(monkeypatch):

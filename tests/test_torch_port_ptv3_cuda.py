@@ -1,6 +1,6 @@
 """Point Transformer V3 on the card: kernels 2 and 3 at the xCPE's widest
 shape (Cin = Cout = 512, Cout split into two 256-wide blocks) against the
-plain conv and the SIMT kernel, the bf16 conv's autograd at 512, and the
+plain conv, the bf16 conv's autograd at 512, and the
 small PTv3 (tests/test_torch_port_ptv3.py) on the card against the CPU, its
 attention on the flash kernel."""
 
@@ -26,15 +26,14 @@ def _rule(gen, v, present):
 
 
 @pytest.mark.parametrize("v", [136, 8300, 70000])
-def test_conv_512_wgmma_matches_plain_and_simt(cuda, v):
+def test_conv_512_wgmma_matches_plain(cuda, v):
     """Kernel 2 at 512 -> 512 (bf16, two 256-wide Cout blocks) and its dx:
-    2e-2 of the output's max magnitude against the plain conv and the
-    SIMT kernel; two launches the same bits."""
+    2e-2 of the output's max magnitude against the plain conv; two launches
+    the same bits, and no other kernel launches."""
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv as plain
     from treelearn_tpu_torch.ops.subm_conv import (conv_plan, mirrored,
-                                                   subm_conv, subm_conv_dx,
-                                                   subm_conv_simt)
+                                                   subm_conv, subm_conv_dx)
 
     plan = conv_plan(512, 512, v)
     assert plan.route == "wgmma" and plan.bn * plan.n_splits == 512
@@ -48,27 +47,24 @@ def test_conv_512_wgmma_matches_plain_and_simt(cuda, v):
     again = subm_conv(x, w, rule)
     dx = subm_conv_dx(x, w, rule)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["subm_conv_wgmma"] == before["subm_conv_wgmma"] + 3
-    assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"]
+    assert {n: c - before[n] for n, c in _cuda.LAUNCHES.items()
+            if c != before[n]} == {"subm_conv_wgmma": 3}
     assert torch.equal(got, again)
     want = plain(x, w, rule).float()
     scale = float(want.abs().max())
     assert float((got.float() - want).abs().max()) <= 2e-2 * scale
-    simt = subm_conv_simt(x, w, rule).float()
-    assert float((simt - want).abs().max()) <= 2e-2 * scale
     want_dx = plain(x, mirrored(w), rule).float()
     assert float((dx.float() - want_dx).abs().max()) <= 2e-2 * float(
         want_dx.abs().max())
 
 
 @pytest.mark.parametrize("v", [1000, 70000])
-def test_dw_512_wgmma_matches_plain_and_simt(cuda, v):
+def test_dw_512_wgmma_matches_plain(cuda, v):
     """Kernel 3's dW at 512 x 512 x 27 on the tensor cores: 1e-3 of max
-    |dW| against the plain dW and the SIMT kernel; the same bits twice."""
+    |dW| against the plain dW; the same bits twice."""
     from treelearn_tpu_torch.ops import _cuda
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
-    from treelearn_tpu_torch.ops.subm_conv import (dw_plan, subm_conv_dw,
-                                                   subm_conv_dw_simt)
+    from treelearn_tpu_torch.ops.subm_conv import dw_plan, subm_conv_dw
 
     assert dw_plan(512, 512, v).route == "wgmma"
     gen = torch.Generator().manual_seed(v + 1)
@@ -85,8 +81,6 @@ def test_dw_512_wgmma_matches_plain_and_simt(cuda, v):
     want = plain(x, g, rule)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-3 * scale
-    simt = subm_conv_dw_simt(x, g, rule)
-    assert float((simt - want).abs().max()) <= 1e-3 * scale
 
 
 def _small_pass(device, dtype, seed=3):
@@ -105,15 +99,25 @@ def _small_pass(device, dtype, seed=3):
 def test_small_ptv3_on_card_matches_reference(cuda):
     """The small PTv3's training forward on the card in float32 (convs on
     3xTF32, attention on the memory-efficient kernel) and in bf16 (flash,
-    the bf16 wgmma convs), against the float32 reference on the card's own
-    draws: 1e-3 and 5e-2 of the outputs' norm."""
+    the bf16 wgmma convs: one launch of the dtype's tensor-core conv per
+    conv call), against the float32 reference on the card's own draws:
+    1e-3 and 5e-2 of the outputs' norm."""
     import reference_ptv3 as ref
     from treelearn_tpu_torch.ops import _cuda
 
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
         before = dict(_cuda.LAUNCHES)
-        model, b, out = _small_pass(cuda, dtype)
-        assert _cuda.LAUNCHES["subm_conv"] == before["subm_conv"]
+        calls = []
+        _cuda.set_recorder(lambda name, args: calls.append(name))
+        try:
+            model, b, out = _small_pass(cuda, dtype)
+        finally:
+            _cuda.set_recorder(None)
+        route = ("subm_conv_tf32" if dtype == torch.float32
+                 else "subm_conv_wgmma")
+        assert {n: c - before[n] for n, c in _cuda.LAUNCHES.items()
+                if c != before[n] and n.startswith("subm_conv")} == {
+                    route: calls.count("subm_conv")}
         params = {k: v.detach().clone() for k, v in
                   model.state_dict().items()}
         import test_torch_port_ptv3 as small

@@ -179,16 +179,16 @@ def test_conv_plan_fits_the_card(cin, cout):
     (32, 32, torch.float32), (224, 224, torch.float32),
     (4, 32, torch.bfloat16), (4, 32, torch.float32),
     (16, 24, torch.bfloat16), (32, 40, torch.bfloat16)])
-def test_conv_plan_routes_float32_and_odd_widths_to_simt(cin, cout, dtype):
+def test_conv_plan_routes_float32_and_odd_widths_to_plain(cin, cout, dtype):
     """Widths in multiples of 8 take the tensor-core route of their dtype
     (3xTF32 in float32, never the bf16 one; wgmma in bf16, 16 -> 24 and
     32 -> 40 since the bf16 kernel takes any multiple of 8); the plan of a
-    width that is none (the unpadded 4 -> 32 input conv) is the SIMT
-    kernel's, which the wrappers avoid by padding first."""
+    width that is none (the unpadded 4 -> 32 input conv) is the plain
+    version, which the wrappers avoid by padding first."""
     from treelearn_tpu_torch.ops.subm_conv import conv_plan
 
     tc = cin % 8 == 0 and cout % 8 == 0
-    want = ("simt" if not tc else "tf32x3" if dtype == torch.float32
+    want = ("plain" if not tc else "tf32x3" if dtype == torch.float32
             else "wgmma")
     assert conv_plan(cin, cout, 100000, dtype).route == want
 
@@ -261,17 +261,3 @@ def test_cpu_wrappers_take_the_plain_versions(monkeypatch):
         assert torch.equal(subm_conv(x, w, rule, n_live=400),
                            plain(x, w, rule, 400))
     assert _cuda.LAUNCHES == before
-
-
-def test_cuda_only_entries_refuse_cpu_tensors():
-    """The yardstick entries launch kernels and nothing else: a CPU tensor
-    raises instead of taking a plain version."""
-    from treelearn_tpu_torch.ops.rulebook import subm_rulebook_probes
-    from treelearn_tpu_torch.ops.subm_conv import subm_conv_simt
-
-    g = _grid([13, 14], (3, 3, 3))
-    with pytest.raises(ValueError):
-        subm_rulebook_probes(g)
-    with pytest.raises(ValueError):
-        subm_conv_simt(torch.zeros(2, 32), torch.zeros(27, 32, 32),
-                       torch.zeros(27, 2, dtype=torch.int32))

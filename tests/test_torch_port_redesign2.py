@@ -133,13 +133,11 @@ def test_grouped_walk_through_banded_route_matches_pallas(seed, monkeypatch):
 
     monkeypatch.setattr(pk, "_INTERPRET", True)
     refs, labels, queries = _data(seed=seed)
-    plain = knn.banded_knn_classify(refs, labels, queries, k=5,
-                                    small_refs_kdtree=False, device="cpu")
+    plain = knn.banded_knn_classify(refs, labels, queries, k=5, device="cpu")
     monkeypatch.setattr(knn, "CANDS_PER_PART", 16)
     monkeypatch.setattr(knn, "knn_pass_plain", knn.knn_pass_grouped_plain)
     log = {}
-    got = knn.banded_knn_classify(refs, labels, queries, k=5,
-                                  small_refs_kdtree=False, device="cpu",
+    got = knn.banded_knn_classify(refs, labels, queries, k=5, device="cpu",
                                   log=log)
     assert np.array_equal(got, plain)
     assert log["rounds"]
@@ -179,34 +177,35 @@ def test_dw_plan_fits_the_card_and_covers_the_rows(cin, cout, v):
     (32, 32, torch.float32), (224, 224, torch.float32),
     (4, 32, torch.bfloat16), (4, 32, torch.float32),
     (48, 32, torch.bfloat16), (32, 40, torch.bfloat16)])
-def test_dw_plan_routes_float32_and_odd_widths_to_simt(cin, cout, dtype):
+def test_dw_plan_routes_float32_and_odd_widths_to_plain(cin, cout, dtype):
     """Widths in multiples of 8 take the tensor-core dW of their dtype
     (3xTF32 in float32; wgmma in bf16, 48 x 32 and 32 x 40 since the bf16
     kernel takes any multiple of 8); the plan of a width that is none (the
-    unpadded 4 -> 32 input conv) is the SIMT kernel's, which the wrapper
-    avoids by padding first.  Either way the chunks cover every row
+    unpadded 4 -> 32 input conv) is the plain version, one chunk, which the
+    wrapper avoids by padding first.  Either way the chunks cover every row
     once."""
-    from treelearn_tpu_torch.ops.subm_conv import dw_chunks, dw_plan
+    from treelearn_tpu_torch.ops.subm_conv import dw_plan
 
     tc = cin % 8 == 0 and cout % 8 == 0
-    want = ("simt" if not tc else "tf32x3" if dtype == torch.float32
+    want = ("plain" if not tc else "tf32x3" if dtype == torch.float32
             else "wgmma")
     for v in DW_VS:
         plan = dw_plan(cin, cout, v, dtype)
         assert plan.route == want
         if not tc:
-            assert plan.n_chunks == dw_chunks(v, cin, cout)
+            assert plan.n_chunks == 1
         assert plan.n_chunks * plan.rows_per_chunk >= v
         assert (plan.n_chunks - 1) * plan.rows_per_chunk < v
 
 
 @pytest.mark.parametrize("cin,cout,v,dtype", [
     (32, 64, 1000, torch.bfloat16), (64, 32, 1234, torch.bfloat16),
-    (96, 96, 700, torch.bfloat16), (4, 32, 900, torch.float32)])
+    (96, 96, 700, torch.bfloat16), (8, 32, 900, torch.float32)])
 def test_chunked_two_pass_sum_equals_plain_dw(cin, cout, v, dtype):
     """The per-chunk partials of a plan, added in chunk order, are the plain
     weight gradient within 1e-5 of max |dW| (float32 sums in another
-    order)."""
+    order).  8 -> 32 in float32 is the 4 -> 32 input conv as the wrapper
+    pads it onto the 3xTF32 dW."""
     from treelearn_tpu_torch.ops.sparse import subm_conv_dw as plain
     from treelearn_tpu_torch.ops.subm_conv import dw_chunked_plain, dw_plan
 
@@ -249,19 +248,3 @@ def test_cpu_wrappers_take_the_plain_versions(monkeypatch):
     wp, fp = knn.knn_pass_plain(p)
     assert torch.equal(w, wp) and torch.equal(f, fp)
     assert _cuda.LAUNCHES == before
-
-
-def test_cuda_only_entries_refuse_cpu_tensors():
-    """The yardstick entries launch kernels and nothing else: a CPU tensor
-    raises instead of taking a plain version."""
-    from treelearn_tpu_torch.ops import knn
-    from treelearn_tpu_torch.ops.subm_conv import subm_conv_dw_simt
-
-    with pytest.raises(ValueError):
-        subm_conv_dw_simt(torch.zeros(2, 32), torch.zeros(2, 32),
-                          torch.zeros(27, 2, dtype=torch.int32))
-    refs, labels, queries = _data()
-    p = knn.prepare_pass(torch.from_numpy(refs), torch.from_numpy(labels),
-                         torch.from_numpy(queries), 0.5, 5)
-    with pytest.raises(ValueError):
-        knn.knn_pass_serial(p)

@@ -304,20 +304,21 @@ def test_float32_forward_and_dw_plans_take_tf32x3(cin, cout):
 @pytest.mark.parametrize("cin,cout", DX_SHAPES)
 def test_float32_dx_plans_take_tf32x3(cin, cout):
     """Every dx conv (Cin and Cout of the forward swapped) likewise; the
-    dx of a 4-channel input would stay on the SIMT kernel (4 output
-    channels), and the model never asks for it."""
+    dx of a 4-channel input would take the plain version (4 output
+    channels) but for the wrappers' padding, and the model never asks for
+    it unpadded."""
     from treelearn_tpu_torch.ops.subm_conv import conv_plan
 
     for v in PLOT_VOXELS + CROP_VOXELS:
         _check_conv_plan(cin, cout, v)
-    assert conv_plan(32, 4, 1000, torch.float32).route == "simt"
+    assert conv_plan(32, 4, 1000, torch.float32).route == "plain"
 
 
 @pytest.mark.parametrize("k", [125, 343])
 def test_large_kernel_sizes_fit(k):
     """kernel_size 5 (K = 125, the shapes of chip_smoke's k5 model: channels
     32, 2 levels) and 7 (K = 343, the largest rule tile the kernel takes)
-    fit a block; beyond that the SIMT kernel keeps the conv."""
+    fit a block; beyond that the plain version takes the conv."""
     from treelearn_tpu_torch.ops.subm_conv import TF32_MAX_OFFSETS, conv_plan
 
     for cin, cout in ((4, 32), (32, 32), (32, 64), (64, 64), (128, 64),
@@ -328,14 +329,14 @@ def test_large_kernel_sizes_fit(k):
             if cin != 4:
                 _check_conv_plan(cout, cin, v, k)
     assert TF32_MAX_OFFSETS == 343
-    assert conv_plan(32, 32, 1000, torch.float32, 729).route == "simt"
+    assert conv_plan(32, 32, 1000, torch.float32, 729).route == "plain"
 
 
 def _bf16_conv_plan_before(cin, cout, v, k):
     """kernel 2's bf16 plan as the repository had it before the 3xTF32
     route (the reference this route must leave alone)."""
     if k != 27 or cin == 0 or cout == 0 or cin % 32 or cout % 32:
-        return ("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
+        return ("plain", 0, 0, 0, 0, 0, 0, 0)
     n = 1
     while cout % n or (cout // n) % 32 or cout // n > 256:
         n += 1

@@ -16,13 +16,13 @@
 // version computes it, so points on the eps circle decide identically.
 //
 // Bound on the card: memory (8 B of coordinates read and 4 B written per
-// point, 28 B a cell).  One thread a point (cc_serial_kernel below, the
-// first version) is far from it: every point runs 25 binary searches over
-// the cell keys, though which cells neighbor a cell is the same for all its
-// points; a neighbor cell that holds nothing within eps is read to its end
-// by every point, which on offset-shifted coordinates under a trained head
-// is thousands of points a cell; and the lanes of a warp sit in different
-// cells with different walks.  The design:
+// point, 28 B a cell).  The first version, one thread a point, was far
+// from it: every point ran 25 binary searches over the cell keys, though
+// which cells neighbor a cell is the same for all its points; a neighbor
+// cell that holds nothing within eps was read to its end by every point,
+// which on offset-shifted coordinates under a trained head is thousands of
+// points a cell; and the lanes of a warp sat in different cells with
+// different walks.  The design:
 //
 // * A warp serves one work item of ops/cc.py:cell_items: up to 32 points of
 //   one cell.  Eight items share a block; nothing is block-wide.
@@ -221,48 +221,6 @@ cc_cell_kernel(const float2* __restrict__ pts,
   if (has && part == 0) out[p] = mask;
 }
 
-// The first version, kept as the timed yardstick: one thread per point
-// looks each of the 25 neighbor cells up in the sorted unique cell keys and
-// walks that cell's points out of global memory until one lies within eps.
-__global__ void cc_serial_kernel(const float* __restrict__ pts,
-                                 const int32_t* __restrict__ cell_ij,
-                                 const int32_t* __restrict__ cell_keys,
-                                 const int32_t* __restrict__ cell_start, int n,
-                                 int n_cells, int width, float eps2,
-                                 int32_t* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const float x = pts[2 * p], y = pts[2 * p + 1];
-  const int pi = cell_ij[2 * p], pj = cell_ij[2 * p + 1];
-  int32_t mask = 0;
-  for (int di = -2; di <= 2; ++di) {
-    const int ci = pi + di;
-    if (ci < 0) continue;
-    for (int dj = -2; dj <= 2; ++dj) {
-      const int cj = pj + dj;
-      if (cj < 0 || cj >= width) continue;
-      const int64_t key = (int64_t)ci * width + cj;
-      int lo = 0, hi = n_cells;
-      while (lo < hi) {
-        const int mid = lo + ((hi - lo) >> 1);
-        if ((int64_t)cell_keys[mid] < key) lo = mid + 1; else hi = mid;
-      }
-      if (lo >= n_cells || (int64_t)cell_keys[lo] != key) continue;
-      const int s = cell_start[lo], e = cell_start[lo + 1];
-      for (int r = s; r < e; ++r) {
-        const float dx = __fsub_rn(pts[2 * (int64_t)r], x);
-        const float dy = __fsub_rn(pts[2 * (int64_t)r + 1], y);
-        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        if (d2 <= eps2) {
-          mask |= 1 << ((di + 2) * 5 + (dj + 2));
-          break;
-        }
-      }
-    }
-  }
-  out[p] = mask;
-}
-
 }  // namespace
 
 // pts (N, 2) float32 sorted by cell key, cell_keys (C,) int32, cell_start
@@ -279,19 +237,5 @@ extern "C" int tl_cc_found_bits(const void* pts, const void* cell_keys,
       (const float2*)pts, (const int32_t*)cell_keys,
       (const int32_t*)cell_start, (const float4*)cell_box,
       (const int32_t*)items, n_items, n_cells, width, eps2, (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
-// The one-thread-a-point kernel: cell_ij (N, 2) int32.
-extern "C" int tl_cc_found_bits_serial(const void* pts, const void* cell_ij,
-                                       const void* cell_keys,
-                                       const void* cell_start, int n,
-                                       int n_cells, int width, float eps2,
-                                       void* out, void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  cc_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)pts, (const int32_t*)cell_ij, (const int32_t*)cell_keys,
-      (const int32_t*)cell_start, n, n_cells, width, eps2, (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Second pass of the weight-gradient kernels (subm_conv_dw.cu,
-// subm_conv_dw_wgmma.cu): dW = the per-chunk partials added in chunk order,
+// Second pass of the weight-gradient kernels (subm_conv_dw_wgmma.cu,
+// subm_conv_dw_tf32.cu): dW = the per-chunk partials added in chunk order,
 // one thread per entry, so the sum is the same bit for bit from run to run.
 
 #pragma once

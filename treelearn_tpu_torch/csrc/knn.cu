@@ -28,10 +28,10 @@
 //
 // Bound on the card: the float32 instruction rate (about 10 operations per
 // candidate ref and query) on clumped refs and in the late rounds, where a
-// few cells hold 10^4..10^5 candidates each; memory on sparse ones.  One
-// thread a query (knn_serial_kernel below, the first version) loses it to
-// dependent scalar loads from global memory and to warps that last as long
-// as their longest candidate list.  The design:
+// few cells hold 10^4..10^5 candidates each; memory on sparse ones.  The
+// first version, one thread a query, lost it to dependent scalar loads from
+// global memory and to warps that lasted as long as their longest candidate
+// list.  The design:
 //
 // * A block of 256 threads serves one work item of ops/knn.py:pass_items:
 //   `qs` queries of one group (a power of two) x P = 256 / qs candidate
@@ -241,75 +241,6 @@ knn_group_kernel(const float4* __restrict__ refs4, const float* __restrict__ q,
   n_found[qi] = cnt;
 }
 
-// The first version, kept as the timed yardstick: one thread a query walks
-// its ranges out of global memory and keeps K_MAX (d2, label) pairs by
-// distance alone.  (Among refs at exactly equal distance a nearer ref that
-// comes later can reorder the kept ones, so on tie-heavy data it may differ
-// from the plain version; the kernel above orders by (d2, position).)
-__global__ void knn_serial_kernel(const float* __restrict__ refs,
-                           const int32_t* __restrict__ labels,
-                           const float* __restrict__ q,
-                           const int32_t* __restrict__ ranges, int nq, int k,
-                           int32_t* __restrict__ winner,
-                           int32_t* __restrict__ n_found) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const float qx = q[3 * (int64_t)i], qy = q[3 * (int64_t)i + 1],
-              qz = q[3 * (int64_t)i + 2];
-  float bd[K_MAX];
-  int bl[K_MAX];
-#pragma unroll
-  for (int t = 0; t < K_MAX; ++t) {
-    bd[t] = __int_as_float(0x7f800000);  // +inf
-    bl[t] = -1;
-  }
-  int cnt = 0;
-  for (int band = 0; band < 3; ++band) {
-    const int s = ranges[6 * (int64_t)i + 2 * band];
-    const int e = ranges[6 * (int64_t)i + 2 * band + 1];
-    for (int r = s; r < e; ++r) {
-      const float dx = __fsub_rn(refs[3 * (int64_t)r], qx);
-      const float dy = __fsub_rn(refs[3 * (int64_t)r + 1], qy);
-      const float dz = __fsub_rn(refs[3 * (int64_t)r + 2], qz);
-      float cd = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                           __fmul_rn(dz, dz));
-      if (!(cd <= 1.f)) continue;
-      ++cnt;
-      int cl = labels[r];
-#pragma unroll
-      for (int t = 0; t < K_MAX; ++t) {
-        if (cd < bd[t]) {
-          const float td = bd[t];
-          const int tl = bl[t];
-          bd[t] = cd;
-          bl[t] = cl;
-          cd = td;
-          cl = tl;
-        }
-      }
-    }
-  }
-  const int found = cnt < k ? cnt : k;
-  int best = -1;
-  if (found == k) {
-    int best_count = 0;
-#pragma unroll
-    for (int a = 0; a < K_MAX; ++a) {
-      if (a >= k) break;
-      int c = 0;
-#pragma unroll
-      for (int b = 0; b < K_MAX; ++b)
-        if (b < k && bl[b] == bl[a]) ++c;
-      if (c > best_count || (c == best_count && bl[a] < best)) {
-        best_count = c;
-        best = bl[a];
-      }
-    }
-  }
-  winner[i] = best;
-  n_found[i] = found;
-}
-
 template <int K>
 int launch_group(const void* refs4, const void* q, const void* ranges,
                  const void* items, int n_items, void* winner, void* n_found,
@@ -340,18 +271,4 @@ extern "C" int tl_knn_vote(const void* refs4, const void* q,
 #undef TL_CASE
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// The one-thread-a-query kernel: refs (R, 3) float32, labels (R,) int32.
-extern "C" int tl_knn_vote_serial(const void* refs, const void* labels,
-                                  const void* q, const void* ranges, int nq,
-                                  int k, void* winner, void* n_found,
-                                  void* stream) {
-  if (k < 1 || k > K_MAX) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (nq + threads - 1) / threads;
-  knn_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)refs, (const int32_t*)labels, (const float*)q,
-      (const int32_t*)ranges, nq, k, (int32_t*)winner, (int32_t*)n_found);
-  return (int)cudaGetLastError();
 }

@@ -82,60 +82,13 @@ __global__ void rulebook_kernel(const int32_t* __restrict__ keys, int v,
     rule[(int64_t)(band * 3 + dz) * v + i] = found[dz];
 }
 
-// The 27-probe form this file held before the band form: one thread per
-// (offset, voxel), each with its own binary search over all keys.  Kept as
-// the yardstick the band form is timed against on the card.
-__global__ void rulebook_probes_kernel(const int32_t* __restrict__ keys, int v,
-                                       int sx, int sy, int sz,
-                                       int32_t* __restrict__ rule) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (int64_t)27 * v) return;
-  const int k = (int)(tid / v);
-  const int i = (int)(tid - (int64_t)k * v);
-  const int dx = k / 9 - 1;
-  const int dy = (k / 3) % 3 - 1;
-  const int dz = k % 3 - 1;
-
-  const int32_t key = keys[i];
-  const int z = key % sz;
-  const int r = key / sz;
-  const int y = r % sy;
-  const int x = (r / sy) % sx;
-
-  int32_t out = -1;
-  const int nx = x + dx, ny = y + dy, nz = z + dz;
-  if (nx >= 0 && nx < sx && ny >= 0 && ny < sy && nz >= 0 && nz < sz) {
-    const int64_t target = (int64_t)key + (int64_t)dx * sy * sz +
-                           (int64_t)dy * sz + dz;
-    int lo = 0, hi = v;
-    while (lo < hi) {
-      const int mid = lo + ((hi - lo) >> 1);
-      if ((int64_t)keys[mid] < target) lo = mid + 1; else hi = mid;
-    }
-    if (lo < v && (int64_t)keys[lo] == target) out = lo;
-  }
-  rule[tid] = out;
-}
-
-template <int ROWS, typename K>
-int launch(K kernel, const void* keys, int v, int sx, int sy, int sz,
-           void* rule, void* stream) {
-  const int threads = 256;
-  const int64_t total = (int64_t)ROWS * v;
-  const int64_t blocks = (total + threads - 1) / threads;
-  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)keys, v, sx, sy, sz, (int32_t*)rule);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int tl_rulebook(const void* keys, int v, int sx, int sy, int sz,
                            void* rule, void* stream) {
-  return launch<9>(rulebook_kernel, keys, v, sx, sy, sz, rule, stream);
-}
-
-extern "C" int tl_rulebook_probes(const void* keys, int v, int sx, int sy,
-                                  int sz, void* rule, void* stream) {
-  return launch<27>(rulebook_probes_kernel, keys, v, sx, sy, sz, rule, stream);
+  const int threads = 256;
+  const int64_t blocks = ((int64_t)9 * v + threads - 1) / threads;
+  rulebook_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)keys, v, sx, sy, sz, (int32_t*)rule);
+  return (int)cudaGetLastError();
 }

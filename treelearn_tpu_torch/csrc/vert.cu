@@ -23,13 +23,12 @@
 // runs in PyTorch afterwards.  No window, so nothing overflows.
 //
 // Bound on the card: the float32 rate (about 30 operations per in-radius
-// pair) on dense clouds, memory on sparse ones.  One thread a query over an
-// xy table (vert_serial_kernel below, the first version) loses it three
-// ways: it tests the whole vertical column of its 3 x 3 cells, 15-25 m of
-// stem and crown against a ball of 1.2 m; every thread reads its ranges
-// itself from global memory, 4 bytes at a stride of 12, so the 32 lanes of
-// a warp issue 32 addresses a load; and a warp lasts as long as its longest
-// walker.  The design:
+// pair) on dense clouds, memory on sparse ones.  The first version, one
+// thread a query over an xy table, lost it three ways: it tested the whole
+// vertical column of its 3 x 3 cells, 15-25 m of stem and crown against a
+// ball of 1.2 m; every thread read its ranges itself from global memory,
+// 4 bytes at a stride of 12, so the 32 lanes of a warp issued 32 addresses
+// a load; and a warp lasted as long as its longest walker.  The design:
 //
 // * The 3-D table cuts the candidates to the 27 cells around the query.
 // * A warp serves one work item of ops/vert.py:group_items: `qs` queries of
@@ -174,56 +173,6 @@ vert_group_kernel(const float4* __restrict__ refs4, const float* __restrict__ q,
   }
 }
 
-// The first version, kept as the timed yardstick: refs sorted by xy cell
-// (cell = radius), cell_start[c] .. cell_start[c + 1] is cell c = i * nj + j;
-// one thread per query visits the 3 x 3 cells around its own (three
-// contiguous ref ranges, one per cell row, whole columns) out of global
-// memory.
-__global__ void vert_serial_kernel(const float* __restrict__ refs,
-                                   const float* __restrict__ q,
-                                   const int32_t* __restrict__ q_cell,
-                                   const int32_t* __restrict__ cell_start,
-                                   int nq, int ni, int nj, float r2,
-                                   float* __restrict__ mom) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const float qx = q[3 * i], qy = q[3 * i + 1], qz = q[3 * i + 2];
-  const int qi = q_cell[2 * i], qj = q_cell[2 * i + 1];
-  float m[10];
-#pragma unroll
-  for (int t = 0; t < 10; ++t) m[t] = 0.f;
-  const int jlo = qj > 0 ? qj - 1 : 0;
-  const int jhi = qj + 1 < nj ? qj + 1 : nj - 1;
-  for (int di = -1; di <= 1; ++di) {
-    const int ci = qi + di;
-    if (ci < 0 || ci >= ni) continue;
-    const int64_t base = (int64_t)ci * nj;
-    const int s = cell_start[base + jlo];
-    const int e = cell_start[base + jhi + 1];
-    for (int r = s; r < e; ++r) {
-      const float dx = __fsub_rn(refs[3 * (int64_t)r], qx);
-      const float dy = __fsub_rn(refs[3 * (int64_t)r + 1], qy);
-      const float dz = __fsub_rn(refs[3 * (int64_t)r + 2], qz);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      if (d2 <= r2) {
-        m[0] += 1.f;
-        m[1] += dx;
-        m[2] += dy;
-        m[3] += dz;
-        m[4] += dx * dx;
-        m[5] += dx * dy;
-        m[6] += dx * dz;
-        m[7] += dy * dy;
-        m[8] += dy * dz;
-        m[9] += dz * dz;
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < 10; ++t) mom[10 * (int64_t)i + t] = m[t];
-}
-
 }  // namespace
 
 // refs4 (R, 4) float32 records, q (Q, 3) float32, ranges (G, 18) int32,
@@ -238,19 +187,5 @@ extern "C" int tl_vert_moments(const void* refs4, const void* q,
   vert_group_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const float4*)refs4, (const float*)q, (const int32_t*)ranges,
       (const int4*)items, n_items, r2, (float*)mom);
-  return (int)cudaGetLastError();
-}
-
-// The one-thread-a-query kernel over an xy table: refs (R, 3) float32.
-extern "C" int tl_vert_moments_serial(const void* refs, const void* q,
-                                      const void* q_cell,
-                                      const void* cell_start, int nq, int ni,
-                                      int nj, float r2, void* mom,
-                                      void* stream) {
-  const int threads = 128;
-  const int blocks = (nq + threads - 1) / threads;
-  vert_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)refs, (const float*)q, (const int32_t*)q_cell,
-      (const int32_t*)cell_start, nq, ni, nj, r2, (float*)mom);
   return (int)cudaGetLastError();
 }

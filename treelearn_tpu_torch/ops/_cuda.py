@@ -27,18 +27,16 @@ import time
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC = osp.join(_PKG, "csrc")
 BUILD_ROOT = osp.join(_PKG, "_build")
-SOURCES = ("rulebook.cu", "subm_conv.cu", "subm_conv_wgmma.cu",
-           "subm_conv_tf32.cu", "subm_conv_dw.cu", "subm_conv_dw_wgmma.cu",
-           "subm_conv_dw_tf32.cu", "vert.cu", "cc.cu", "knn.cu",
-           "devoxelize.cu")
+SOURCES = ("rulebook.cu", "subm_conv_wgmma.cu", "subm_conv_tf32.cu",
+           "subm_conv_dw_wgmma.cu", "subm_conv_dw_tf32.cu", "vert.cu", "cc.cu",
+           "knn.cu", "devoxelize.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"rulebook": 0, "subm_conv": 0, "subm_conv_wgmma": 0,
-            "subm_conv_tf32": 0, "subm_conv_dw": 0, "subm_conv_dw_wgmma": 0,
-            "subm_conv_dw_tf32": 0, "vert": 0, "cc": 0, "knn": 0,
-            "devoxelize_fwd": 0, "devoxelize_bwd": 0}
+LAUNCHES = {"rulebook": 0, "subm_conv_wgmma": 0, "subm_conv_tf32": 0,
+            "subm_conv_dw_wgmma": 0, "subm_conv_dw_tf32": 0, "vert": 0,
+            "cc": 0, "knn": 0, "devoxelize_fwd": 0, "devoxelize_bwd": 0}
 
 # optional observer of kernel inputs: recorder(name, args_dict)
 _RECORDER = None
@@ -53,11 +51,6 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # keys, V, sx, sy, sz, rule, stream
     "tl_rulebook": [_P, _I, _I, _I, _I, _P, _P],
-    "tl_rulebook_probes": [_P, _I, _I, _I, _I, _P, _P],
-    # feats, weight, rule, out, v_in, v_out, n_live, cin, cout, n_offsets,
-    # stream
-    "tl_subm_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "tl_subm_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # w, wpack, cin, cout, bn, n_offsets, mirror, stream
     "tl_pack_weight": [_P, _P, _I, _I, _I, _I, _I, _P],
     # feats, wpack, rule, out, v_out, n_live, cin, cout, n_offsets, bm, bn,
@@ -74,26 +67,17 @@ _SIGNATURES = {
     # rows_per_chunk, smem_bytes, stream
     "tl_subm_conv_dw_tf32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
-    # x, g, rule, partial, dw, v, cin, cout, n_offsets, n_chunks, stream
-    "tl_subm_conv_dw_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tl_subm_conv_dw_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # refs4, q, ranges, items, n_items, r2, moments, stream
     "tl_vert_moments": [_P, _P, _P, _P, _I, _F, _P, _P],
-    # refs, q, q_cell, cell_start, nq, ni, nj, r2, moments, stream
-    "tl_vert_moments_serial": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # pts, cell_keys, cell_start, cell_box, items, n_items, n_cells, width,
     # eps2, out, stream
     "tl_cc_found_bits": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    # pts, cell_ij, cell_keys, cell_start, n, n_cells, width, eps2, out, stream
-    "tl_cc_found_bits_serial": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # x, g, rule, partial, dw, v, cin, cout, n_offsets, bn, producers,
     # stages, n_chunks, rows_per_chunk, smem_bytes, stream
     "tl_subm_conv_dw_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
     # refs4, q, ranges, items, n_items, k, winner, n_found, stream
     "tl_knn_vote": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
-    # refs, labels, q, ranges, nq, k, winner, n_found, stream
-    "tl_knn_vote_serial": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # feats, v2p, out, n, v, lanes, stream
     "tl_devoxelize_fwd": [_P, _P, _P, _I, _I, _I, _P],
     # grad, p_order, v_start, dfeats, v, lanes, bf16, stream

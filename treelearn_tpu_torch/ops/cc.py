@@ -26,8 +26,7 @@ point itself is within eps.
 
 Cell indices are ``floor(x * f32(1 / cell))``, computed here once and handed
 to the kernel.  Bound on the card: memory (16 B read and 4 B written per
-point).  The first kernel (one thread a point, 25 searches and walks each)
-stays behind :func:`found_bits_serial` as the timed yardstick.
+point).
 """
 
 from __future__ import annotations
@@ -46,7 +45,6 @@ PROBE = 32          # the plain banded route's first walk, points a cell
 
 class CCProblem(NamedTuple):
     pts: torch.Tensor         # (N, 2) f32, sorted by cell key
-    cell_ij: torch.Tensor     # (N, 2) int32 (i, j) of each sorted point
     cell_keys: torch.Tensor   # (C,) int32 sorted unique cell keys
     cell_start: torch.Tensor  # (C + 1,) int32 sorted-row start of each cell
     cell_box: torch.Tensor    # (C, 4) f32 (xmin, ymin, xmax, ymax) of its points
@@ -76,8 +74,7 @@ def prepare(points_xy: torch.Tensor, eps: float) -> CCProblem:
     pts = points_xy[order, :2].contiguous()
     cell_start = cell_start.to(torch.int32)
     return CCProblem(
-        pts=pts, cell_ij=ij[order].to(torch.int32).contiguous(),
-        cell_keys=cell_keys.to(torch.int32), cell_start=cell_start,
+        pts=pts, cell_keys=cell_keys.to(torch.int32), cell_start=cell_start,
         cell_box=cell_boxes(pts, cell_id, len(cell_keys)),
         items=cell_items(cell_start), skeys=skeys, order=order,
         eps2=float(np.float32(float(eps) * float(eps))))
@@ -284,8 +281,8 @@ def _check(p: CCProblem) -> torch.Tensor:
     """Wrapper-side checks of a CUDA problem; returns the empty output."""
     _cuda.require(p.pts, "cc pts", torch.float32, 2)
     _cuda.require(p.cell_box, "cc cell_box", torch.float32, 2)
-    for t, name in ((p.cell_ij, "cell_ij"), (p.cell_keys, "cell_keys"),
-                    (p.cell_start, "cell_start"), (p.items, "items")):
+    for t, name in ((p.cell_keys, "cell_keys"), (p.cell_start, "cell_start"),
+                    (p.items, "items")):
         _cuda.require(t, f"cc {name}", torch.int32)
     n_cells = p.cell_keys.shape[0]
     if (p.pts.shape[1] != 2 or p.cell_box.shape != (n_cells, 4)
@@ -315,22 +312,6 @@ def found_bits(p: CCProblem) -> torch.Tensor:
         _cuda.stream_ptr(p.pts))
     _cuda.check(code, "tl_cc_found_bits")
     _cuda.LAUNCHES["cc"] += 1
-    return out
-
-
-def found_bits_serial(p: CCProblem) -> torch.Tensor:
-    """:func:`found_bits` through the one-thread-a-point kernel the present
-    one replaced (25 searches and walks a point): the yardstick it is timed
-    against on the card (chip_smoke.py, the card tests).  CUDA only; nothing
-    in the package calls it."""
-    out = _check(p)
-    if out.shape[0] == 0:
-        return out
-    code = _cuda.library().tl_cc_found_bits_serial(
-        p.pts.data_ptr(), p.cell_ij.data_ptr(), p.cell_keys.data_ptr(),
-        p.cell_start.data_ptr(), out.shape[0], p.cell_keys.shape[0],
-        GRID_WIDTH, p.eps2, out.data_ptr(), _cuda.stream_ptr(p.pts))
-    _cuda.check(code, "tl_cc_found_bits_serial")
     return out
 
 

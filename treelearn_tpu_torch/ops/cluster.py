@@ -172,7 +172,7 @@ def knn_classify(ref_pts: np.ndarray, ref_labels: np.ndarray,
         info = {}
         with span("knn.banded"):
             out = banded_knn_classify(ref_pts, labels, query_pts, k=k,
-                                      small_refs_kdtree=False, device=device,
+                                      min_pairs=min_pairs, device=device,
                                       log=info)
         count("knn.queries.banded", nq)
         KNN_LOG.append(KnnCall("banded", nr, nq, tuple(info["rounds"]),

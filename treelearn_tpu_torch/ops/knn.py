@@ -3,9 +3,10 @@
 Replaces the Pallas kernel ``_knn_kernel`` / ``_knn_pallas_call`` and the
 host pass around it (treelearn_tpu/ops/pallas_knn.py:48,125,216) and keeps
 the routing of ``banded_knn_classify`` (pallas_knn.py:310-421), in order:
-the small-refs host KD-tree, the pairs threshold, the ``>= 2^24`` label
-guard, the 2^14-query probe gate above 2^17 queries, escalation rounds that
-make the cell 4x coarser each time, and the exact backstop.
+the pairs threshold, the ``>= 2^24`` label guard, the 2^14-query probe gate
+above 2^17 queries, escalation rounds that make the cell 4x coarser each
+time, and the exact backstop.  The small-refs host KD-tree in front of them
+is ops/cluster.py:knn_classify's choice, which also reads the thresholds.
 
 A pass (:func:`prepare_pass`, :func:`knn_pass`) runs on the device: cell
 indices ``floor(x * f32(1/cell))`` (a reciprocal multiply, never a
@@ -29,14 +30,11 @@ of a group x ``256 / qs`` partitions of the group's candidates, stages the
 candidates through shared memory so that every staged ref serves all the
 block's queries, and merges the partitions' k nearest by (d2, position in
 the sorted refs), which is the serial walk's order, so the split is exact.
-:func:`knn_pass_grouped_plain` is that walk in PyTorch; the one-thread-a-
-query kernel it replaced stays behind :func:`knn_pass_serial` as the timed
-yardstick.
+:func:`knn_pass_grouped_plain` is that walk in PyTorch.
 """
 
 from __future__ import annotations
 
-import os
 import time
 from typing import NamedTuple
 
@@ -305,22 +303,6 @@ def knn_pass(p: KnnPass):
     return winner, n_found
 
 
-def knn_pass_serial(p: KnnPass):
-    """:func:`knn_pass` through the one-thread-a-query kernel the present
-    one replaced: the yardstick it is timed against on the card
-    (chip_smoke.py, the card tests).  CUDA only; nothing in the package
-    calls it."""
-    winner, n_found = _check_pass(p)
-    if winner.shape[0] == 0:
-        return winner, n_found
-    code = _cuda.library().tl_knn_vote_serial(
-        p.refs.data_ptr(), p.labels.data_ptr(), p.queries.data_ptr(),
-        p.ranges.data_ptr(), winner.shape[0], p.k, winner.data_ptr(),
-        n_found.data_ptr(), _cuda.stream_ptr(p.queries))
-    _cuda.check(code, "tl_knn_vote_serial")
-    return winner, n_found
-
-
 def banded_pass(ref_pts, ref_enc, query_pts, cell: float, k: int):
     """(winner (Q,) int64, done (Q,) bool) in input query order, neighbors
     restricted to distance <= ``cell`` (pallas_knn.py:_banded_knn_pass)."""
@@ -340,14 +322,15 @@ def _first_cell(ref_pts: np.ndarray) -> float:
 
 def banded_knn_classify(ref_pts: np.ndarray, ref_labels: np.ndarray,
                         query_pts: np.ndarray, k: int = 5,
-                        max_rounds: int = 6, small_refs_kdtree: bool = True,
+                        max_rounds: int = 6, min_pairs: float = 2e10,
                         device=None, log=None) -> np.ndarray:
     """Majority vote over the k nearest refs, banded passes with cell-size
     escalation on ``device``; exact against brute force up to float-equal
-    distance ties.  ``small_refs_kdtree=False`` forces the device path.
-    ``log``, when given, collects ``rounds`` as (n_queries, cell, done
-    share, seconds) and ``n_brute``, the stragglers the backstop
-    answered."""
+    distance ties.  Above ``min_pairs`` query x ref pairs the whole call,
+    or its stragglers, take the host KD-tree instead of the banded passes
+    or the brute backstop.  ``log``, when given, collects ``rounds`` as
+    (n_queries, cell, done share, seconds) and ``n_brute``, the stragglers
+    the backstop answered."""
     from ..device import resolve_device
     from .cluster import brute_knn, kdtree_knn, vote
 
@@ -363,10 +346,6 @@ def banded_knn_classify(ref_pts: np.ndarray, ref_labels: np.ndarray,
     base = int(enc.min()) if nr else 0
     enc = enc - base + 1          # labels >= 1, as the Pallas readout needs
 
-    small = int(os.environ.get("TL_KNN_SMALL_REFS", 1 << 17))
-    min_pairs = float(os.environ.get("TL_KNN_KDTREE_MIN_PAIRS", 2e10))
-    if small_refs_kdtree and nr and nr <= small:
-        return vote(enc[kdtree_knn(ref_pts, query_pts, k)]) + base - 1
     dev = resolve_device(device)
     result = np.full(nq, -1, np.int64)
     need = np.ones(nq, bool)

@@ -26,7 +26,7 @@ from . import _cuda
 from .sparse import SparseGrid, build_subm_rulebook
 
 
-def _rulebook_cuda(grid: SparseGrid, probes: bool) -> torch.Tensor:
+def _rulebook_cuda(grid: SparseGrid) -> torch.Tensor:
     keys = grid.keys
     _cuda.require(keys, "rulebook keys", torch.int32, 1)
     v = keys.shape[0]
@@ -34,15 +34,11 @@ def _rulebook_cuda(grid: SparseGrid, probes: bool) -> torch.Tensor:
     if v == 0:
         return rule
     sx, sy, sz = grid.spatial_shape
-    if not probes:
-        _cuda.record("rulebook", grid=grid)
-    lib = _cuda.library()
-    fn = lib.tl_rulebook_probes if probes else lib.tl_rulebook
-    code = fn(keys.data_ptr(), v, sx, sy, sz, rule.data_ptr(),
-              _cuda.stream_ptr(keys))
+    _cuda.record("rulebook", grid=grid)
+    code = _cuda.library().tl_rulebook(keys.data_ptr(), v, sx, sy, sz,
+                                       rule.data_ptr(), _cuda.stream_ptr(keys))
     _cuda.check(code, "tl_rulebook")
-    if not probes:
-        _cuda.LAUNCHES["rulebook"] += 1
+    _cuda.LAUNCHES["rulebook"] += 1
     return rule
 
 
@@ -54,11 +50,4 @@ def subm_rulebook(grid: SparseGrid) -> torch.Tensor:
     """
     if not grid.keys.is_cuda:
         return build_subm_rulebook(grid, 3)
-    return _rulebook_cuda(grid, probes=False)
-
-
-def subm_rulebook_probes(grid: SparseGrid) -> torch.Tensor:
-    """The same rule through the 27-probe kernel the band form replaced: the
-    yardstick it is timed against on the card (chip_smoke.py, the card
-    tests).  Nothing in the package calls it, and it is not counted."""
-    return _rulebook_cuda(grid, probes=True)
+    return _rulebook_cuda(grid)

@@ -26,9 +26,13 @@ registers.  No windows, so nothing can overflow.
   (:func:`tensor_core_pad`, :func:`cout_pad`): Cin to a multiple of 8 (in
   bf16 a Cin below 32, the 4 -> 32 input conv, to 32), Cout to a multiple
   of 8.  Zero channels add exactly.
-* csrc/subm_conv.cu, 64 voxels x 64 channels per block on the float32 SIMT
-  units, is routed nothing but K > 343: it stays as the yardstick the
-  tensor-core routes are timed against (:func:`subm_conv_simt`).
+* K > 343 (kernel size 9 and up; no shipped config) has no conv kernel:
+  the plan is ``"plain"`` and the wrappers run ops/sparse.py:subm_conv on
+  the card's tensors, as model/network.py:level_rule builds the rule of
+  any k other than 3 with the plain probe builder.  Its ``index_add_``
+  adds each output row at most once per offset, so it is deterministic
+  there too.  The dW kernels take any offset count; a dW width that is no
+  multiple of 8 at K > 343 takes ops/sparse.py:subm_conv_dw likewise.
 
 Kernel 3 replaces ``rule_conv_dw_banded`` (``_dw_kernel``,
 pallas_conv.py:438,415): every route sums per-chunk partial weight
@@ -43,9 +47,6 @@ deterministic (see the sources for why not atomics).
 * csrc/subm_conv_dw_tf32.cu, the float32 route: the same product in
   3xTF32, X_k^T from registers and G transposed into K-major hi and lo
   images by the consumers (:func:`dw_plan_tf32`).
-* csrc/subm_conv_dw.cu: 64 x 64 channel tiles on the float32 SIMT units,
-  routed nothing in the shipped paths; the yardstick
-  (:func:`subm_conv_dw_simt`).
 
 :class:`SubmConvFn` is the counterpart of ``rule_conv_ad``
 (pallas_conv.py:588-649): forward kernel 2; backward dx = kernel 2 on the
@@ -101,7 +102,7 @@ TF32_MAX_OFFSETS = 343  # kernel_size 7: the largest rule tile either
 class ConvPlan(NamedTuple):
     """What the launcher of kernel 2 uses for one shape."""
 
-    route: str        # "wgmma", "tf32x3" or "simt"
+    route: str        # "wgmma", "tf32x3" or "plain" (tiling fields 0)
     bm: int           # output voxels per block
     bn: int           # output channels per block
     n_splits: int     # blocks along Cout (n_splits * bn == cout)
@@ -188,8 +189,8 @@ def conv_plan(cin: int, cout: int, v: int,
 
     ``cin`` and ``cout`` multiples of 8 and at most ``TF32_MAX_OFFSETS``
     offsets: bf16 -> the wgmma kernel, float32 -> the 3xTF32 kernel
-    (:func:`conv_plan_tf32`).  Other widths are the plan of the SIMT
-    kernel: the wrappers zero-pad them onto the tensor cores first
+    (:func:`conv_plan_tf32`).  Anything else is ``"plain"``, the plain
+    version: the wrappers zero-pad other widths onto the tensor cores first
     (:func:`tensor_core_pad`, :func:`cout_pad`), so only K > 343 reaches
     it.
 
@@ -211,7 +212,7 @@ def conv_plan(cin: int, cout: int, v: int,
     """
     if (cin <= 0 or cout <= 0 or cin % TF32_K or cout % TF32_K
             or n_offsets > TF32_MAX_OFFSETS or dtype not in _DTYPES):
-        return ConvPlan("simt", 64, 64, -(-cout // 64), 32, 1, 0, 0)
+        return ConvPlan("plain", 0, 0, 0, 0, 0, 0, 0)
     if dtype == torch.float32:
         return conv_plan_tf32(cin, cout, v, n_offsets)
     bm, bn = 64, bf16_bn(cout)
@@ -237,17 +238,15 @@ def tensor_core_pad(cin: int, cout: int, v: int, dtype: torch.dtype,
                     n_offsets: int = N_OFFSETS) -> int:
     """Zero input channels to append so that a conv whose Cin is no
     multiple of 8, or its weight gradient, takes the tensor-core route of
-    its dtype; 0 where Cin already is one, or where the shape stays on the
-    SIMT kernel (K > ``TF32_MAX_OFFSETS``).  Zeros add exactly, so the
+    its dtype; 0 where Cin already is one, or where the shape takes the
+    plain version (K > ``TF32_MAX_OFFSETS``).  Zeros add exactly, so the
     result differs from the unpadded conv's by the order of its float32
     sums only.
 
     float32: to the next multiple of 8 (4 -> 8 for the input conv).  bf16:
     a Cin below one K slice to 32 (the 4 -> 32 input conv, whose plan,
     launches and bits this keeps), a wider one to the next multiple of 8.
-    At any row count ``v``, so that no bf16 shape takes the SIMT kernel:
-    below ~16,000 rows the padded input conv costs a few hundredths of a
-    millisecond more than the SIMT kernel would (launches; PERF.md)."""
+    At any row count ``v``."""
     if (cin <= 0 or not cin % TF32_K or cout <= 0 or dtype not in _DTYPES
             or n_offsets > TF32_MAX_OFFSETS):
         return 0
@@ -261,7 +260,7 @@ def cout_pad(cout: int, dtype: torch.dtype,
     """Zero output channels to append so that a conv, or its weight
     gradient, whose Cout is no multiple of 8 takes the tensor-core route of
     its dtype (the extra columns of the output or of dW are cut off
-    again); 0 where it is one or where the shape stays on the SIMT kernel.
+    again); 0 where it is one or where the shape takes the plain version.
     """
     if cout <= 0 or dtype not in _DTYPES or n_offsets > TF32_MAX_OFFSETS:
         return 0
@@ -416,7 +415,7 @@ def _pack_tf32_cuda(weight, cin, cout, bn, sk, n_offsets, mirror, stream):
     return packed
 
 
-def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
+def _conv_cuda(feats, weight, rule, n_live, mirror=False):
     """The CUDA routes of :func:`subm_conv`; with ``mirror`` the conv with
     ``mirrored(weight)``."""
     _cuda.require(feats, "subm_conv feats", _DTYPES, 2)
@@ -433,8 +432,6 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
     n_live = v_out if n_live is None else int(n_live)
     if v_out == 0:
         return torch.empty((0, cout), dtype=feats.dtype, device=feats.device)
-    if force_simt:
-        return _conv_launch(feats, w, rule, n_live, cout, mirror, True)
     if not mirror:
         _cuda.record("subm_conv", feats=feats, weight=w, rule=rule)
     pad_in = tensor_core_pad(cin, cout, v_out, feats.dtype, k)
@@ -450,17 +447,19 @@ def _conv_cuda(feats, weight, rule, n_live, force_simt=False, mirror=False):
     return out[:, :cout].contiguous() if pad_out else out
 
 
-def _conv_launch(feats, w, rule, n_live, cout, mirror=False,
-                 force_simt=False):
-    """Launch kernel 2 on checked inputs under the plan of their shape (the
-    SIMT kernel with ``force_simt``)."""
+def _conv_launch(feats, w, rule, n_live, cout, mirror=False):
+    """Launch kernel 2 on checked inputs under the plan of their shape, or
+    run the plain version where the plan is ``"plain"``."""
     k, cin = w.shape[0], feats.shape[1]
-    v_in, v_out = feats.shape[0], rule.shape[1]
-    out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
+    v_out = rule.shape[1]
     plan = conv_plan(cin, cout, v_out, feats.dtype, k)
+    if plan.route == "plain":
+        return subm_conv_plain(feats, mirrored(w) if mirror else w, rule,
+                               n_live)
+    out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(feats)
-    if plan.route == "tf32x3" and not force_simt:
+    if plan.route == "tf32x3":
         wpack = _pack_tf32_cuda(w, cin, cout, plan.bn, plan.bk, k, mirror,
                                 stream)
         code = lib.tl_subm_conv_tf32(
@@ -469,16 +468,6 @@ def _conv_launch(feats, w, rule, n_live, cout, mirror=False,
             plan.stages, plan.smem_bytes, stream)
         _cuda.check(code, "tl_subm_conv_tf32")
         _cuda.LAUNCHES["subm_conv_tf32"] += 1
-        return out
-    if plan.route == "simt" or force_simt:
-        if mirror:
-            w = mirrored(w)
-        fn = (lib.tl_subm_conv_f32 if feats.dtype == torch.float32
-              else lib.tl_subm_conv_bf16)
-        code = fn(feats.data_ptr(), w.data_ptr(), rule.data_ptr(),
-                  out.data_ptr(), v_in, v_out, n_live, cin, cout, k, stream)
-        _cuda.check(code, "tl_subm_conv")
-        _cuda.LAUNCHES["subm_conv"] += 1
         return out
     wpack = _pack_cuda(w, cin, cout, plan.bn, k, mirror, stream)
     code = lib.tl_subm_conv_wgmma(
@@ -508,7 +497,8 @@ def subm_conv(feats: torch.Tensor, weight: torch.Tensor, rule: torch.Tensor,
       first, the output cut back (:func:`tensor_core_pad`,
       :func:`cout_pad`: the 4 -> 32 input conv to 32 input channels in
       bf16, to 8 in float32);
-    * CUDA, K > 343 -> csrc/subm_conv.cu (counted as ``subm_conv``).
+    * CUDA, K > 343 -> the plain version on the card's tensors (not
+      counted).
 
     A kernel that fails to build or launch raises; no route gives way to
     another.
@@ -530,20 +520,8 @@ def subm_conv_dx(grad: torch.Tensor, weight: torch.Tensor,
     return _conv_cuda(grad, weight, rule, None, mirror=True)
 
 
-def subm_conv_simt(feats: torch.Tensor, weight: torch.Tensor,
-                   rule: torch.Tensor, n_live=None,
-                   mirror: bool = False) -> torch.Tensor:
-    """:func:`subm_conv` (with ``mirror``: :func:`subm_conv_dx`) through
-    csrc/subm_conv.cu whatever the shape: the yardstick the tensor-core
-    routes are timed against on the card (chip_smoke.py, the card tests).
-    Nothing in the package calls it."""
-    return _conv_cuda(feats, weight, rule, n_live, force_simt=True,
-                      mirror=mirror)
-
-
 DW_PARTIAL_BYTES = 64 << 20   # cap on kernel 3's per-chunk partials
-DW_TARGET_BLOCKS = 2048       # blocks in flight the SIMT dW kernel aims for
-DW_WGMMA_BLOCKS = 528         # the same for the tensor-core route: 4 an SM
+DW_WGMMA_BLOCKS = 528         # blocks in flight the dW plans aim for: 4 an SM
 DW_WGMMA_MIN_ROWS = 256       # fewer rows than this are not worth a chunk
 DW_WGMMA_STAGES = 4           # ring depth
 DW_WGMMA_PRODUCERS = 128      # producer threads; a ring slot holds a quarter
@@ -553,7 +531,7 @@ DW_WGMMA_PRODUCERS = 128      # producer threads; a ring slot holds a quarter
 class DwPlan(NamedTuple):
     """What the launcher of kernel 3 uses for one shape."""
 
-    route: str           # "wgmma", "tf32x3" or "simt"
+    route: str           # "wgmma", "tf32x3" or "plain" (one chunk)
     bn: int              # output channels per block
     n_splits: int        # blocks along Cout (n_splits * bn >= cout)
     producers: int       # wgmma: producer threads, 4 per row of a ring slot
@@ -568,21 +546,6 @@ def dw_smem_bytes(bn: int, producers: int, stages: int) -> int:
     of (2 + bn / 32) slabs of producers / 4 rows x 64 bytes, the mbarriers
     and the producer warps' flags."""
     return 1024 + stages * (2 + bn // 32) * (producers // 4) * 64 + 128 + 256
-
-
-def dw_chunks(v: int, cin: int, cout: int, n_offsets: int = N_OFFSETS) -> int:
-    """Row chunks of the SIMT dW kernel: enough blocks to fill the card, at
-    least 256 rows a chunk, partials under ``DW_PARTIAL_BYTES``."""
-    tiles = -(-cin // 64) * -(-cout // 64)
-    want = -(-DW_TARGET_BLOCKS // (n_offsets * tiles))
-    by_mem = max(1, DW_PARTIAL_BYTES // (n_offsets * cin * cout * 4))
-    return max(1, min(want, -(-v // 256), by_mem))
-
-
-def _dw_plan_simt(cin: int, cout: int, v: int,
-                  n_offsets: int = N_OFFSETS) -> DwPlan:
-    n = dw_chunks(v, cin, cout, n_offsets)
-    return DwPlan("simt", 64, -(-cout // 64), 0, 1, n, -(-max(v, 1) // n), 0)
 
 
 def dw_plan_wgmma(cin: int, cout: int, v: int,
@@ -679,18 +642,18 @@ def dw_plan(cin: int, cout: int, v: int,
     ``cin`` and ``cout`` multiples of 8, any offset count: bf16 -> the
     wgmma kernel (csrc/subm_conv_dw_wgmma.cu, :func:`dw_plan_wgmma`),
     float32 -> the 3xTF32 kernel (csrc/subm_conv_dw_tf32.cu,
-    :func:`dw_plan_tf32`).  Other widths are the SIMT kernel's plan
-    (csrc/subm_conv_dw.cu): the wrapper zero-pads them first, as it does
-    for the conv."""
+    :func:`dw_plan_tf32`).  Other widths are ``"plain"``, the plain
+    version: the wrapper zero-pads them first, as it does for the conv, so
+    only K > 343 keeps one."""
     if (cin <= 0 or cout <= 0 or cin % TF32_K or cout % TF32_K
             or dtype not in _DTYPES):
-        return _dw_plan_simt(cin, cout, v, n_offsets)
+        return DwPlan("plain", 0, 0, 0, 0, 1, max(v, 1), 0)
     if dtype == torch.float32:
         return dw_plan_tf32(cin, cout, v, n_offsets)
     return dw_plan_wgmma(cin, cout, v, n_offsets=n_offsets)
 
 
-def _dw_cuda(x, g, rule, force_simt=False):
+def _dw_cuda(x, g, rule):
     """The CUDA routes of :func:`subm_conv_dw`."""
     _cuda.require(x, "subm_conv_dw x", _DTYPES, 2)
     _cuda.require(g, "subm_conv_dw g", x.dtype, 2)
@@ -704,8 +667,6 @@ def _dw_cuda(x, g, rule, force_simt=False):
     if v == 0:
         return torch.zeros((k, cin, cout), dtype=torch.float32,
                            device=x.device)
-    if force_simt:
-        return _dw_launch(x, g, rule, _dw_plan_simt(cin, cout, v, k))
     _cuda.record("subm_conv_dw", x=x, g=g, rule=rule)
     pad_in = tensor_core_pad(cin, cout, v, x.dtype, k)
     pad_out = cout_pad(cout, x.dtype, k)
@@ -719,24 +680,16 @@ def _dw_cuda(x, g, rule, force_simt=False):
 
 
 def _dw_launch(x, g, rule, plan):
-    """Launch kernel 3 on checked inputs under ``plan``."""
+    """Launch kernel 3 on checked inputs under ``plan``, or run the plain
+    version where the plan is ``"plain"``."""
+    if plan.route == "plain":
+        return subm_conv_dw_plain(x, g, rule)
     v, cin = x.shape
     cout = g.shape[1]
     k = rule.shape[0]
     dw = torch.empty((k, cin, cout), dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     stream = _cuda.stream_ptr(x)
-    if plan.route == "simt":
-        partial = torch.empty((plan.n_chunks, k, cin, cout),
-                              dtype=torch.float32, device=x.device)
-        fn = (lib.tl_subm_conv_dw_f32 if x.dtype == torch.float32
-              else lib.tl_subm_conv_dw_bf16)
-        code = fn(x.data_ptr(), g.data_ptr(), rule.data_ptr(),
-                  partial.data_ptr(), dw.data_ptr(), v, cin, cout, k,
-                  plan.n_chunks, stream)
-        _cuda.check(code, "tl_subm_conv_dw")
-        _cuda.LAUNCHES["subm_conv_dw"] += 1
-        return dw
     # one chunk writes dW itself: no partials
     partial = dw if plan.n_chunks == 1 else torch.empty(
         (plan.n_chunks, k, cin, cout), dtype=torch.float32, device=x.device)
@@ -771,23 +724,15 @@ def subm_conv_dw(x: torch.Tensor, g: torch.Tensor,
       ``subm_conv_dw_tf32``);
     * widths that are no multiple of 8 are zero-padded onto those routes
       first (x and g get zero columns, dW is cut back: the 4 -> 32 input
-      conv's x to 32 channels in bf16, to 8 in float32); only K > 343, which
-      the conv leaves on the SIMT kernel, keeps such a width unpadded on
-      csrc/subm_conv_dw.cu (counted as ``subm_conv_dw``).
+      conv's x to 32 channels in bf16, to 8 in float32);
+    * CUDA, a width that is no multiple of 8 at K > 343 -> the plain
+      version on the card's tensors (not counted).
 
     A kernel that fails to build or launch raises; no route gives way to
     another."""
     if not x.is_cuda:
         return subm_conv_dw_plain(x, g, rule)
     return _dw_cuda(x, g, rule)
-
-
-def subm_conv_dw_simt(x: torch.Tensor, g: torch.Tensor,
-                      rule: torch.Tensor) -> torch.Tensor:
-    """:func:`subm_conv_dw` through csrc/subm_conv_dw.cu whatever the shape:
-    the yardstick the tensor-core routes are timed against on the card
-    (chip_smoke.py, the card tests).  Nothing in the package calls it."""
-    return _dw_cuda(x, g, rule, force_simt=True)
 
 
 def dw_chunked_plain(x: torch.Tensor, g: torch.Tensor, rule: torch.Tensor,

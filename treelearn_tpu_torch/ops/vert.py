@@ -35,9 +35,7 @@ pallas_vert.py:213 does, so thresholding at ``tau_vert`` sees the same
 rounding.
 
 Bound on the card: the float32 rate (about 30 operations per in-radius
-pair) on dense clouds, memory on sparse ones.  The first kernel (one thread
-a query over the whole columns of an xy table) stays behind
-:func:`moments_serial` as the timed yardstick.
+pair) on dense clouds, memory on sparse ones.
 """
 
 from __future__ import annotations
@@ -66,19 +64,6 @@ class VertProblem(NamedTuple):
     radius: float
     r2: float              # float32(radius * radius)
     table: str             # "xyz" or "xy"
-
-
-class VertProblemXY(NamedTuple):
-    """The first kernel's problem: an xy table, no ranges."""
-
-    refs: torch.Tensor        # (R, 3) f32, cell-sorted
-    queries: torch.Tensor     # (Q, 3) f32, cell-sorted
-    q_cell: torch.Tensor      # (Q, 2) int32 (i, j) cell of each query
-    cell_start: torch.Tensor  # (ni * nj + 1,) int32
-    q_order: torch.Tensor     # (Q,) int64: sorted row -> input row
-    ni: int
-    nj: int
-    r2: float
 
 
 def _cells(points: torch.Tensor, queries: torch.Tensor, radius: float):
@@ -259,58 +244,6 @@ def moments(p: VertProblem) -> torch.Tensor:
         _cuda.stream_ptr(p.queries))
     _cuda.check(code, "tl_vert_moments")
     _cuda.LAUNCHES["vert"] += 1
-    return out
-
-
-def prepare_xy(points: torch.Tensor, queries: torch.Tensor,
-               radius: float) -> VertProblemXY:
-    """The first kernel's problem: refs and queries sorted by xy cell (cell
-    = radius) and the dense cell-start table over the cells' bounding box."""
-    inv_cell = float(np.float32(1.0) / np.float32(radius))
-    ij_r = torch.floor(points[:, :2] * inv_cell).long()
-    ij_q = torch.floor(queries[:, :2] * inv_cell).long()
-    mins = torch.minimum(ij_r.min(0).values, ij_q.min(0).values)
-    ij_r -= mins
-    ij_q -= mins
-    ni = int(max(int(ij_r[:, 0].max()), int(ij_q[:, 0].max()))) + 1
-    nj = int(max(int(ij_r[:, 1].max()), int(ij_q[:, 1].max()))) + 1
-    if ni * nj >= 2**31 - 1:
-        raise ValueError(f"verticality cell grid {ni} x {nj} too large")
-    lin_r = ij_r[:, 0] * nj + ij_r[:, 1]
-    lin_r, order_r = torch.sort(lin_r, stable=True)
-    lin_q = ij_q[:, 0] * nj + ij_q[:, 1]
-    _, order_q = torch.sort(lin_q, stable=True)
-    counts = torch.bincount(lin_r, minlength=ni * nj)
-    cell_start = torch.zeros(ni * nj + 1, dtype=torch.int64,
-                             device=points.device)
-    cell_start[1:] = torch.cumsum(counts, 0)
-    return VertProblemXY(
-        refs=points[order_r, :3].contiguous(),
-        queries=queries[order_q, :3].contiguous(),
-        q_cell=ij_q[order_q].to(torch.int32).contiguous(),
-        cell_start=cell_start.to(torch.int32),
-        q_order=order_q, ni=ni, nj=nj,
-        r2=float(np.float32(radius * radius)))
-
-
-def moments_serial(p: VertProblemXY) -> torch.Tensor:
-    """(Q, 10) moments through the one-thread-a-query kernel over an xy
-    table that the present one replaced: the yardstick it is timed against
-    on the card (chip_smoke.py, the card tests).  CUDA only; nothing in the
-    package calls it."""
-    for t, name in ((p.refs, "refs"), (p.queries, "queries")):
-        _cuda.require(t, f"vert {name}", torch.float32, 2)
-    _cuda.require(p.q_cell, "vert q_cell", torch.int32, 2)
-    _cuda.require(p.cell_start, "vert cell_start", torch.int32, 1)
-    nq = p.queries.shape[0]
-    out = torch.empty((nq, 10), dtype=torch.float32, device=p.queries.device)
-    if nq == 0:
-        return out
-    code = _cuda.library().tl_vert_moments_serial(
-        p.refs.data_ptr(), p.queries.data_ptr(), p.q_cell.data_ptr(),
-        p.cell_start.data_ptr(), nq, p.ni, p.nj, p.r2, out.data_ptr(),
-        _cuda.stream_ptr(p.queries))
-    _cuda.check(code, "tl_vert_moments_serial")
     return out
 
 

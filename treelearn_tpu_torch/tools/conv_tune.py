@@ -17,9 +17,8 @@ levels, C -> C and the decoder's 2C -> C) it launches
 csrc/subm_conv_dw_wgmma.cu under every ring-slot size (producer warps: a slot
 holds 8 rows a warp), ring depth and block target (which sets the row
 chunks) that ``ops/subm_conv.py:dw_plan_wgmma`` can express, next to the
-plan ``dw_plan`` picks and to the SIMT kernel (csrc/subm_conv_dw.cu), each
-checked against the plain dW (1e-3 of max |dW|).  This is the measurement
-behind ``dw_plan``'s constants.
+plan ``dw_plan`` picks, each checked against the plain dW (1e-3 of max
+|dW|).  This is the measurement behind ``dw_plan``'s constants.
 """
 
 from __future__ import annotations
@@ -36,8 +35,7 @@ from ..ops.sparse import grid_from_sorted_keys
 from ..ops.sparse import subm_conv as plain_conv
 from ..ops.sparse import subm_conv_dw as plain_dw
 from ..ops.subm_conv import (BK, SMEM_LIMIT, conv_plan, dw_plan,
-                             dw_plan_wgmma, pack_weight, plan_smem_bytes,
-                             subm_conv_dw_simt)
+                             dw_plan_wgmma, pack_weight, plan_smem_bytes)
 
 # (grid shape, voxels, channels): the bench plot's level sizes, ~40 % dense
 LEVELS = [((128, 128, 64), 420575, 32), ((96, 96, 48), 176561, 64),
@@ -102,10 +100,8 @@ def tune_dw(dev, reps):
             want = plain_dw(x, g, rule)
             scale = float(want.abs().max())
             chosen = dw_plan(cin, c, n)
-            simt = cuda_ms(lambda: subm_conv_dw_simt(x, g, rule), reps)
             print(f"dW V={n} {cin}x{c}, {int((rule >= 0).sum()) / n:.1f} "
-                  f"inputs per voxel; dw_plan: {chosen}; SIMT kernel "
-                  f"(through its wrapper) {simt:.4f} ms")
+                  f"inputs per voxel; dw_plan: {chosen}")
             dw = torch.empty(27, cin, c, dtype=torch.float32, device=dev)
             seen = set()
             for producers in (128, 256):

@@ -15,8 +15,8 @@ trained-like grouping input (``data/synthetic.py:trained_like_xy``).
 * Found bits (csrc/cc.cu): the whole launch beside one work item alone (the
   wrapper's floor), the launch with ``eps2 = -1`` (neighbor lookup and box
   tests, every walk rejected) and with ``eps2 = 1e9`` (every neighbor cell
-  walked, each walk over after its first tile), and the one-thread-a-point
-  kernel.
+  walked, each walk over after its first tile), after a check against the
+  plain found bits on the kernel's route.
 
 Each time is the least of three means over ``--reps`` launches.  This is the
 measurement behind the item order and behind what PERF.md says is left in
@@ -58,9 +58,9 @@ def tune_vert(p, reps):
 
 
 def tune_cc(p, what, reps):
-    want = cc.found_bits(p)
-    if not torch.equal(cc.found_bits_serial(p), want):
-        raise AssertionError(f"cc {what}: the two kernels differ")
+    if not torch.equal(cc.found_bits(p), cc.found_bits_plain(p, banded=True)):
+        raise AssertionError(f"cc {what}: the kernel differs from the plain "
+                             "found bits")
     one = p._replace(items=p.items[:1].contiguous())
     print(f"cc {what} N={p.pts.shape[0]}: {p.items.shape[0]} items, kernel "
           f"{least_ms(lambda: cc.found_bits(p), reps):.4f} ms, one item "
@@ -69,8 +69,7 @@ def tune_cc(p, what, reps):
           f"{least_ms(lambda: cc.found_bits(p._replace(eps2=-1.0)), reps):.4f}"
           f" ms, every walk one tile "
           f"{least_ms(lambda: cc.found_bits(p._replace(eps2=1e9)), reps):.4f}"
-          f" ms, one-thread-a-point kernel "
-          f"{least_ms(lambda: cc.found_bits_serial(p), reps):.4f} ms")
+          f" ms")
 
 
 def main(argv=None):

@@ -12,9 +12,9 @@ phase 3b cuts it.  The escalation rounds are run as
 ``ops/knn.py:banded_knn_classify`` runs them (first cell, 4x coarser each
 round, the undone queries go on), and each round's pass is timed with CUDA
 events under every (``CANDS_PER_PART``, ``MIN_SLICE``) pair beside the pair
-``ops/knn.py`` ships and the one-thread-a-query kernel.  Every answer is
-checked against the shipped pair's.  This is the measurement behind those
-two constants; rerun it when csrc/knn.cu changes.
+``ops/knn.py`` ships.  Every answer is checked against the shipped pair's.
+This is the measurement behind those two constants; rerun it when
+csrc/knn.cu changes.
 """
 
 from __future__ import annotations
@@ -128,14 +128,11 @@ def main(argv=None):
     passes = rounds(refs, labels, queries, k)
     want = [knn.knn_pass(p) for _, p in passes]
     torch.cuda.synchronize()
-    serial = [cuda_ms(lambda p=p: knn.knn_pass_serial(p), args.reps)
-              for _, p in passes]
-    for i, ((cell, p), ms) in enumerate(zip(passes, serial)):
+    for i, (cell, p) in enumerate(passes):
         cand = (p.ranges[:, 1::2] - p.ranges[:, 0::2]).sum(1)
         print(f"round {i}: {p.queries.shape[0]} queries, cell {cell:.3f} m, "
               f"{p.groups.shape[0] - 1} groups, {int(cand.sum())} candidate "
-              f"refs, one-thread-a-query kernel {ms:.4f} ms")
-    print(f"one-thread-a-query kernel, all rounds: {sum(serial):.4f} ms")
+              f"refs")
     for cpp in (64, 128, 256, 512, 1024):
         for min_slice in (8, 16, 32, 64, 128):
             knn.CANDS_PER_PART, knn.MIN_SLICE = cpp, min_slice

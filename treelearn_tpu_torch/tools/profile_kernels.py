@@ -8,13 +8,12 @@ Each row is the mean of ``--reps`` launches between two CUDA events, after
 two warm-up launches: the JAX tool iterated each op inside one ``lax.scan``
 to hide its per-dispatch cost; a loop of launches timed by events on the
 card's stream is the same measurement.  Rows: ``voxelize_points``; kernel 1
-(the band-form rulebook) beside the 27-probe kernel it replaced and the
-plain ``searchsorted`` builder; ``build_downsample`` (its ``torch.unique``)
-and the whole 7-level plan build; the subm conv at C 32 and 64 over the
-level-0 rule (kernel 2 routed, the SIMT kernel, the plain gather conv);
-BatchNorm + ReLU on (V, 32) float32 with batch statistics; the devoxelize
-gather of every point from (V, 32).  ``--device cpu`` runs the plain
-versions on the host clock.
+(the band-form rulebook) beside the plain ``searchsorted`` builder;
+``build_downsample`` (its ``torch.unique``) and the whole 7-level plan
+build; the subm conv at C 32 and 64 over the level-0 rule (kernel 2 routed,
+the plain gather conv); BatchNorm + ReLU on (V, 32) float32 with batch
+statistics; the devoxelize gather of every point from (V, 32).
+``--device cpu`` runs the plain versions on the host clock.
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ def main(argv=None) -> dict:
 
     from ..model.blocks import BatchNorm
     from ..model.network import build_level_plans
-    from ..ops.rulebook import subm_rulebook, subm_rulebook_probes
+    from ..ops.rulebook import subm_rulebook
     from ..ops.sparse import (build_downsample, build_subm_rulebook,
                               grid_from_sorted_keys)
     from ..ops.voxelize import devoxelize, voxelize_points
@@ -69,16 +68,14 @@ def main(argv=None) -> dict:
     bench(f"voxelize_points ({len(pts)} pts)", vox)
     if cuda:
         bench("rulebook, band form (kernel 1)", lambda: subm_rulebook(grid0))
-        bench("rulebook, 27-probe kernel (replaced)",
-              lambda: subm_rulebook_probes(grid0))
     bench("rulebook, plain (27 searchsorted probe rows)",
           lambda: build_subm_rulebook(grid0, 3))
     bench("build_downsample (torch.unique)", lambda: build_downsample(grid0))
     print("\n-- full plan build (all 7 levels) --")
     bench("build_level_plans (depth 7)", lambda: build_level_plans(grid0, 7))
 
-    print("\n-- conv path (level-0 rule; kernel 2 routed / SIMT / plain, bf16 "
-          "on the card) --")
+    print("\n-- conv path (level-0 rule; kernel 2 routed / plain, bf16 on the "
+          "card) --")
     rule = subm_rulebook(grid0)
     rng = np.random.default_rng(0)
     dtype = torch.bfloat16 if cuda else torch.float32

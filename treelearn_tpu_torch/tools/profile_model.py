@@ -1,6 +1,6 @@
 """Model profiler: splits the forward into voxelize / plans / U-Net + heads on
 the card, gives the forward's MFU, and times the submanifold conv of every
-level three ways (port of tools/profile_model.py).
+level two ways (port of tools/profile_model.py).
 
     python -m treelearn_tpu_torch.tools.profile_model [--points N]
         [--levels L] [--reps R] [--bf16] [--trace DIR] [--device cpu]
@@ -10,10 +10,10 @@ rulebooks) and the full forward are timed apart (CUDA events: two warm-up
 calls, then the mean of ``--reps``), so their differences put the time on
 each stage.  Forward MFU is ``model/network.py:analytic_model_flops`` with
 the exact rule nnz over the H100's dense bf16 peak.  Then each level's conv
-at (V, C = channels (l + 1)) runs through kernel 2's routed plan, through
-the SIMT kernel and through the plain gather conv, each with its MFU; a
-kernel that disagrees with the plain conv fails the run.  ``--trace DIR``
-adds a ``torch.profiler`` trace of one warm forward as the pipeline runs it
+at (V, C = channels (l + 1)) runs through kernel 2's routed plan and
+through the plain gather conv, each with its MFU; a kernel that disagrees
+with the plain conv fails the run.  ``--trace DIR`` adds a
+``torch.profiler`` trace of one warm forward as the pipeline runs it
 (``pipeline/inference.py:forward_harvest`` on the plot as one batch: pinned
 H2D, forward, the packed float16 + int32 D2H, the wait on it, host arrays) and prints its summary (utils/trace.py).  ``--device cpu`` runs the plain versions on the host
 clock at a small ``--points``.
@@ -145,8 +145,8 @@ def main(argv=None) -> dict:
               f"{res['flops'] / 1e9:.1f} GFLOP, "
               f"{mfu_text(res['flops'], res['forward_ms'], dev)})")
 
-    print("\nper-level submanifold conv (kernel 2 routed / SIMT kernel / "
-          "plain gather; MFU of the bf16 peak):", flush=True)
+    print("\nper-level submanifold conv (kernel 2 routed / plain gather; "
+          "MFU of the bf16 peak):", flush=True)
     rng = np.random.default_rng(0)
     res["levels"] = []
     for lvl, plan in enumerate(plans):

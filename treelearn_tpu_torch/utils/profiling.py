@@ -141,14 +141,14 @@ def conv_agrees(got: torch.Tensor, want: torch.Tensor) -> tuple:
 
 def conv_rows(x: torch.Tensor, w: torch.Tensor, rule: torch.Tensor, device,
               reps: int) -> dict:
-    """One conv shape three ways: kernel 2 through its routed plan, the SIMT
-    kernel (``subm_conv_simt``) and the plain gather conv, each with its ms
-    and, for the two kernels, its error against the plain output.  Off the
-    card only the plain conv runs (the wrappers would take it too).
-    Raises if a kernel disagrees with the plain conv."""
+    """One conv shape two ways: kernel 2 through its routed plan and the
+    plain gather conv, each with its ms and, for the kernel, its error
+    against the plain output.  Off the card only the plain conv runs (the
+    wrapper would take it too).  Raises if the kernel disagrees with the
+    plain conv."""
     from ..ops.sparse import subm_conv as plain_conv
     from ..ops.subm_conv import (conv_plan, cout_pad, subm_conv,
-                                 subm_conv_simt, tensor_core_pad)
+                                 tensor_core_pad)
 
     want = plain_conv(x, w, rule)
     row = {"plain_ms": timed_ms(lambda: plain_conv(x, w, rule), device,
@@ -162,15 +162,13 @@ def conv_rows(x: torch.Tensor, w: torch.Tensor, rule: torch.Tensor, device,
     row["route"] = conv_plan(cin + tensor_core_pad(cin, cout, v, x.dtype, k),
                              cout + cout_pad(cout, x.dtype, k), v, x.dtype,
                              k).route
-    for name, fn in (("routed", subm_conv), ("simt", subm_conv_simt)):
-        ok, rel = conv_agrees(fn(x, w, rule), want)
-        if not ok:
-            raise AssertionError(
-                f"{name} conv V={rule.shape[1]} {w.shape[1]}->{w.shape[2]} "
-                f"{x.dtype}: error {rel:.3e} of max |out|")
-        row[f"{name}_err"] = rel
-        row[f"{name}_ms"] = timed_ms(lambda fn=fn: fn(x, w, rule), device,
-                                     reps)
+    ok, rel = conv_agrees(subm_conv(x, w, rule), want)
+    if not ok:
+        raise AssertionError(
+            f"routed conv V={rule.shape[1]} {w.shape[1]}->{w.shape[2]} "
+            f"{x.dtype}: error {rel:.3e} of max |out|")
+    row["routed_err"] = rel
+    row["routed_ms"] = timed_ms(lambda: subm_conv(x, w, rule), device, reps)
     return row
 
 
@@ -182,7 +180,5 @@ def conv_row_text(row: dict, device) -> str:
                 f"{row['flops'] / 1e9:.2f} GFLOP)")
     return (f"kernel 2 {row['route']} {row['routed_ms']:8.3f} ms "
             f"({mfu_text(row['flops'], row['routed_ms'], device)}, err "
-            f"{row['routed_err']:.1e}), SIMT {row['simt_ms']:8.3f} ms "
-            f"({mfu_text(row['flops'], row['simt_ms'], device)}, err "
-            f"{row['simt_err']:.1e}), {plain} "
+            f"{row['routed_err']:.1e}), {plain} "
             f"({mfu_text(row['flops'], row['plain_ms'], device)})")

@@ -152,8 +152,7 @@ def _check_knn(dev, rng):
     wp, fp = knn_pass_plain(p)
     if not (torch.equal(w, wp) and torch.equal(f, fp)):
         return "pass winners or found counts differ from the plain version"
-    ours = banded_knn_classify(ref_pts, ref_lab, q, k=5,
-                               small_refs_kdtree=False, device=dev)
+    ours = banded_knn_classify(ref_pts, ref_lab, q, k=5, device=dev)
     d2 = ((q[:, None, :] - ref_pts[None, :, :]) ** 2).sum(-1)
     idx = np.argsort(d2, axis=1)[:, :5]
     exact = np.array([np.bincount(ref_lab[r]).argmax() for r in idx])
