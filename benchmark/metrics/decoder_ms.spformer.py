@@ -1,0 +1,13 @@
+"""decoder_ms.spformer (ms): host milliseconds of the program's
+``spformer.decoder`` ranges (projections, the six layers, the seven
+predictions) in the traced window, per step."""
+
+from benchmark.yardstick.trace import span_seconds
+
+
+def read(ctx):
+    if "events" not in ctx or not ctx.get("steps"):
+        return None
+    t0, t1 = ctx["win"]
+    sec = span_seconds(ctx["events"], "spformer.decoder", t0, t1)
+    return 1e3 * sum(sec) / len(ctx["steps"]) if sec else None

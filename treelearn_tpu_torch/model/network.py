@@ -11,6 +11,13 @@ Input SubMConv3d (dim_coord + dim_feat -> channels, k=3) -> UBlock over
 same two heads, as wide as PTv3's output.  ``backbone="unet"`` (the
 default) is the U-Net above; any other value raises.
 
+``head="spformer"`` puts SPFormer's query decoder (model/spformer.py, its
+keys in ``spformer``) in place of the per-point gather and the two MLP
+heads: the U-Net's voxel features go to the decoder, which predicts
+instance masks over the voxels.  ``head="offset"`` (the default) is the
+per-point heads above; any other value raises, and so does the decoder on
+a backbone other than the U-Net.
+
 PyTorch runs eagerly, so every level works on its exact voxel count.  The
 JAX package's static ``voxel_capacity`` / ``level_capacities`` padding, the
 banded ``level_windows``, the ``fast_conv`` program variants, and the
@@ -44,8 +51,11 @@ from .blocks import (MLP, BatchNorm, LevelPlan, UBlock, Weight, init_bn,
 from .checkpoint import params_from_jax_numpy
 from .ptv3 import PTv3
 from .ptv3 import init_numpy as ptv3_init_numpy
+from .spformer import SPFormerHead
+from .spformer import init_numpy as spformer_init_numpy
 
 BACKBONES = ("unet", "ptv3")
+HEADS = ("offset", "spformer")
 
 
 def analytic_model_flops(n_vox_per_level, n_points: int, channels: int = 32,
@@ -126,12 +136,21 @@ class TreeLearn(nn.Module):
                  spatial_shape: Optional[Sequence[int]] = None,
                  max_num_points_per_voxel: int = 3, voxel_size: float = 0.1,
                  block_reps: int = 2, backbone: str = "unet",
-                 ptv3: Optional[dict] = None, **kwargs):
+                 ptv3: Optional[dict] = None, head: str = "offset",
+                 spformer: Optional[dict] = None, **kwargs):
         super().__init__()
         if backbone not in BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}; one of "
                              f"{BACKBONES}")
+        if head not in HEADS:
+            raise ValueError(f"unknown head {head!r}; one of {HEADS}")
+        if head == "spformer" and backbone != "unet":
+            raise ValueError(f"head 'spformer' runs on backbone 'unet' "
+                             f"only, not {backbone!r}")
+        if spformer and head != "spformer":
+            raise ValueError(f"spformer keys given with head {head!r}")
         self.backbone = backbone
+        self.head = head
         if kernel_size % 2 == 0 or kernel_size < 1:
             # the conv's input gradient mirrors the offsets (flip(0)), which
             # is the transpose only for a centred, odd kernel
@@ -161,8 +180,11 @@ class TreeLearn(nn.Module):
             {"0": Weight(kernel_size ** 3, self.in_channels, channels)})
         self.unet = UBlock(self.block_channels, block_reps, kernel_size)
         self.output_layer = nn.ModuleDict({"0": BatchNorm(channels)})
-        self.semantic_linear = MLP(channels, 2)
-        self.offset_linear = MLP(channels, 3)
+        if head == "spformer":
+            self.spformer = SPFormerHead(channels, **dict(spformer or {}))
+        else:
+            self.semantic_linear = MLP(channels, 2)
+            self.offset_linear = MLP(channels, 3)
         for name in self.fixed_modules:
             for m in getattr(self, name).modules():
                 if isinstance(m, BatchNorm):
@@ -219,6 +241,21 @@ class TreeLearn(nn.Module):
             sd.update(params_from_jax_numpy(params, state))
             self.load_state_dict(sd)
             return self
+        if self.head == "spformer":
+            # the U-Net as the offset head's model draws it (the seed's
+            # first four children), the decoder from the fifth
+            ss = (seed if isinstance(seed, np.random.SeedSequence)
+                  else np.random.SeedSequence(int(seed)))
+            params, state = self.init_numpy(ss)
+            for head in ("semantic_linear", "offset_linear"):
+                params.pop(head)
+                state.pop(head)
+            sd = params_from_jax_numpy(params, state)
+            sd.update({f"spformer.{k}": torch.from_numpy(v) for k, v in
+                       spformer_init_numpy(self.spformer,
+                                           ss.spawn(1)[0]).items()})
+            self.load_state_dict(sd)
+            return self
         self.load_state_dict(params_from_jax_numpy(*self.init_numpy(seed)))
         return self
 
@@ -229,7 +266,10 @@ class TreeLearn(nn.Module):
         valid (N,) bool -> dict with semantic_prediction_logits (N, 2),
         offset_predictions (N, 3), backbone_feats (N, channels) in float32,
         plus n_voxels and the (levels,) int32 tensors n_voxels_per_level
-        and rule_nnz_per_level on the inputs' device.
+        and rule_nnz_per_level on the inputs' device.  With the spformer
+        head the point-wise outputs give way to the decoder's
+        (model/spformer.py: ``pred_logits``, ``pred_scores``,
+        ``pred_masks``, ...), with ``voxel_ranges`` and ``v2p_map``.
 
         Its parts run under named spans (utils/trace.py: voxelize, plans,
         unet.L<l>, heads, devoxelize, counts), which record only while a
@@ -245,7 +285,8 @@ class TreeLearn(nn.Module):
                 coords, input_feats, batch_ids, valid, batch_size=batch_size,
                 voxel_size=self.voxel_size, max_pts=self.max_pts,
                 spatial_shape=self.spatial_shape, use_coords=self.use_coords,
-                use_feats=self.use_feats)
+                use_feats=self.use_feats,
+                elem_counts=self.head == "spformer")
             grid0 = grid_from_sorted_keys(vb.voxel_keys, vb.spatial_shape)
         if self.backbone == "ptv3":
             return self._forward_ptv3(vb, grid0, valid, batch_size,
@@ -261,6 +302,9 @@ class TreeLearn(nn.Module):
         x = self.unet(x, plans, 0)
         with span("heads"):
             x = torch.relu(self.output_layer["0"](x))
+        if self.head == "spformer":
+            return self._forward_spformer(x, vb, plans, compute_dtype,
+                                          coords.device)
         with span("devoxelize"):
             backbone_feats = devoxelize(x, vb)
         with span("heads"):
@@ -284,6 +328,25 @@ class TreeLearn(nn.Module):
             "n_voxels_per_level": n_voxels_per_level,
             "rule_nnz_per_level": rule_nnz_per_level,
         }
+
+    def _forward_spformer(self, x, vb, plans, compute_dtype, dev):
+        """The forward's decoder branch: SPFormer's predictions over each
+        element's voxels (model/spformer.py), with the element's voxel
+        ranges, the point -> voxel map and the level counts."""
+        ends = np.cumsum(vb.elem_counts).tolist()
+        ranges = [(e - n, e) for e, n in zip(ends, vb.elem_counts)]
+        out = self.spformer(x, ranges, compute_dtype)
+        with span("counts"):
+            n_voxels_per_level = torch.tensor(
+                [p.grid.n_active for p in plans], dtype=torch.int32,
+                pin_memory=dev.type == "cuda").to(dev, non_blocking=True)
+            rule_nnz_per_level = torch.stack(
+                [(p.rule >= 0).sum() for p in plans]).to(torch.int32)
+        out.update(voxel_ranges=ranges, v2p_map=vb.v2p_map,
+                   n_voxels=vb.n_voxels,
+                   n_voxels_per_level=n_voxels_per_level,
+                   rule_nnz_per_level=rule_nnz_per_level)
+        return out
 
     def _forward_ptv3(self, vb, grid0, valid, batch_size, compute_dtype, dev):
         """The forward's PTv3 branch: the same outputs, a level a stage

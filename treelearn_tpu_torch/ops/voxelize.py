@@ -34,6 +34,9 @@ class VoxelizedBatch(NamedTuple):
     # point index, invalid points last; devoxelize's backward on the card
     # builds its voxel -> point CSR from it (voxel_point_csr)
     order: torch.Tensor          # (N,) int64
+    # voxels of each batch element (their rows are consecutive, in element
+    # order), when asked for: read with n_voxels, in the same host read
+    elem_counts: Optional[tuple] = None
 
 
 def compute_voxel_ijk(coords: torch.Tensor, batch_ids: torch.Tensor,
@@ -63,14 +66,17 @@ def voxelize_points(coords: torch.Tensor, feats: torch.Tensor,
                     batch_size: int, voxel_size: float, max_pts: int = 3,
                     spatial_shape: Optional[Sequence[int]] = None,
                     use_coords: bool = False,
-                    use_feats: bool = False) -> VoxelizedBatch:
+                    use_feats: bool = False,
+                    elem_counts: bool = False) -> VoxelizedBatch:
     """Voxelize a flat point batch into a sorted sparse voxel grid.
 
     The pooled per-voxel feature is the mean of the first ``max_pts`` points
     (scan order) of ``[coords | feats]``; the coord part becomes ones unless
     ``use_coords``, the feat part unless ``use_feats``; the output order is
     ``[feats | coords]`` (reference tree_learn.py:149-156).  Points outside
-    ``spatial_shape`` are clamped onto its boundary.
+    ``spatial_shape`` are clamped onto its boundary.  With ``elem_counts``
+    the voxels of each batch element come back too, read in the same host
+    read as the voxel count.
     """
     n = coords.shape[0]
     dev = coords.device
@@ -93,7 +99,16 @@ def voxelize_points(coords: torch.Tensor, feats: torch.Tensor,
     live = sorted_keys != SENTINEL
     first_live = first & live
     uid = torch.cumsum(first_live, 0) - 1
-    n_voxels = int(first_live.sum())
+    if elem_counts:
+        per_elem = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+        per_elem.scatter_add_(
+            0, batch_ids.long()[order].clamp(0, batch_size - 1),
+            first_live.long())
+        per_elem = tuple(per_elem.tolist())
+        n_voxels = sum(per_elem)
+    else:
+        per_elem = None
+        n_voxels = int(first_live.sum())
     uid = torch.where(live, uid, n_voxels)
     v2p_map = torch.empty(n, dtype=torch.int64, device=dev)
     v2p_map[order] = uid
@@ -132,6 +147,7 @@ def voxelize_points(coords: torch.Tensor, feats: torch.Tensor,
         n_voxels=n_voxels,
         spatial_shape=spatial_shape,
         order=order,
+        elem_counts=per_elem,
     )
 
 

@@ -137,6 +137,9 @@ def make_dp_train_step(model, optimizer, scheduler, group: DPGroup, *,
     norm clip, the AdamW step and the schedule step, and the BatchNorm
     running statistics averaged over ranks.  Returns ``(loss, loss_dict)``
     of the global batch, equal on every rank."""
+    if getattr(model, "head", "offset") != "offset":
+        raise ValueError(f"data-parallel training sums the offset head's "
+                         f"losses; head {model.head!r} trains on one device")
     clip = (1.0 if grad_norm_clip is True
             else float(grad_norm_clip) if grad_norm_clip else None)
     params = [p for p in model.parameters() if p.requires_grad]

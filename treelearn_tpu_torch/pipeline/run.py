@@ -108,6 +108,14 @@ def run_treelearn_pipeline(config, config_path: Optional[str] = None,
     runs under a span of its name, its parts under ``<stage>.<part>`` spans
     (utils/trace.py); ``stage_seconds`` holds each stage's seconds and a
     ``stage[<name>]`` log line marks its end."""
+    head = (getattr(model, "head", None) if model is not None
+            else config.model.get("head", "offset"))
+    if head == "spformer":
+        raise ValueError(
+            "the pipeline groups the offset head's shifted points; the "
+            "spformer head predicts instance masks over voxels, and "
+            "instances from query masks merged across tiles are not "
+            "implemented")
     group = None
     if config.get("dist"):
         from ..parallel import make_mesh

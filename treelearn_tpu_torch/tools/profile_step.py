@@ -14,13 +14,17 @@ say where the forward's time goes.
 
 With ``--train``: ``--steps`` training steps of ``train/loop.py`` (of the
 U-Net, or with ``--backbone ptv3`` of Point Transformer V3 at its published
-widths under the same heads) on synthetic crops of the ``BENCH_RECIPE``
+widths under the same heads, or with ``--head spformer`` of SPFormer's query
+decoder at its published widths on the U-Net's ``--levels``) on synthetic
+crops of the ``BENCH_RECIPE``
 geometry (24 m crops, 10,000-16,000 points a tree, 80 % hard forests, lr
 1.5e-3, AdamW, warmup cosine, clip 1.0), host clock around each step (it
 ends when its loss is read, which waits for the card); the first step apart
 from the median of steps 2..N.
 ``--trace DIR`` then traces the last timed step's batch once more
-(utils/trace.py), beside that batch's own step time.
+(utils/trace.py), beside that batch's own step time; with ``--head
+spformer`` it also prints each decoder layer's open share (the
+``spformer.open_pairs.l<l>`` counters over the queries times the keys).
 """
 
 from __future__ import annotations
@@ -107,6 +111,12 @@ def train_steps(args, dev, dtype) -> dict:
 
         model = TreeLearn(backbone="ptv3", ptv3=dict(PUBLISHED),
                           spatial_shape=[side, side, 256])
+    elif args.head == "spformer":
+        from ..model.spformer import PUBLISHED
+
+        model = TreeLearn(channels=args.channels, num_blocks=args.levels,
+                          spatial_shape=[side, side, 256], head="spformer",
+                          spformer=dict(PUBLISHED))
     else:
         model = TreeLearn(channels=args.channels, num_blocks=args.levels,
                           spatial_shape=[side, side, 256])
@@ -163,7 +173,24 @@ def train_steps(args, dev, dtype) -> dict:
               f"untraced):")
         res["trace"] = trace_parts(lambda: float(step_fn(last)[0]),
                                    args.trace, "train_step", dev)
+        if args.head == "spformer":
+            res["open_share"] = open_shares(res["trace"]["counters"],
+                                            model.spformer.num_query)
+            print("open share of each decoder layer's mask: "
+                  + ", ".join(f"l{i + 1} {v:.4f}" for i, v in
+                              enumerate(res["open_share"])), flush=True)
     return res
+
+
+def open_shares(counters: dict, n_query: int) -> list:
+    """Per decoder layer, the share of (query, key) pairs its attention
+    mask left open, from one traced step's counters."""
+    keys = counters.get("spformer.keys", 0) * n_query
+    out, layer = [], 1
+    while f"spformer.open_pairs.l{layer}" in counters:
+        out.append(counters[f"spformer.open_pairs.l{layer}"] / max(keys, 1))
+        layer += 1
+    return out
 
 
 def main(argv=None) -> dict:
@@ -178,6 +205,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--backbone", choices=("unet", "ptv3"), default="unet",
                     help="with --train: the model's backbone (ptv3: the "
                     "published widths; --levels and --channels unused)")
+    ap.add_argument("--head", choices=("offset", "spformer"),
+                    default="offset",
+                    help="with --train: the model's head (spformer: "
+                    "SPFormer's decoder at its published widths)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--crops", type=int, default=4)

@@ -8,7 +8,9 @@ loop capped at ``examples_per_epoch``, a checkpoint every epoch
 (``work_dirs/<config>/epoch_<n>.pth``: net, optimizer, scheduler, epoch;
 the previous one is kept only on multiples of ``save_frequency``),
 validation every ``validation_frequency`` epochs (semantic accuracy at 0.5
-confidence and the offset loss), ``--resume`` from a saved epoch.  Runs on
+confidence and the offset loss; with ``model.head: spformer`` the instances
+of SPFormer's last prediction, model/spformer.py:spformer_instances, a
+crop), ``--resume`` from a saved epoch.  Runs on
 the card by default; ``--device cpu`` runs the plain PyTorch versions of
 the kernels.  ``--dist`` trains data-parallel over a torch.distributed
 process group (parallel/mesh.py; JAX tools/train.py:142-208): one process
@@ -56,9 +58,33 @@ def train_epoch(config, epoch, train_step, train_loader, logger, writer):
     return avg
 
 
+def validate_instances(config, epoch, eval_step, val_loader, logger,
+                       writer):
+    """The spformer head's validation: SPFormer's instances (its test
+    settings) a crop of the validation set."""
+    from ..model.spformer import spformer_instances
+
+    test_cfg = {k: config.model.spformer.get(k, v) for k, v in (
+        ("topk_insts", 100), ("score_thr", 0.0), ("npoint_thr", 100))}
+    found, crops = 0, 0
+    for batch in val_loader:
+        insts = spformer_instances(eval_step(batch), **test_cfg)
+        found += sum(len(r["scores"]) for r in insts)
+        crops += len(insts)
+    per_crop = found / max(crops, 1)
+    logger.info(f"[VALIDATION] [{epoch}/{config.epochs}] val/instances "
+                f"{per_crop:.2f} a crop")
+    writer.add_scalar("val/instances", per_crop, epoch)
+    return per_crop
+
+
 def validate(config, epoch, eval_step, val_loader, logger, writer):
     from ..eval import get_eval_components
     from ..train import point_wise_loss
+
+    if config.model.get("head", "offset") == "spformer":
+        return validate_instances(config, epoch, eval_step, val_loader,
+                                  logger, writer)
 
     logits_all, labels_all, off_pred_all, off_lab_all = [], [], [], []
     for batch in val_loader:

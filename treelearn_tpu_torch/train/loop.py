@@ -28,6 +28,7 @@ import torch
 
 from ..utils.trace import span
 from .losses import point_wise_loss, total_loss
+from .matching import instance_table, spformer_loss
 
 _BATCH_TENSORS = ("coords", "input_feats", "batch_ids", "valid", "masks_sem",
                   "masks_off", "semantic_labels", "offset_labels")
@@ -91,14 +92,25 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def batch_to_device(batch: dict, device) -> dict:
+def batch_to_device(batch: dict, device, instances: bool = False) -> dict:
     """The loader's numpy arrays that a step reads, as tensors on
-    ``device``."""
-    return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
-            for k in _BATCH_TENSORS if k in batch}
+    ``device``.  With ``instances`` (the spformer head's loss) also the
+    points' dense instance ids (``instance_ids``, from the batch's
+    ``instance_labels``) and each element's instance labels
+    (``instance_elems``, host arrays): train/matching.py:instance_table."""
+    out = {k: torch.from_numpy(np.asarray(batch[k])).to(device)
+           for k in _BATCH_TENSORS if k in batch}
+    if instances:
+        ids, out["instance_elems"] = instance_table(batch)
+        out["instance_ids"] = torch.from_numpy(ids).to(device)
+    return out
 
 
 def loss_from_output(output, batch):
+    """The head's loss: SPFormer's matched losses for the spformer head's
+    output (train/matching.py), else the point-wise losses."""
+    if "pred_masks" in output:
+        return spformer_loss(output, batch)
     sem_loss, off_loss = point_wise_loss(
         output["semantic_prediction_logits"], output["offset_predictions"],
         batch["masks_sem"] & batch["valid"],
@@ -120,11 +132,12 @@ def make_train_step(model, optimizer, scheduler=None, *, batch_size: int,
     clip = (1.0 if grad_norm_clip is True
             else float(grad_norm_clip) if grad_norm_clip else None)
     params = [p for p in model.parameters() if p.requires_grad]
+    instances = getattr(model, "head", "offset") == "spformer"
 
     def train_step(batch):
         model.train()
         with span("step.h2d"):
-            b = batch_to_device(batch, device)
+            b = batch_to_device(batch, device, instances)
         with span("step.forward"):
             output = model(b["coords"], b["input_feats"], b["batch_ids"],
                            b["valid"], batch_size=batch_size,
@@ -148,7 +161,9 @@ def make_train_step(model, optimizer, scheduler=None, *, batch_size: int,
 
 def make_eval_step(model, *, batch_size: int, compute_dtype=torch.float32,
                    device=None):
-    """Forward in eval mode without gradients over one padded batch."""
+    """Forward in eval mode without gradients over one padded batch (the
+    spformer head's predictions: model/spformer.py:spformer_instances
+    makes its instances)."""
     device = next(model.parameters()).device if device is None else device
 
     @torch.no_grad()
