@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero; nothing is swallowed):
 
 1. card:     name and power limit as nvidia-smi reports them;
-2. build:    the nine CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
+2. build:    the ten CUDA sources of treelearn_tpu_torch/csrc (one nvcc per
              source, all started together), build seconds and each kernel's
              ptxas registers / shared memory;
 3. pipeline: the port's main path, ``run_treelearn_pipeline`` in DBSCAN mode,
@@ -115,6 +115,16 @@ Phases (any failure exits nonzero; nothing is swallowed):
              the cell; ``launches``: phase 3's pipeline count for the
              forward, phase 6's training count for the backward;
              ``max_abs_err``: the kernel against the plain version);
+4c. mask:    the masked cross-attention kernels of ``csrc/mask_attn.cu``
+             at the SPFormer cell's shape (400 queries, 200,000 keys, 8
+             heads of 32), on a half-open random mask and a 2 % window
+             mask: the pack exact against the plain packer, forward and
+             backward against the plain version in float32 (relative
+             error of the largest entry), each timed beside its bound,
+             the plain version and SDPA's memory-efficient kernel under
+             the additive mask (``library_ms``): the ``mask_attn_pack``,
+             ``mask_attn_fwd``, ``mask_attn_bwd`` rows (``problem``
+             ``spformer_half`` / ``spformer_window``);
 5. check:    the port's pipeline on a small plot in float32, on the card and
              with the plain versions on the CPU, must give the same
              partition (ARI >= 0.999) and tree count; the card run's counts,
@@ -306,6 +316,12 @@ MAIN_PATH_KERNELS = ("rulebook", "subm_conv_wgmma", "vert", "cc",
 # 2^20 rows of which DEVOX_LIVE are points in DEVOX_VOXELS voxels
 DEVOX_CELLS = (("train_crops_35m", 32), ("train_ptv3_crops_35m", 64))
 DEVOX_ROWS, DEVOX_LIVE, DEVOX_VOXELS = 1 << 20, 580_000, 400_000
+# phase 4c: the SPFormer cell's masked cross-attention, one element:
+# queries, keys, heads of width 32 (train_spformer_crops_35m: 400 queries,
+# ~200,000 keys an element, 8 heads; 12 calls a step)
+MASK_ATTN_SHAPE = (400, 200_000, 8)
+# the SFU's exponentials a second: 132 SMs x 16 a clock x 1.98 GHz boost
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 DATAGEN_CROPS = 32            # gen_train_data's n_samples_total (shipped 25,000)
 DP_WORLD = 2                  # data-parallel ranks, sharing the one card
 DP_EXAMPLES = 16              # examples_per_epoch of phase 10a: 4 steps a rank
@@ -1061,6 +1077,150 @@ def check_devoxelize(lib_rows):
                 replaces=None, launches=None, max_abs_err=errs[name],
                 ms=ms, plain_ms=plain, bound_ms=b, bound_by="bytes",
                 library_ms=library))
+
+
+def mask_attn_logits(nq, k, kind, seed=0):
+    """Mask logits on the card: ``half`` about half the pairs open at
+    random (no tile empty, as the cell's first layers on random weights);
+    ``window`` each query open on 2 % of the keys around a centre of its
+    own (most tiles empty, as a trained model's masks)."""
+    import torch
+
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    p = torch.randn(nq, k, generator=g, device=CARD)
+    if kind == "window":
+        centre = torch.randint(0, k, (nq, 1), generator=g, device=CARD)
+        keys = torch.arange(k, device=CARD)[None]
+        p = p * 0.5 + torch.where((keys - centre).abs() < k // 100, 2.0,
+                                  -2.0)
+    return p
+
+
+def check_mask_attn(lib_rows):
+    """Phase 4c: the masked cross-attention kernels (csrc/mask_attn.cu) at
+    the SPFormer cell's shape, one element, on two masks: packing, forward
+    and backward held to the plain version (float32 on the same bf16
+    inputs) and timed beside their bound, the plain version and SDPA's
+    memory-efficient kernel under the additive bf16 mask (``library_ms``,
+    the route they replace).  Launches are left to the training cell."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from treelearn_tpu_torch.model.spformer import mask_bias
+    from treelearn_tpu_torch.ops.mask_attn import (
+        mask_attention, mask_attention_bwd_cuda, mask_attention_fwd_cuda,
+        mask_attention_plain, mask_pack_cuda, mask_pack_plain,
+        unpack_closed)
+
+    nq, k, heads = MASK_ATTN_SHAPE
+    d = heads * 32
+    scale = 32 ** -0.5
+    g = torch.Generator(device=CARD).manual_seed(1)
+    q = torch.randn(1, nq, d, generator=g, device=CARD).to(torch.bfloat16)
+    kv = torch.randn(k, 2 * d, generator=g, device=CARD).to(torch.bfloat16)
+    dout = torch.randn(1, nq, d, generator=g, device=CARD).to(torch.bfloat16)
+    for kind in ("half", "window"):
+        p = mask_attn_logits(nq, k, kind)
+        m = mask_pack_cuda(p)
+        want_m = mask_pack_plain(p)
+        if not all(torch.equal(getattr(m, f), getattr(want_m, f))
+                   for f in ("bits", "row_closed", "tiles", "stats")):
+            raise AssertionError(f"mask_attn_pack {kind}: kernel and plain "
+                                 "packs differ")
+        n_open, n_empty, n_tiles = (int(v) for v in m.stats.tolist())
+        qq = q.clone().requires_grad_(True)
+        kk = kv.clone().requires_grad_(True)
+        o = mask_attention(qq, kk, [m], [(0, k)], heads, scale)
+        o.backward(dout)
+        qf = q.float().requires_grad_(True)
+        kf = kv.float().requires_grad_(True)
+        want = mask_attention_plain(qf, kf, [m], [(0, k)], heads, scale)
+        want.backward(dout.float())
+        errs = {"mask_attn_fwd": rel_err(o.detach(), want.detach()),
+                "mask_attn_bwd": max(rel_err(qq.grad, qf.grad),
+                                     rel_err(kk.grad, kf.grad))}
+        del want, qf, kf
+        if errs["mask_attn_fwd"] > 2e-2 or errs["mask_attn_bwd"] > 5e-2:
+            raise AssertionError(f"mask_attn {kind}: kernels and plain "
+                                 f"version differ: {errs}")
+        # the kernels alone, on the wrappers' buffers
+        q2, kv2 = q[0], kv
+        out = torch.empty_like(q2)
+        lse = mask_attention_fwd_cuda(q2, kv2, m, heads, scale, out)
+        dq, dkv = torch.empty_like(q2), torch.empty_like(kv2)
+        # SDPA's memory-efficient kernel under the additive mask
+        closed = unpack_closed(m)
+        bias = mask_bias(closed, torch.bfloat16)
+        del closed
+
+        def hd(x):
+            return x.view(1, x.shape[0], heads, 32).transpose(1, 2)
+
+        ql = hd(q2).detach().requires_grad_(True)
+        kl = hd(kv2[:, :d]).detach().requires_grad_(True)
+        vl = hd(kv2[:, d:]).detach().requires_grad_(True)
+
+        def lib_fwd():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=bias, scale=scale)
+
+        lo = lib_fwd()
+        gl = hd(dout[0])
+        qp = q.float().requires_grad_(True)
+        kp = kv.float().requires_grad_(True)
+        plain_out = mask_attention_plain(qp, kp, [m], [(0, k)], heads, scale)
+        times = {
+            "mask_attn_pack": (
+                least_ms(lambda: mask_pack_cuda(p), reps=5),
+                cuda_ms(lambda: mask_pack_plain(p), reps=2, warmup=1), None),
+            "mask_attn_fwd": (
+                least_ms(lambda: mask_attention_fwd_cuda(
+                    q2, kv2, m, heads, scale, out), reps=5),
+                cuda_ms(lambda: mask_attention_plain(
+                    q, kv, [m], [(0, k)], heads, scale), reps=2, warmup=1),
+                least_ms(lib_fwd, reps=5)),
+            "mask_attn_bwd": (
+                least_ms(lambda: mask_attention_bwd_cuda(
+                    q2, kv2, m, out, lse, dout[0], heads, scale, dq, dkv),
+                    reps=5),
+                cuda_ms(lambda: torch.autograd.grad(
+                    plain_out, (qp, kp), dout.float(), retain_graph=True),
+                    reps=2, warmup=1),
+                least_ms(lambda: torch.autograd.grad(
+                    lo, (ql, kl, vl), gl, retain_graph=True), reps=5))}
+        del plain_out, qp, kp, lo, bias
+        words = m.bits.shape[1]
+        pair_exps = float(n_open) * heads
+        q_b, kv_b, bits_b = nq * d * 2, k * 2 * d * 2, nq * words * 4
+        bounds = {
+            "mask_attn_pack": (nq * k * 4 + bits_b, 0.0, 0.0),
+            "mask_attn_fwd": (q_b + kv_b + bits_b + q_b + nq * heads * 4,
+                              4.0 * d * n_open, pair_exps),
+            "mask_attn_bwd": (3 * q_b + kv_b + bits_b + 2 * nq * heads * 4
+                              + q_b + kv_b, 10.0 * d * n_open, pair_exps)}
+        for name, (ms, plain, library) in times.items():
+            nbytes, flops, exps = bounds[name]
+            b, by = bound(nbytes, flops, "bfloat16")
+            t_exp = exps / SFU_EXP_PER_S * 1e3
+            if t_exp > b:
+                b, by = t_exp, "exponentials"
+            lib = "" if library is None else (
+                f", SDPA memory-efficient {library:.3f} ms")
+            err = errs.get(name, 0.0)
+            log(f"  {name} {kind} (Q {nq}, K {k}, H {heads}, open "
+                f"{n_open / (nq * k):.3f}, tiles empty {n_empty}/{n_tiles}"
+                f"): rel err {err:.2e}, kernel {ms:.4f} ms, bound {b:.4f} ms "
+                f"({by}), plain {plain:.2f} ms{lib}")
+            lib_rows.append(dict(
+                name=name, route="cuda", problem=f"spformer_{kind}",
+                source="treelearn_tpu_torch/csrc/mask_attn.cu",
+                replaces=None, launches=None, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=library, open_share=n_open / (nq * k),
+                tiles_empty=n_empty, tiles=n_tiles))
+        del m, want_m, p, dq, dkv, out, lse
+        torch.cuda.empty_cache()
 
 
 def train_phase(tmp):
@@ -3311,6 +3471,8 @@ def main():
         for r in rows:
             if r["name"] == "devoxelize_fwd":
                 r["launches"] = launches["devoxelize_fwd"]
+        # 4c. the masked cross-attention at the SPFormer cell's shape
+        check_mask_attn(rows)
 
         # 5. end-to-end agreement on a small plot, float32
         small_plot_check(tmp)

@@ -1125,3 +1125,177 @@ def test_devoxelize_kernels_refuse_other_rows(cuda, c, dtype, error):
         devoxelize_cuda(feats, v2p)
     with pytest.raises(error):
         devoxelize_backward_cuda(grad, p_order, v_start)
+
+
+def _mask_logits(device, nq, k, seed):
+    """Mask logits (nq, k) float32 on the card: half the queries open
+    near one window of keys (so whole tiles close), the rest about half
+    open at random; exact zeros, negative zeros and NaNs among them, and
+    two rows with every entry negative."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = torch.randn(nq, k, generator=g, device=device)
+    centre = torch.randint(0, k, (nq, 1), generator=g, device=device)
+    keys = torch.arange(k, device=device)[None]
+    window = torch.where((keys - centre).abs() < max(1, k // 20), 2.0, -2.0)
+    p = torch.where(torch.arange(nq, device=device)[:, None] % 2 == 0,
+                    p * 0.5 + window, p)
+    flat = p.view(-1)
+    pick = torch.randint(0, flat.numel(), (3 * max(1, flat.numel() // 100),),
+                         generator=g, device=device)
+    third = len(pick) // 3
+    flat[pick[:third]] = 0.0
+    flat[pick[third:2 * third]] = -0.0
+    flat[pick[2 * third:]] = float("nan")
+    for r in (1, nq - 1):
+        p[r] = -torch.rand(k, generator=g, device=device) - 0.1
+    return p
+
+
+@pytest.mark.parametrize("nq,k", [(400, 200_000), (70, 1), (70, 33), (5, 100),
+                                  (130, 1000), (64, 129), (512, 4100)])
+def test_mask_pack_kernel_equals_plain(cuda, nq, k):
+    """tl_mask_attn_pack gives the plain packer's bits, all-closed rows,
+    tile bytes and counts exactly (so the skipped tiles are a plain
+    recount), and two launches the same bits."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.mask_attn import (mask_pack_cuda,
+                                                   mask_pack_plain)
+
+    p = _mask_logits(cuda, nq, k, seed=nq + k)
+    before = dict(_cuda.LAUNCHES)
+    m = mask_pack_cuda(p)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"mask_attn_pack": 1}
+    want = mask_pack_plain(p)
+    assert m.keys == want.keys
+    for name in ("bits", "row_closed", "tiles", "stats"):
+        assert torch.equal(getattr(m, name), getattr(want, name)), name
+    assert torch.equal(m.row_closed, (p < 0).all(-1))
+    assert int(m.row_closed.sum()) >= (2 if nq > 2 else 1)
+    assert torch.equal(mask_pack_cuda(p).bits, m.bits)
+
+
+def _mask_attn_problem(device, nq, ks, heads, seed=0):
+    from treelearn_tpu_torch.ops.mask_attn import mask_pack_cuda
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = heads * 32
+    q = torch.randn(len(ks), nq, d, generator=g, device=device)
+    kv = torch.randn(sum(ks), 2 * d, generator=g, device=device)
+    ranges, s = [], 0
+    for k in ks:
+        ranges.append((s, s + k))
+        s += k
+    masks = [mask_pack_cuda(_mask_logits(device, nq, k, seed + i))
+             for i, k in enumerate(ks)]
+    grad = torch.randn(len(ks), nq, d, generator=g, device=device)
+    return (q.to(torch.bfloat16), kv.to(torch.bfloat16), masks, ranges,
+            grad.to(torch.bfloat16))
+
+
+def _rel_rms(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("nq,ks,heads", [
+    (400, (200_000,), 8),           # the SPFormer cell's shape
+    (70, (100, 1000), 2), (20, (1, 33), 1), (130, (64, 129), 4),
+    (512, (3000, 5), 8)])
+def test_mask_attention_kernels_match_plain(cuda, nq, ks, heads):
+    """Forward and dq / dk / dv of the kernels against the plain version in
+    float32 on the same bf16 inputs: bf16 outputs and bf16 P in the
+    products, so 1 % RMS (the outputs' rounding is ~0.3 %); two runs give
+    the same bits; one forward and one backward launch an element."""
+    from treelearn_tpu_torch.ops import _cuda
+    from treelearn_tpu_torch.ops.mask_attn import (mask_attention,
+                                                   mask_attention_plain)
+
+    q, kv, masks, ranges, grad = _mask_attn_problem(cuda, nq, ks, heads)
+    scale = 32 ** -0.5
+    runs = []
+    for _ in range(2):
+        qq = q.clone().requires_grad_(True)
+        kk = kv.clone().requires_grad_(True)
+        before = dict(_cuda.LAUNCHES)
+        o = mask_attention(qq, kk, masks, ranges, heads, scale)
+        o.backward(grad)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"mask_attn_fwd": len(ks),
+                                     "mask_attn_bwd": len(ks)}
+        assert o.dtype == qq.grad.dtype == kk.grad.dtype == torch.bfloat16
+        runs.append((o.detach(), qq.grad, kk.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    qf = q.float().requires_grad_(True)
+    kf = kv.float().requires_grad_(True)
+    want = mask_attention_plain(qf, kf, masks, ranges, heads, scale)
+    want.backward(grad.float())
+    got = runs[0]
+    assert torch.isfinite(got[0]).all()
+    assert _rel_rms(got[0], want.detach()) < 1e-2
+    assert _rel_rms(got[1], qf.grad) < 2e-2
+    d = heads * 32
+    assert _rel_rms(got[2][:, :d], kf.grad[:, :d]) < 2e-2
+    assert _rel_rms(got[2][:, d:], kf.grad[:, d:]) < 2e-2
+
+
+def test_mask_attention_elements_never_mix(cuda):
+    """Changing the second element's keys and values moves nothing of the
+    first element's output, dq or key/value gradient, bit for bit."""
+    from treelearn_tpu_torch.ops.mask_attn import mask_attention
+
+    q, kv, masks, ranges, grad = _mask_attn_problem(cuda, 100, (3000, 2000),
+                                                    4, seed=3)
+    s, e = ranges[1]
+    kv2 = kv.clone()
+    kv2[s:e] = kv2[s:e] * 2
+    res = []
+    for k in (kv, kv2):
+        qq = q.clone().requires_grad_(True)
+        kk = k.clone().requires_grad_(True)
+        o = mask_attention(qq, kk, masks, ranges, 4, 32 ** -0.5)
+        o.backward(grad)
+        res.append((o[0].detach(), qq.grad[0], kk.grad[:ranges[0][1]]))
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+    assert not torch.equal(res[0][1], torch.zeros_like(res[0][1]))
+
+
+def test_mask_attention_refuses_other_shapes(cuda):
+    from treelearn_tpu_torch.ops.mask_attn import mask_attention
+
+    q, kv, masks, ranges, _ = _mask_attn_problem(cuda, 20, (100,), 2)
+    with pytest.raises(TypeError):
+        mask_attention(q.float(), kv.float(), masks, ranges, 2, 0.2)
+    with pytest.raises(ValueError):      # heads of width 16
+        mask_attention(q, kv, masks, ranges, 4, 0.25)
+    big, kv2, m2, r2, _ = _mask_attn_problem(cuda, 513, (100,), 2)
+    with pytest.raises(ValueError):
+        mask_attention(big, kv2, m2, r2, 2, 0.2)
+
+
+def test_spformer_decoder_on_card_takes_the_kernels(cuda):
+    """A bf16 SPFormer head on the card: each layer packs its mask once an
+    element and attends through the kernels (forward and backward), and the
+    gradients are finite."""
+    from treelearn_tpu_torch.model.spformer import SPFormerHead
+    from treelearn_tpu_torch.ops import _cuda
+
+    torch.manual_seed(0)
+    head = SPFormerHead(32, num_layer=2, num_query=40).to(cuda)
+    x = torch.randn(3000, 32, device=cuda)
+    before = dict(_cuda.LAUNCHES)
+    out = head(x, [(0, 1800), (1800, 3000)], dtype=torch.bfloat16)
+    loss = sum(p.float().square().mean() for p in out["pred_masks"][-1])
+    loss = loss + out["pred_logits"][-1].float().square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _launched(before) == {"mask_attn_pack": 4, "mask_attn_fwd": 4,
+                                 "mask_attn_bwd": 4}
+    assert out["mask_tiles"].shape == (2, 2)
+    assert int(out["mask_tiles"][0, 1]) == 1 * (-(-1800 // 64)
+                                                + -(-1200 // 64))
+    for p in head.parameters():
+        if p.grad is not None:
+            assert torch.isfinite(p.grad).all()

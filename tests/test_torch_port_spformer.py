@@ -210,11 +210,16 @@ def test_every_leaf_gradient_equals_reference(trained_pass):
     assert checked > 100
 
 
-def test_all_closed_row_is_opened():
+@pytest.mark.parametrize("route", ["mask_bias", "mask_attention_plain"])
+def test_all_closed_row_is_opened(route):
     """A query whose mask logits are all negative attends to every key of
-    its element; the others keep P < 0 closed; the reference agrees."""
+    its element; the others keep P < 0 closed; the reference agrees.  Both
+    routes: the CPU's SDPA under ``mask_bias`` of the closed mask, and the
+    plain masked attention from the packed bits (the kernels' reference)."""
     from treelearn_tpu_torch.model.spformer import (attention, closed_mask,
                                                     mask_bias)
+    from treelearn_tpu_torch.ops.mask_attn import (mask_attention_plain,
+                                                   mask_pack)
 
     g = torch.Generator().manual_seed(0)
     p = torch.randn(5, 40, generator=g)
@@ -225,7 +230,19 @@ def test_all_closed_row_is_opened():
     assert torch.equal(a[others], p[others] < 0)
     assert torch.equal(a, ref.closed_of(p))
     q, k, v = (torch.randn(1, 2, n, 8, generator=g) for n in (5, 40, 40))
-    o = attention(q, k, v, mask_bias(a, torch.float32), 8 ** -0.5)
+    if route == "mask_bias":
+        o = attention(q, k, v, mask_bias(a, torch.float32), 8 ** -0.5)
+    else:
+        m = mask_pack(p)
+        assert bool(m.row_closed[2]) and int(m.row_closed.sum()) == 1
+
+        def merged(x):      # (1, H, L, d) -> (L, H d)
+            return x[0].transpose(0, 1).reshape(x.shape[2], -1)
+
+        kv = torch.cat([merged(k), merged(v)], 1)
+        o = mask_attention_plain(merged(q)[None], kv, [m], [(0, 40)], 2,
+                                 8 ** -0.5)
+        o = o[0].view(5, 2, 8).transpose(0, 1)[None]
     assert torch.isfinite(o).all()
     want = torch.softmax(q @ k.transpose(-1, -2) * 8 ** -0.5, -1) @ v
     assert torch.allclose(o[0, :, 2], want[0, :, 2], atol=1e-5)
@@ -503,6 +520,10 @@ def test_spans_and_counters_of_a_step():
     assert c["spformer.keys"] == 1992
     for lyr in (1, 2):
         assert c[f"spformer.open_pairs.l{lyr}"] == rec["open_pairs"][lyr - 1]
+        # 1 query tile x ceil(K_b / 64) key blocks of each element
+        tiles = c[f"spformer.mask_attn.tiles.l{lyr}"]
+        assert tiles == sum(-(-k // 64) for k in (1290, 702))
+        assert 0 <= c[f"spformer.mask_attn.tiles_skipped.l{lyr}"] <= tiles
     assert c["spformer.targets"] == 8
     assert c["spformer.matched"] == 8 * (SMALL["num_layer"] + 1)
 

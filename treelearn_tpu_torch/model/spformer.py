@@ -25,10 +25,13 @@ queries.  Layers, with Q queries of width D and H heads:
 Precision (as the other modules place it): linears, the mask products and
 attention take ``compute_dtype`` operands and sum in float32; LayerNorm
 statistics, softmax statistics, the query stream, ``P`` and everything the
-loss computes from it are float32.  The masked cross-attention runs on
-``scaled_dot_product_attention`` with the memory-efficient backend forced
-on a card (the flash backend takes no arbitrary mask) and the self-attention
-with the flash backend; the math backend on the CPU.  A fallback raises.
+loss computes from it are float32.  Each prediction packs the next layer's
+mask from ``P`` (``ops/mask_attn.py:mask_pack``: one bit a pair, a byte a
+64 x 64 tile, the open pairs counted on the device).  On a card the masked
+cross-attention runs on the kernels of ``csrc/mask_attn.cu`` (bf16 only)
+and the self-attention on ``scaled_dot_product_attention``'s flash backend;
+on the CPU both run SDPA's math backend, the cross-attention under
+``mask_bias`` of the unpacked closed mask.  A fallback raises.
 
 Host reads: none; the element's voxel ranges come with the voxelization's
 own read (``voxelize_points(elem_counts=True)``).  The loss
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.mask_attn import mask_attention, mask_pack, unpack_closed
 from ..utils.trace import count, span
 from .blocks import _kaiming_uniform, _split
 from .ptv3 import layer_norm, linear
@@ -67,8 +71,9 @@ _TEST = ("topk_insts", "score_thr", "npoint_thr")
 
 def mask_bias(closed: torch.Tensor, dtype) -> torch.Tensor:
     """The (1, 1, Q, K) additive mask of a (Q, K) closed mask: -inf where
-    closed, 0 where open, in ``dtype``, its rows 16-element aligned so
-    that the memory-efficient kernel reads it in place."""
+    closed, 0 where open, in ``dtype`` (the CPU route's), its rows
+    16-element aligned so that SDPA's memory-efficient kernel would read it
+    in place."""
     q, k = closed.shape
     k16 = -(-k // 16) * 16
     bias = torch.zeros((q, k16), dtype=dtype, device=closed.device)
@@ -128,20 +133,26 @@ class CrossAttentionLayer(nn.Module):
     def forward(self, q, src, ranges, closed, dtype):
         """q (B, Q, D) float32, src (V, D) the keys and values of every
         element, ``ranges`` [(start, end)] of each element's rows of src,
-        ``closed`` [(Q, K_b) bool] -> (B, Q, D) float32."""
+        ``closed`` each element's mask in the form its route reads (on a
+        card the packed ``MaskBits``, on the CPU the (Q, K_b) bool closed
+        mask) -> (B, Q, D) float32."""
         d = q.shape[-1]
         a = self.attn
         qp = a.project(q, slice(0, d), dtype)
         kv = a.project(src, slice(d, 3 * d), dtype)
         scale = (d // a.heads) ** -0.5
-        outs = []
-        for b, (s, e) in enumerate(ranges):
-            k, v = kv[s:e, :d], kv[s:e, d:]
-            bias = None if closed is None else mask_bias(closed[b], dtype)
-            o = attention(a.heads_of(qp[b]), a.heads_of(k), a.heads_of(v),
-                          bias, scale)
-            outs.append(a.merge(o))
-        o = linear(torch.stack(outs), a.out_proj, dtype)
+        if q.is_cuda:
+            o = mask_attention(qp, kv, closed, ranges, a.heads, scale)
+        else:
+            outs = []
+            for b, (s, e) in enumerate(ranges):
+                k, v = kv[s:e, :d], kv[s:e, d:]
+                o = attention(a.heads_of(qp[b]), a.heads_of(k),
+                              a.heads_of(v), mask_bias(closed[b], dtype),
+                              scale)
+                outs.append(a.merge(o))
+            o = torch.stack(outs)
+        o = linear(o, a.out_proj, dtype)
         return layer_norm(q + o.float(), self.norm)
 
 
@@ -188,7 +199,8 @@ def _run_mlp(m, x, dtype):
 
 def closed_mask(p: torch.Tensor) -> torch.Tensor:
     """SPFormer's attention mask of mask logits ``p`` (Q, K): closed where
-    ``sigmoid(p) < 0.5``, every all-closed row opened; no host read."""
+    ``sigmoid(p) < 0.5``, every all-closed row opened; no host read.  The
+    plain statement of the set that ``mask_pack`` packs."""
     a = p < 0
     return a & ~a.all(-1, keepdim=True)
 
@@ -235,22 +247,24 @@ class SPFormerHead(nn.Module):
         self.out_score = _mlp(d, 1)
         self.record: Optional[list] = None
 
-    def predict(self, q, mfeat, ranges, dtype):
+    def predict(self, q, mfeat, ranges, dtype, pack: bool):
         """(normalized queries, class logits, score logits, mask logits per
-        element, closed masks per element) of the queries ``q``; the mask
-        logits are float32 and carry no gradient (the loss recomputes its
-        matched rows from the normalized queries)."""
+        element, packed masks per element, or None without ``pack``) of the
+        queries ``q``; the mask logits are float32 and carry no gradient
+        (the loss recomputes its matched rows from the normalized
+        queries)."""
         qn = layer_norm(q, self.out_norm)
         cls = _run_mlp(self.out_cls, qn, dtype)
         score = _run_mlp(self.out_score, qn, dtype)[..., 0]
-        masks, closed = [], []
+        masks, packed = [], []
         with torch.no_grad():
             qd = qn.to(dtype)
             for b, (s, e) in enumerate(ranges):
                 p = (qd[b] @ mfeat[s:e].t()).float()
                 masks.append(p)
-                closed.append(closed_mask(p))
-        return qn, cls, score, masks, closed
+                if pack:
+                    packed.append(mask_pack(p))
+        return qn, cls, score, masks, packed if pack else None
 
     def forward(self, x: torch.Tensor, ranges: Sequence[tuple],
                 dtype=torch.float32) -> Dict[str, object]:
@@ -258,8 +272,11 @@ class SPFormerHead(nn.Module):
         element's voxels -> dict of per-prediction lists: ``pred_logits``
         (B, Q, 2), ``pred_scores`` (B, Q), ``pred_masks`` [(Q, K_b)]
         float32, ``pred_queries`` (B, Q, D) (the normalized queries),
-        plus ``mask_feats`` (V, D) and ``open_pairs`` ((num_layer,) int64
-        on the device: the pairs each cross-attention's mask left open)."""
+        plus ``mask_feats`` (V, D), ``open_pairs`` ((num_layer,) int64 on
+        the device: the pairs each cross-attention's mask left open) and
+        ``mask_tiles`` ((num_layer, 2) int64 on the device: each layer's
+        64 x 64 (query, key) tiles with no open pair, which the kernels
+        skip, and its tiles)."""
         rec = None
         if self.record is not None:
             rec = {"masks": []}
@@ -268,7 +285,7 @@ class SPFormerHead(nn.Module):
         count("spformer.keys", int(x.shape[0]))
         out = {"pred_logits": [], "pred_scores": [], "pred_masks": [],
                "pred_queries": []}
-        opens = []
+        opens, tiles = [], []
         with span("spformer.decoder"):
             with span("spformer.proj"):
                 src = F.relu(layer_norm(
@@ -290,18 +307,25 @@ class SPFormerHead(nn.Module):
                         with span("spformer.ffn"):
                             q = self.ffn_layers[layer - 1](q, dtype)
                 with span(f"spformer.pred{layer}"):
-                    qn, cls, score, masks, closed = self.predict(
-                        q, mfeat, ranges, dtype)
-                    if layer < self.num_layer:
-                        opens.append(sum((~c).sum() for c in closed))
+                    qn, cls, score, masks, packed = self.predict(
+                        q, mfeat, ranges, dtype, layer < self.num_layer)
+                    if packed is not None:
+                        stats = sum(m.stats for m in packed)
+                        opens.append(stats[0])
+                        tiles.append(stats[1:])
+                        closed = (packed if x.is_cuda else
+                                  [unpack_closed(m) for m in packed])
                         if rec is not None:
-                            rec["masks"].append(closed)
+                            rec["masks"].append(
+                                [unpack_closed(m) for m in packed]
+                                if x.is_cuda else closed)
                 for k, v in zip(("pred_queries", "pred_logits",
                                  "pred_scores", "pred_masks"),
                                 (qn, cls, score, masks)):
                     out[k].append(v)
         out["mask_feats"] = mfeat
         out["open_pairs"] = torch.stack(opens) if opens else None
+        out["mask_tiles"] = torch.stack(tiles) if tiles else None
         out["record"] = rec
         out["criterion"] = dict(self.criterion)
         return out

@@ -29,14 +29,15 @@ CSRC = osp.join(_PKG, "csrc")
 BUILD_ROOT = osp.join(_PKG, "_build")
 SOURCES = ("rulebook.cu", "subm_conv_wgmma.cu", "subm_conv_tf32.cu",
            "subm_conv_dw_wgmma.cu", "subm_conv_dw_tf32.cu", "vert.cu", "cc.cu",
-           "knn.cu", "devoxelize.cu")
+           "knn.cu", "devoxelize.cu", "mask_attn.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rulebook": 0, "subm_conv_wgmma": 0, "subm_conv_tf32": 0,
             "subm_conv_dw_wgmma": 0, "subm_conv_dw_tf32": 0, "vert": 0,
-            "cc": 0, "knn": 0, "devoxelize_fwd": 0, "devoxelize_bwd": 0}
+            "cc": 0, "knn": 0, "devoxelize_fwd": 0, "devoxelize_bwd": 0,
+            "mask_attn_pack": 0, "mask_attn_fwd": 0, "mask_attn_bwd": 0}
 
 # optional observer of kernel inputs: recorder(name, args_dict)
 _RECORDER = None
@@ -82,6 +83,16 @@ _SIGNATURES = {
     "tl_devoxelize_fwd": [_P, _P, _P, _I, _I, _I, _P],
     # grad, p_order, v_start, dfeats, v, lanes, bf16, stream
     "tl_devoxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # p, bits, tiles, row_closed, stats, scratch, nq, nk, words, stream
+    "tl_mask_attn_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, kv, bits, tiles, o_part, ml_part, out, lse, nq, nk, words, heads,
+    # blocks_per_split, scale_log2, stream
+    "tl_mask_attn_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _F, _P],
+    # q, kv, o, dout, lse, bits, tiles, delta, dq_part, dq, dkv, nq, nk,
+    # words, heads, blocks_per_chunk, scale_log2, scale, stream
+    "tl_mask_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _F, _F, _P],
 }
 
 

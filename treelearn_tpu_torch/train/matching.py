@@ -13,9 +13,9 @@ queries to them, and the matched mask, class and score losses.
   ``BCE_cost`` the mean over the element's keys of BCE-with-logits,
   ``Dice_cost = 1 - (2 sigma(P) t^T + 1) / (sum sigma(P) + sum t + 1)``,
   solved by ``scipy.optimize.linear_sum_assignment``.  All the step's cost
-  matrices (with the target sizes and the masks' open pairs) go to the host
-  in one read, under the span ``spformer.match``: the mechanism's one host
-  read a step.
+  matrices (with the target sizes, the masks' open pairs and their skipped
+  and total tiles) go to the host in one read, under the span
+  ``spformer.match``: the mechanism's one host read a step.
 * Loss of a prediction (span ``spformer.loss``): ``l0 class + l1 bce + l2
   dice + l3 score``; class: cross-entropy of every query of the batch
   (matched: tree, the rest: no-object), class weights [1,
@@ -144,8 +144,11 @@ def spformer_loss(output: dict, batch: dict):
                         output["pred_masks"][lp][b], t[b], p_tree[b],
                         crit["cost_weight"]).flatten())
             parts += [tb.sum(1) for tb in t]
+            n_layer = 0
             if output.get("open_pairs") is not None:
-                parts.append(output["open_pairs"])
+                n_layer = len(output["open_pairs"])
+                parts += [output["open_pairs"],
+                          output["mask_tiles"].flatten()]
             host = torch.cat([x.double() for x in parts]).cpu().numpy()
         pos, costs = 0, []
         for lp in range(n_pred):
@@ -157,7 +160,8 @@ def spformer_loss(output: dict, batch: dict):
         for b in range(n_el):
             sizes.append(host[pos:pos + counts[b]])
             pos += counts[b]
-        opens = host[pos:]
+        opens = host[pos:pos + n_layer]
+        tiles = host[pos + n_layer:].reshape(n_layer, 2)
         pairs = [assign(c, sizes[i % n_el]) for i, c in enumerate(costs)]
         dev = output["pred_logits"][0].device
         flat = np.concatenate([np.concatenate(p) for p in pairs]
@@ -166,8 +170,10 @@ def spformer_loss(output: dict, batch: dict):
         if dev.type == "cuda":
             idx = idx.pin_memory()
         idx = idx.to(dev, non_blocking=True)
-    for layer, n in enumerate(opens, start=1):
+    for layer, (n, (empty, every)) in enumerate(zip(opens, tiles), start=1):
         count(f"spformer.open_pairs.l{layer}", int(n))
+        count(f"spformer.mask_attn.tiles_skipped.l{layer}", int(empty))
+        count(f"spformer.mask_attn.tiles.l{layer}", int(every))
     count("spformer.targets", sum(int((s > 0).sum()) for s in sizes))
     count("spformer.matched", sum(len(r) for r, _ in pairs))
     if rec is not None:
